@@ -1,0 +1,20 @@
+"""linna_tpu_torch: the PyTorch and CUDA port of linna-tpu for NVIDIA Hopper.
+
+Module names mirror the JAX package ``linna_tpu`` (the reference, which this
+package never imports).  Entry points run on ``cuda:0`` unless the caller
+passes ``device="cpu"``; without a CUDA device they raise instead of moving
+to the CPU on their own.  The emulator likelihood's hot path runs through
+hand-written CUDA kernels (``ops/csrc/fused_mlp.cu``) when
+``make_log_prob(..., use_fused=True)`` is asked for on a CUDA device.
+"""
+
+from . import device, likelihood, nn, ops, orchestrator, priors, samplers, transforms, utils  # noqa: F401
+from .orchestrator import (  # noqa: F401
+    read_chain_and_cut,
+    retrieve_ensemble_params,
+    retrieve_model,
+    retrieve_model_exist,
+    retrieve_model_wrapper,
+)
+
+__version__ = "0.1.0"
