@@ -39,19 +39,10 @@
 #include <math.h>
 #include <stdint.h>
 
-// Block shape; tune_fused_kernel.py builds variants with -D and times them.
-#ifndef LINNA_THREADS
-#define LINNA_THREADS 512
-#endif
-#ifndef LINNA_UNROLL
-#define LINNA_UNROLL 16  // weight loads in flight per thread (a multiple of 4)
-#endif
-// LINNA_ROWS (2, 4 or 8) fixes the walkers per block for every batch.
-
 namespace {
 
-constexpr int kThreads = LINNA_THREADS;
-constexpr int kUnroll = LINNA_UNROLL;
+constexpr int kThreads = 512;  // threads per block
+constexpr int kUnroll = 16;    // weight loads in flight per thread (a multiple of 4)
 constexpr int kWeights = 23;  // layer1 (2) + 3 resblocks (5 each) + layers 6/7/8 (2 each)
 
 struct TrunkWeights {
@@ -339,14 +330,8 @@ TrunkWeights make_weights(const void* const* ptrs) {
 // Walkers per block: as few as keep a launch near one wave of blocks on the
 // 132 SMs (a block's serial walk over the layers sets a small launch's
 // time), more for large batches, where each weight read is reused over
-// more rows.  From tune_fused_kernel.py's sweep at the DES width.
-int rows_for(int nrows) {
-#ifdef LINNA_ROWS
-  return LINNA_ROWS;
-#else
-  return nrows <= 256 ? 2 : nrows <= 512 ? 4 : 8;
-#endif
-}
+// more rows.  From a sweep of block shapes at the DES width (PERF.md).
+int rows_for(int nrows) { return nrows <= 256 ? 2 : nrows <= 512 ? 4 : 8; }
 
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem) {

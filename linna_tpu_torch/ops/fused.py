@@ -112,13 +112,7 @@ def build() -> str:
             )
         log_path.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, so)
-    _Library.lib = bind(ctypes.CDLL(str(so)))
-    _Library.log = log_path.read_text() if log_path.is_file() else ""
-    return _Library.log
-
-
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of a built ``fused_mlp`` library."""
+    lib = ctypes.CDLL(str(so))
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     ints = ctypes.POINTER(ctypes.c_int)
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -130,7 +124,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.linna_launch_shape.restype = ci
     lib.linna_error_string.argtypes = [ci]
     lib.linna_error_string.restype = ctypes.c_char_p
-    return lib
+    _Library.lib = lib
+    _Library.log = log_path.read_text() if log_path.is_file() else ""
+    return _Library.log
 
 
 def _check(err: int, what: str) -> None:

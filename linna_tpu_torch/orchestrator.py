@@ -217,33 +217,21 @@ def retrieve_model_exist(
 def retrieve_model_wrapper(
     outdir: str,
     model_name: str = "chto_v2",
-    use_fused: bool = False,
     device: DeviceLike = None,
 ):
     """A function mapping physical parameters to the emulated data vector
-    in raw data space (X transform -> model -> y transform -> sigma).
-
-    ``use_fused=True`` runs the trunk through
-    :func:`linna_tpu_torch.ops.fused.fused_apply` (the CUDA kernel on a
-    CUDA device)."""
-    from .ops import fused
-
+    in raw data space (X transform -> model -> y transform -> sigma)."""
     in_size, out_size = _saved_shapes(outdir)
     model = retrieve_model(outdir, in_size, out_size, model_name, device=device)
     spec, params, transforms = model.spec, model.params, model.transforms
     dev = params["layer1"]["w"].device
-    forward = (
-        (lambda x: fused.fused_apply(spec, params, x))
-        if use_fused and not spec.linear_bypass
-        else (lambda x: N.apply_model(spec, params, x, linearmodel=model.linearmodel))
-    )
 
     def emulator(x):
         x = torch.as_tensor(x, dtype=torch.float32).to(dev)
         one = x.ndim == 1
         if one:
             x = x[None, :]
-        pred = forward(transforms.x_transform(x).contiguous())
+        pred = N.apply_model(spec, params, transforms.x_transform(x), linearmodel=model.linearmodel)
         out = transforms.y_data.inverse(transforms.y_transform(pred))
         return out[0] if one else out
 

@@ -11,9 +11,10 @@ Both keep an exact-resume ``sampler_state`` group.  A file written by either
 package reads in the other.
 
 h5py is imported at first use.  Where it cannot be imported, the same
-datasets, attributes and ``sampler_state`` group go into an ``.npz`` file
-beside the requested name (``<filename>.npz``), rewritten atomically on every
-write; :func:`store_kind` says which store is in use.
+datasets, attributes and ``sampler_state`` group go into a directory beside
+the requested name (``<filename>.d``): each growable dataset is a raw row file
+that an append extends by one chunk, and the rest is a small ``index.npz``;
+:func:`store_kind` says which store is in use.
 """
 
 from __future__ import annotations
@@ -28,11 +29,14 @@ __all__ = ["EmceeBackend", "ZeusBackend", "store_kind"]
 STATE_GROUP = "sampler_state"
 
 
-# ------------------------------------------------------------ npz store
+# ------------------------------------------------------------ directory store
+
+_INDEX = "index.npz"
 
 
-class _NpzDataset:
-    """The part of ``h5py.Dataset`` the backends use, over a numpy array."""
+class _SmallDataset:
+    """The part of ``h5py.Dataset`` the backends use, over a numpy array kept
+    in the index."""
 
     def __init__(self, array: np.ndarray):
         self.a = np.asarray(array)
@@ -51,22 +55,47 @@ class _NpzDataset:
     def __setitem__(self, idx, value):
         self.a[idx] = value
 
-    def __array__(self, dtype=None, copy=None):
-        return self.a if dtype is None else self.a.astype(dtype)
+
+class _RowDataset:
+    """A growable dataset kept as a raw file of rows: ``resize`` truncates or
+    extends the file, and a write touches only the rows it names, so an
+    append costs one chunk whatever the chain's length."""
+
+    def __init__(self, path: str, dtype, row_shape):
+        self.path = path
+        self.dtype = np.dtype(dtype)
+        self.row_shape = tuple(int(n) for n in row_shape)
+        self.row_bytes = self.dtype.itemsize * int(np.prod(self.row_shape, dtype=np.int64))
+
+    @property
+    def shape(self):
+        return (os.path.getsize(self.path) // self.row_bytes,) + self.row_shape
+
+    def _map(self, mode: str):
+        shape = self.shape
+        if shape[0] == 0:
+            return np.zeros(shape, self.dtype)
+        return np.memmap(self.path, self.dtype, mode, shape=shape)
+
+    def __getitem__(self, idx):
+        return np.array(self._map("r")[idx])
+
+    def __setitem__(self, idx, value):
+        rows = self._map("r+")
+        rows[idx] = value
+        if isinstance(rows, np.memmap):
+            rows.flush()
 
     def resize(self, n: int, axis: int = 0) -> None:
-        old = self.a.shape[0]
-        if n <= old:
-            self.a = self.a[:n].copy()
-        else:
-            pad = np.zeros((n - old,) + self.a.shape[1:], self.a.dtype)
-            self.a = np.concatenate([self.a, pad])
+        os.truncate(self.path, n * self.row_bytes)
 
 
-class _NpzGroup:
+class _DirGroup:
     """The part of ``h5py.Group`` the backends use."""
 
-    def __init__(self):
+    def __init__(self, dirname: str, prefix: str = ""):
+        self.dirname = dirname
+        self.prefix = prefix
         self.attrs: dict = {}
         self.children: dict = {}
 
@@ -89,51 +118,70 @@ class _NpzGroup:
         return self.children.items()
 
     def create_group(self, name):
-        self.children[name] = _NpzGroup()
+        self.children[name] = _DirGroup(self.dirname, f"{self.prefix}{name}/")
         return self.children[name]
 
     def require_group(self, name):
         return self.children[name] if name in self.children else self.create_group(name)
 
+    def _rows(self, name, dtype, row_shape) -> _RowDataset:
+        path = os.path.join(self.dirname, (self.prefix + name).replace("/", ".") + ".bin")
+        return _RowDataset(path, dtype, row_shape)
+
     def create_dataset(self, name, shape=None, maxshape=None, dtype=None, data=None, **_):
-        if data is None:
-            data = np.zeros(shape, dtype=dtype or np.float64)
-        self.children[name] = _NpzDataset(np.array(data, dtype=dtype))
+        data = np.zeros(shape, dtype=dtype or np.float64) if data is None else np.asarray(data, dtype=dtype)
+        if maxshape is None:
+            self.children[name] = _SmallDataset(data.copy())
+        else:
+            ds = self._rows(name, data.dtype, data.shape[1:])
+            with open(ds.path, "wb") as f:
+                f.write(np.ascontiguousarray(data).tobytes())
+            self.children[name] = ds
         return self.children[name]
 
 
-class _NpzFile(_NpzGroup):
-    """An h5py-like file kept as one ``.npz``: datasets under their
-    ``/``-joined paths, attributes under ``<group path>@<name>``."""
+class _DirFile(_DirGroup):
+    """An h5py-like file kept as a directory.  Datasets created with
+    ``maxshape`` are raw row files (``<group>.<name>.bin``); attributes,
+    small datasets and the row files' dtypes and row shapes go into
+    ``index.npz``, rewritten atomically when a writer closes.  Row files are
+    written in place before the index, so a torn append leaves rows past the
+    committed ``iteration``, as with h5py."""
 
-    def __init__(self, filename: str, mode: str = "r"):
-        super().__init__()
-        self.filename = filename
+    def __init__(self, dirname: str, mode: str = "r"):
+        super().__init__(dirname)
         self.mode = mode
-        if not os.path.isfile(filename):
+        index = os.path.join(dirname, _INDEX)
+        if not os.path.isfile(index):
             if mode == "r":
-                raise FileNotFoundError(filename)
+                raise FileNotFoundError(dirname)
+            os.makedirs(dirname, exist_ok=True)
             return
-        with np.load(filename, allow_pickle=False) as z:
+        with np.load(index, allow_pickle=False) as z:
             for key in z.files:
+                # "<path>@<attr>", "<path>" (small dataset), "<path>%" (row file)
                 path, _, attr = key.partition("@")
-                parts = [p for p in path.split("/") if p]
+                parts = [p for p in path.rstrip("%").split("/") if p]
                 node = self
                 for p in parts[: len(parts) - (0 if attr else 1)]:
                     node = node.require_group(p)
                 if attr:
                     node.attrs[attr] = z[key][()]
+                elif path.endswith("%"):
+                    node.children[parts[-1]] = node._rows(parts[-1], z[key].dtype, z[key].shape[1:])
                 else:
-                    node.children[parts[-1]] = _NpzDataset(z[key])
+                    node.children[parts[-1]] = _SmallDataset(z[key])
 
-    def _flatten(self, group: _NpzGroup, prefix: str, out: dict) -> None:
+    def _flatten(self, group: _DirGroup, out: dict) -> None:
         for k, v in group.attrs.items():
-            out[f"{prefix}@{k}"] = np.asarray(v)
+            out[f"{group.prefix}@{k}"] = np.asarray(v)
         for name, child in group.children.items():
-            if isinstance(child, _NpzGroup):
-                self._flatten(child, f"{prefix}{name}/", out)
+            if isinstance(child, _DirGroup):
+                self._flatten(child, out)
+            elif isinstance(child, _RowDataset):
+                out[f"{group.prefix}{name}%"] = np.zeros((0,) + child.row_shape, child.dtype)
             else:
-                out[prefix + name] = child.a
+                out[group.prefix + name] = child.a
 
     def __enter__(self):
         return self
@@ -141,42 +189,45 @@ class _NpzFile(_NpzGroup):
     def __exit__(self, *exc):
         if self.mode != "r" and exc[0] is None:
             arrays: dict = {}
-            self._flatten(self, "", arrays)
-            tmp = self.filename + ".tmp.npz"
+            self._flatten(self, arrays)
+            tmp = os.path.join(self.dirname, "index.tmp.npz")
             np.savez(tmp, **arrays)
-            os.replace(tmp, self.filename)
+            os.replace(tmp, os.path.join(self.dirname, _INDEX))
         return False
 
 
-class _NpzModule:
-    File = _NpzFile
-    Dataset = _NpzDataset
+class _DirModule:
+    File = _DirFile
+    Dataset = _SmallDataset
 
 
 def _h5():
-    """h5py, or the npz store with the same interface when h5py is missing."""
+    """h5py, or the directory store with the same interface when h5py is
+    missing."""
     try:
         import h5py
     except ImportError:
-        return _NpzModule
+        return _DirModule
     return h5py
 
 
 def store_kind() -> str:
-    return "npz" if _h5() is _NpzModule else "hdf5"
+    return "dir" if _h5() is _DirModule else "hdf5"
 
 
 class _Store:
     def __init__(self, filename: str):
         self.filename = filename
         self._h5 = _h5()
-        # where the bytes go: the requested name, or the npz file beside it
-        self.path = filename if self._h5 is not _NpzModule else filename + ".npz"
+        # where the bytes go: the requested file, or a directory beside it
+        self.path = filename if self._h5 is not _DirModule else filename + ".d"
 
     def _open(self, mode: str):
         return self._h5.File(self.path, mode)
 
     def exists(self) -> bool:
+        if self._h5 is _DirModule:
+            return os.path.isfile(os.path.join(self.path, _INDEX))
         return os.path.isfile(self.path)
 
     def save_state(self, blob: dict) -> None:

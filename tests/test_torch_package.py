@@ -99,21 +99,28 @@ def test_linear_model_artifact_is_not_ported(tmp_path):
 
 
 def test_npz_store_keeps_the_zeus_layout(tmp_path, monkeypatch):
-    """Without h5py the chain goes to <name>.npz with the same datasets,
-    iteration attribute and sampler_state group."""
-    monkeypatch.setattr(TB, "_h5", lambda: TB._NpzModule)
-    assert TB.store_kind() == "npz"
+    """Without h5py the chain goes to the directory <name>.d with the same
+    datasets, iteration attribute and sampler_state group; an append writes
+    its own rows and leaves the index the same size."""
+    monkeypatch.setattr(TB, "_h5", lambda: TB._DirModule)
+    assert TB.store_kind() == "dir"
     b = TB.ZeusBackend(str(tmp_path / "zeus_256.h5"))
     assert not b.initialized and b.load_state() is None
     rng = np.random.default_rng(0)
     c1, c2 = rng.normal(size=(3, 4, 2)), rng.normal(size=(2, 4, 2))
     b.append(c1, rng.normal(size=(3, 4)), transform=lambda c: 2 * c)
+    index = os.path.join(b.path, "index.npz")
+    index_bytes = os.path.getsize(index)
     b.append(c2, rng.normal(size=(2, 4)), transform=lambda c: 2 * c)
+    assert os.path.getsize(index) == index_bytes
+    assert os.path.getsize(os.path.join(b.path, "samples.bin")) == c1.nbytes + c2.nbytes
     b.save_state({"coords": np.ones((4, 2), np.float32), "_method": np.bytes_("zeus"),
                   "_finished": np.asarray(True)})
-    assert b.path.endswith("zeus_256.h5.npz") and os.path.isfile(b.path)
+    assert b.path.endswith("zeus_256.h5.d") and os.path.isdir(b.path)
+    with open(os.path.join(b.path, "samples.bin"), "ab") as f:
+        f.write(c2[:1].tobytes())  # the rows of a torn append
     again = TB.ZeusBackend(str(tmp_path / "zeus_256.h5"))
-    assert again.initialized and again.iteration == 5
+    assert again.initialized and again.iteration == 5 and again.get_chain().shape[0] == 5
     np.testing.assert_array_equal(again.get_chain(), np.concatenate([c1, c2]))
     np.testing.assert_array_equal(again.get_value("chain_transformed"), 2 * np.concatenate([c1, c2]))
     np.testing.assert_array_equal(again.get_last_sample(), c2[-1])
@@ -129,8 +136,8 @@ def test_npz_store_keeps_the_zeus_layout(tmp_path, monkeypatch):
 
 def test_run_ensemble_resumes_exactly_on_the_npz_store(tmp_path, monkeypatch):
     """The card has no h5py: sampling, exact resume and the chain cut work
-    the same on the npz store."""
-    monkeypatch.setattr(TB, "_h5", lambda: TB._NpzModule)
+    the same on the directory store."""
+    monkeypatch.setattr(TB, "_h5", lambda: TB._DirModule)
     lp = lambda x: -0.5 * torch.sum(x * x, dim=-1)
     x0 = np.random.default_rng(0).normal(size=(8, 2)) * 0.1
     kw = dict(check_every=50, tautol=1e-12, seed=3, device="cpu")
@@ -139,7 +146,7 @@ def test_run_ensemble_resumes_exactly_on_the_npz_store(tmp_path, monkeypatch):
     TR.run_ensemble(lp, x0, str(tmp_path / "split"), max_iterations=150, **kw)
     paths = [str(tmp_path / d / TR.ZEUS_FILENAME) for d in ("whole", "split")]
     whole, split = (TB.ZeusBackend(p) for p in paths)
-    assert not os.path.exists(paths[0]) and os.path.isfile(whole.path)
+    assert not os.path.exists(paths[0]) and os.path.isdir(whole.path)
     np.testing.assert_array_equal(whole.get_chain(), split.get_chain())
     assert whole.iteration == 150 and bool(split.load_state()["_finished"])
     chain, logp, _ = TO.read_chain_and_cut(paths[1], nk=2, method="zeus", flat=True)

@@ -207,9 +207,8 @@ def test_each_package_resumes_the_others_chain_statistically(runs):
 def test_retrieval_helpers_match_jax(runs):
     x = JP.transform_np(JP.priors_from_list(PRIORS), runs.x0[:5])
     want = np.asarray(JO.retrieve_model_wrapper(runs.fresh)(x))
-    for use_fused in (False, True):
-        got = TO.retrieve_model_wrapper(runs.fresh, use_fused=use_fused, device=CPU)(x)
-        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    got = TO.retrieve_model_wrapper(runs.fresh, device=CPU)(x)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     one = TO.retrieve_model_wrapper(runs.fresh, device=CPU)(x[0])
     assert one.shape == (NDATA,)
     model, incut, outcut = TO.retrieve_model_exist(runs.fresh, NDIM - 1, NDATA - 2, device=CPU)
