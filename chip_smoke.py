@@ -11,16 +11,20 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    sm_90a and print the seconds and the compiler's register/shared-memory
    report.
 3. Kernels against their plain PyTorch versions at the DES-Y1-3x2pt width
-   (27 -> 457, hidden 1000) for B in {1, 37, 128, 256, 4096}: ``fused_apply``
+   (27 -> 457, hidden 1000) for B in {1, 37, 128, 200, 256, 4096} (200
+   leaves a ragged last cluster of ``fused_log_prob``): ``fused_apply``
    against the plain trunk, ``fused_log_prob`` against the plain
    ``make_log_prob`` composition (mixed gauss/flat priors; log10 lanes with
    non-positive rows that must be -inf in both; ypositive), both gradients,
-   and the per-launch times from CUDA events at 128 and 256 rows.
+   and the per-launch times at 128 and 256 rows with each kernel's launch
+   shape (``fused_log_prob``: clusters of 8 blocks, and how many the card
+   holds at once).
 4. The sampling stage of one ``ml_sampler_core`` iteration on a DES-width
    iteration directory written with the port's own writers:
    ``retrieve_model`` -> ``make_log_prob(use_fused=True, temperature=16)``
    -> ``run_ensemble(method="zeus", nwalkers=256)`` for 300 steps ->
-   ``read_chain_and_cut`` -> the posterior-mean prediction through
+   ``read_chain_and_cut`` (and once more with ``walkercut=True``, the
+   numpy k-means walker cut) -> the posterior-mean prediction through
    ``retrieve_model_wrapper``.  The kernels' launch counters are zeroed just
    before and read just after: ``fused_log_prob`` must have launched and the
    plain versions must not have run.  ``fused_apply`` is not on this path
@@ -51,7 +55,7 @@ NDIM, NDATA = 27, 457  # DES-Y1-3x2pt (examples/des_synthetic.yaml)
 NWALKERS = 256
 TEMPERATURE = 16.0  # T^2 of iteration 0 (T = 4)
 STEPS = 300
-BATCHES = (1, 37, 128, 256, 4096)
+BATCHES = (1, 37, 128, 200, 256, 4096)
 TIMED_ROWS = (128, 256)
 REPS = 30
 
@@ -222,7 +226,7 @@ def phase_kernels(device, batches=BATCHES, timed=TIMED_ROWS, ndim=NDIM, ndata=ND
 
     gen = torch.Generator(device="cpu").manual_seed(7)
     rec = {k: {"abs": 0.0, "rel": 0.0, "ms": {}, "plain_ms": {}, "call_ms": {},
-               "plain_call_ms": {}, "bound": {}} for k in REPLACES}
+               "plain_call_ms": {}, "bound": {}, "shape": {}} for k in REPLACES}
 
     def note(kernel, err):
         rec[kernel]["abs"] = max(rec[kernel]["abs"], err["abs"])
@@ -292,11 +296,15 @@ def phase_kernels(device, batches=BATCHES, timed=TIMED_ROWS, ndim=NDIM, ndata=ND
                 r["call_ms"][b] = call_ms(kern)
                 r["plain_call_ms"][b] = call_ms(plain)
                 r["bound"][b] = bound_ms(k, spec, params, b)
+                r["shape"][b] = F.launch_shape(spec, b, k)
                 log(f"  {k} B={b}: kernel {r['ms'][b]:.4f} ms ({r['method']}), plain "
                     f"{r['plain_ms'][b]:.4f} ms device; per call with host "
                     f"{r['call_ms'][b]:.4f} / {r['plain_call_ms'][b]:.4f} ms; bound "
                     f"{r['bound'][b][0]:.4f} ms ({r['bound'][b][1]}); "
-                    f"launch shape {F.launch_shape(spec, b)}")
+                    f"launch shape {r['shape'][b]}")
+    for b, shape in rec["fused_log_prob"]["shape"].items():
+        if shape["cluster_size"] != 8 or shape["max_active_clusters"] < 1:
+            raise AssertionError(f"fused_log_prob B={b}: launch shape {shape}")
     return rec
 
 
@@ -415,6 +423,8 @@ def phase_slice(device, outdir, nwalkers=NWALKERS, steps=STEPS, ndim=NDIM, ndata
     t2 = time.perf_counter()
     chain_path = os.path.join(outdir, O._chain_filename("zeus"))
     chain, logp, reader = O.read_chain_and_cut(chain_path, nk=2, ntimes=10, method="zeus", flat=True)
+    cut_chain, cut_lp, _ = O.read_chain_and_cut(chain_path, nk=2, ntimes=10, walkercut=True,
+                                                method="zeus")
     emulator = O.retrieve_model_wrapper(outdir, device=device)
     with torch.no_grad():
         pred = emulator(chain.mean(axis=0))
@@ -428,6 +438,9 @@ def phase_slice(device, outdir, nwalkers=NWALKERS, steps=STEPS, ndim=NDIM, ndata
         raise AssertionError(f"chain shapes {samples.shape}, {lps.shape}")
     if not (np.isfinite(samples).all() and np.isfinite(lps).all() and np.isfinite(chain).all()):
         raise AssertionError("the chain or its log-probs are not finite")
+    if (cut_lp.shape[1] < 1 or cut_chain.shape != (cut_lp.size, ndim)
+            or not np.isfinite(cut_chain).all()):
+        raise AssertionError(f"walker cut: chain {cut_chain.shape}, log-probs {cut_lp.shape}")
     pred = pred.cpu().numpy()
     if pred.shape != (ndata,) or not np.isfinite(pred).all():
         raise AssertionError(f"posterior-mean prediction {pred.shape} is not finite")
@@ -455,6 +468,7 @@ def phase_slice(device, outdir, nwalkers=NWALKERS, steps=STEPS, ndim=NDIM, ndata
         "launches_per_step": launches["fused_log_prob"] / steps,
         "plain_calls": plain,
         "kept_samples": int(chain.shape[0]),
+        "walkercut_kept_walkers": int(cut_lp.shape[1]),
         "posterior_mean_chi2_per_point": chi2 / ndata,
         "trace": trace,
         "traced_chunk": busy,
@@ -531,6 +545,7 @@ def main() -> int:
             "plain_ms_by_rows": r["plain_ms"],
             "call_ms_by_rows": r["call_ms"],
             "plain_call_ms_by_rows": r["plain_call_ms"],
+            "launch_shape_by_rows": r["shape"],
             "check": "pass",
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,47 +3,74 @@
 // Replaces the two Pallas TPU kernels of linna_tpu/ops/fused.py:
 //   linna_fused_apply     <- _apply_impl     (the ChtoModelv2 trunk, one launch)
 //   linna_fused_log_prob  <- _log_prob_impl  (whitened walker -> one log-posterior f32)
-// Both share the device-side trunk routine `trunk` below.
 //
-// Design.  On the TPU every weight sits in VMEM for the whole launch.  Here
-// the DES-width weights (27 -> 457, hidden 1000: 1,258,500 floats, 5.03 MB)
-// are far above one SM's 227 KB of shared memory, so the weights stream from
-// global memory (they stay resident in the 50 MB L2 across blocks and
-// launches) and each block keeps only its ROWS walkers' activations on chip:
-// two ping-pong buffers of the widest activation, one buffer for the residual
-// blocks' narrow inner channels, and a split-K reduction scratch.  Each
-// thread owns one output column at a time and keeps ROWS accumulators in
-// registers, so every weight read from L2 is used ROWS times; activations are
-// read from shared memory as broadcast float4 loads.  512 threads give the
-// 500-wide layers one column pass, and each thread keeps 16 weight loads in
-// flight.  Narrow layers (the 16-64 channel inner linears) split their
-// reduction over the threads of the block and reduce through shared memory.
+// What bounds them: per walker 2.52 MFLOP for the trunk (+0.42 MFLOP for the
+// 457x457 chi^2 product) against 5.03 MB (+0.84 MB) of weights per launch at
+// the DES width (27 -> 457, hidden 1000), so the card's f32 rate bounds the
+// work (~11 us at 256 walkers).  On the TPU every weight sits in VMEM for the
+// whole launch.  Here the weights are far above one SM's 227 KB of shared
+// memory, so they stream from global memory (they stay resident in the 50 MB
+// L2 across blocks and launches) and blocks keep only activations on chip.
 //
-// What bounds it: per walker 2.52 MFLOP for the trunk (+0.42 MFLOP for the
-// 457x457 chi^2 product) against 5.03 MB (+0.84 MB) of weights per launch,
-// so the card's f32 rate bounds the work (~11 us at 256 walkers).  This
-// design is far from that: every block walks all 14 layers for its own
-// walkers, re-reading every weight from L2, and at the sampler's 128-256
-// walkers that serial walk (one L2 round trip per 16 weights per thread,
-// a block barrier per layer) sets the launch time.  The host picks few
-// walkers per block so that a launch fills about one wave of blocks.
-// Splitting each layer's columns over all SMs, and wgmma/TMA/TF32, are
-// later work.
+// fused_apply_kernel: each block takes ROWS walkers and walks all 14 layers
+// for them (`trunk`), keeping two ping-pong buffers of the widest
+// activation, one for the residual blocks' narrow inner channels and a
+// split-K scratch.  A thread owns one output column at a time with one
+// accumulator per walker in registers, reads activations from shared memory
+// as broadcast float4 loads and keeps 16 weight loads in flight; products
+// narrower than the block split their reduction over its threads.  Every
+// block re-reads every weight from L2, and every FMA needs its own
+// activation word from shared memory, whose path to the registers moves 32
+// words a clock per SM against 128 FMAs.
+//
+// fused_log_prob_kernel: thread-block clusters of 8 blocks (the portable
+// cluster size).  A cluster takes R walkers and block rank q computes
+// columns [q N/8, (q+1) N/8) (edges rounded to multiples of 4) of every
+// product for all R walkers, so each weight is read from L2 once per
+// cluster.  Every block keeps the full-width activations of its cluster's
+// walkers; each product's epilogue writes its values into the destination
+// buffer of all 8 blocks through distributed shared memory, and one cluster
+// barrier per product completes them (it is the block barrier too, and
+// orders the ping-pong buffers' reuse).  lin1 and skip of a residual block
+// read the same input and run as one product.  The chi^2 product gives each
+// block its columns of C^-1 delta and their part of delta . C^-1 delta,
+// which rank 0 sums in a fixed order.
+//
+// What bounds it at the sampler's 128-256 walkers is latency, not the FMA
+// rate: a launch is a chain of 11 products, each a round of weight loads,
+// a split-K reduction, an epilogue and a cluster barrier (on-chip timings in
+// PERF.md).  So the 11 products run as one loop over a table in shared
+// memory (one code path, so the instruction cache stays warm); a thread task
+// is a tile of 8 walkers x 4 columns (each activation word read from shared
+// memory feeds 4 FMAs, each weight 8); the epilogue constants of a block's
+// columns are copied to shared memory once per launch; and the epilogue
+// does all its loads before any store into a peer.  R is 8, 16 or 24, the
+// fewest that let all of a launch's clusters be resident at once: a cluster
+// must fit in one GPC, and the H100's GPCs hold 15 clusters of 8 one-block
+// SMs, so 16 clusters of 8 walkers at 128 rows would take two waves.
 //
 // Semantics kept from the TPU kernels: f32 accumulation; log10 lanes take
 // log10(max(x, 1e-30)) and flag the row when any masked physical value is
 // <= 0; such a row, or a NaN log-posterior, gives -inf.  Rows past the batch
 // are computed on zeros and never stored (no padding by repeating row 0).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 512;  // threads per block
 constexpr int kUnroll = 16;    // weight loads in flight per thread (a multiple of 4)
 constexpr int kWeights = 23;  // layer1 (2) + 3 resblocks (5 each) + layers 6/7/8 (2 each)
+constexpr int kCluster = 8;    // blocks per cluster of fused_log_prob_kernel
+// linna_fused_log_prob's return values when no cluster fits on the card, and
+// when a product is too wide for one block's threads
+constexpr int kNoCluster = 1 << 20;
+constexpr int kTooWide = kNoCluster + 1;
 
 struct TrunkWeights {
   const float* w[kWeights];
@@ -227,25 +254,268 @@ fused_apply_kernel(const float* __restrict__ x, int nrows, TrunkWeights w, Trunk
   }
 }
 
-template <int ROWS>
-__global__ void __launch_bounds__(kThreads)
-fused_log_prob_kernel(const float* __restrict__ x, int nrows, TrunkWeights w, TrunkDims d,
+// ------------------------------------------------ fused_log_prob on clusters
+
+constexpr int kRowTile = 8;    // walkers of one thread task
+constexpr int kColTile = 4;    // columns of one thread task: each activation read feeds 4 FMAs
+constexpr int kMaxGroups = 3;  // row groups of kRowTile walkers per cluster: at most 24 walkers
+constexpr int kItems = 8;      // epilogue values per thread and product, at most
+// the products of one launch: layer1, 3 x (lin1 | skip, lin2), layers 6, 7, 8, chi^2
+constexpr int kProducts = 11;
+constexpr int kDeltaProduct = 9;  // layer 8, whose epilogue gives delta
+
+// The first column of an n-wide product that cluster rank q computes (q = 8
+// gives n): q n / 8 rounded up to a multiple of 4.
+__host__ __device__ inline int slice_edge(int n, int q) {
+  const int e = ((q * n / kCluster) + 3) & ~3;
+  return e < n ? e : n;
+}
+
+// Row stride of the buffer A, which holds the input and the outputs of the
+// residual blocks 1 and 3 and of layers 7 and 8 (B holds the wider ones).
+__host__ __device__ inline int narrow_width(const TrunkDims& d) {
+  const int a = d.in > d.h2 ? d.in : d.h2;
+  const int b = d.h8 > d.out ? d.h8 : d.out;
+  return ((a > b ? a : b) + 3) & ~3;
+}
+
+// Output width of product p.
+__host__ __device__ inline int product_width(const TrunkDims& d, int p) {
+  const int w[kProducts] = {d.h,  d.c1 + d.h2, d.h2, d.c2 + d.h4, d.h4, d.c3 + d.h8,
+                            d.h8, d.l6,        d.out, d.out,      d.out};
+  return w[p];
+}
+
+// Epilogue constants of one block: per product and column the bias, and for
+// layer 8 also y_std, y_mean, sigma and data.
+__host__ __device__ inline int cst_floats(const TrunkDims& d) {
+  int total = 0;
+  for (int p = 0; p < kProducts; ++p) {
+    total += (p == kDeltaProduct ? 5 : 1) * (product_width(d, p) / kCluster + 4);
+  }
+  return (total + 3) & ~3;
+}
+
+// One output segment of a product: out[r, c] = epilogue(in[r, :] @ W[:, c]), c < n.
+struct Seg {
+  const float* W;     // [K, n], row-major
+  const float* bias;  // [n] or nullptr
+  float* out;         // this block's buffer; every peer's copy is at the same offset
+  int ld;             // row stride of out
+  int n;
+  bool relu;
+};
+
+// What the epilogue does with a column's sum s (b: the bias, or 0).
+enum class Out {
+  kPush,   // relu?((s + b) * alpha) into every block of the cluster
+  kAccum,  // relu?((s + b) * alpha + this block's out) into every block
+  kDelta,  // m = (s + b) * y_std + y_mean, exp(m) when ypositive; m * sigma - data into every block
+  kLocal,  // s + b into this block only
+};
+
+// One product of the launch, as this block computes it: the columns of s0
+// and then of s1 form one range (the residual blocks' lin1 and skip read the
+// same input; other products leave s1.n = 0), of which the block takes
+// [c0, c0 + ncols).  A thread task is a tile of kRowTile walkers x kColTile
+// columns g, g + ngc, ... (neighbouring threads read neighbouring weights)
+// over one of `split` ranges of kchunk k.
+struct Product {
+  Seg s0, s1;
+  const float* in;  // this block's input buffer
+  float* cst;       // this block's epilogue constants (see cst_floats)
+  int ld_in, K;
+  float alpha;
+  Out mode;
+  int c0, ncols, ngc, tiles, split, kchunk;
+};
+
+constexpr size_t kProductBytes = (sizeof(Product) * kProducts + 15) & ~size_t(15);
+
+__device__ void plan_product(Product& P, int R, int rank) {
+  const int n = P.s0.n + P.s1.n;
+  P.c0 = slice_edge(n, rank);
+  P.ncols = slice_edge(n, rank + 1) - P.c0;
+  P.ngc = (P.ncols + kColTile - 1) / kColTile;
+  P.tiles = P.ngc * (R / kRowTile);
+  // as many k ranges as the threads allow (tiles <= kThreads: plan_log_prob),
+  // but none shorter than 4
+  P.split = P.tiles == 0 ? 0 : min(kThreads / P.tiles, (P.K + 3) / 4);
+  P.kchunk = P.split == 0 ? 0 : (((P.K + P.split - 1) / P.split) + 3) & ~3;
+}
+
+// Clock stamps of block 0, thread 0 at each product's phases, for
+// fused_phases.py, which builds with -DLINNA_PHASES; nothing in a normal
+// build.  Phase i of product p ends at stamp [p][i + 1].
+#ifdef LINNA_PHASES
+__device__ long long linna_phases[kProducts][6];
+#define LINNA_PHASE(p, i) \
+  if (blockIdx.x == 0 && threadIdx.x == 0) linna_phases[p][i] = clock64()
+#else
+#define LINNA_PHASE(p, i)
+#endif
+
+struct Task {
+  const float* w[kColTile];  // column i's weights at w[i] + k * ldw[i]
+  int ldw[kColTile];
+  int g, r0, part, k0, k1;
+};
+
+__device__ __forceinline__ Task make_task(const Product& P, int task) {
+  Task t;
+  t.g = task % P.ngc;
+  t.r0 = (task % P.tiles) / P.ngc * kRowTile;
+  t.part = task / P.tiles;
+  t.k0 = t.part * P.kchunk;
+  t.k1 = min(P.K, t.k0 + P.kchunk);
+#pragma unroll
+  for (int i = 0; i < kColTile; ++i) {
+    // a padding column past the range reads a real one and is never stored
+    const int j = P.c0 + min(t.g + i * P.ngc, P.ncols - 1);
+    t.w[i] = j < P.s0.n ? P.s0.W + j : P.s1.W + (j - P.s0.n);
+    t.ldw[i] = j < P.s0.n ? P.s0.n : P.s1.n;
+  }
+  return t;
+}
+
+// acc[r][i] += sum_{k0 <= k < k1} in[r, k] * w_i[k] for the task's tile.  A
+// step of 4 k keeps 16 weight loads in flight and reads one broadcast float4
+// of activations per walker, which feeds 16 FMAs (the shared-memory-to-
+// register path moves 32 words a clock per SM against 128 FMAs).
+// in + r * ld_in + k0 must be 16-byte aligned.
+__device__ __forceinline__ void tile_sums(const Task& t, const float* in, int ld_in,
+                                          float (&acc)[kRowTile][kColTile]) {
+  int k = t.k0;
+  for (; k + 4 <= t.k1; k += 4) {
+    float wv[4][kColTile];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int i = 0; i < kColTile; ++i) wv[kk][i] = __ldg(t.w[i] + (k + kk) * t.ldw[i]);
+    }
+#pragma unroll
+    for (int r = 0; r < kRowTile; ++r) {
+      const float4 a = *reinterpret_cast<const float4*>(in + r * ld_in + k);
+#pragma unroll
+      for (int i = 0; i < kColTile; ++i) {
+        acc[r][i] = fmaf(a.x, wv[0][i], acc[r][i]);
+        acc[r][i] = fmaf(a.y, wv[1][i], acc[r][i]);
+        acc[r][i] = fmaf(a.z, wv[2][i], acc[r][i]);
+        acc[r][i] = fmaf(a.w, wv[3][i], acc[r][i]);
+      }
+    }
+  }
+  for (; k < t.k1; ++k) {
+    float w1[kColTile];
+#pragma unroll
+    for (int i = 0; i < kColTile; ++i) w1[i] = __ldg(t.w[i] + k * t.ldw[i]);
+#pragma unroll
+    for (int r = 0; r < kRowTile; ++r) {
+      const float a = in[r * ld_in + k];
+#pragma unroll
+      for (int i = 0; i < kColTile; ++i) acc[r][i] = fmaf(a, w1[i], acc[r][i]);
+    }
+  }
+}
+
+// Shared memory of one block for R walkers: the product table, then B, A,
+// H, the split-K scratch, the whitened input, ln prior, the bad-row flag,
+// the chi^2 partials and the epilogue constants.
+__host__ __device__ inline size_t cluster_smem_bytes(const TrunkDims& d, int R) {
+  return kProductBytes +
+         sizeof(float) * ((size_t)R * (d.width + narrow_width(d) + d.hmax + d.ldx + 2 + kCluster) +
+                          (size_t)kThreads * kRowTile * kColTile + cst_floats(d));
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+fused_log_prob_kernel(const float* __restrict__ x, int nrows, int R, TrunkWeights w, TrunkDims d,
                       LikeArgs a, float* __restrict__ lp) {
   extern __shared__ float4 smem4[];
-  Smem s = carve<ROWS>(reinterpret_cast<float*>(smem4), d);
-  float* lnprior = s.X + ROWS * d.ldx;
-  int* bad = reinterpret_cast<int*>(lnprior + ROWS);
-  const int row0 = blockIdx.x * ROWS;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int lb = d.width;          // row stride of B
+  const int la = narrow_width(d);  // row stride of A
+  Product* prods = reinterpret_cast<Product*>(smem4);
+  float* B = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) + kProductBytes);
+  float* A = B + R * lb;
+  float* H = A + R * la;
+  float* red = H + R * d.hmax;
+  float* X = red + kThreads * kRowTile * kColTile;
+  float* lnprior = X + R * d.ldx;
+  int* bad = reinterpret_cast<int*>(lnprior + R);
+  float* partial = lnprior + 2 * R;  // [kCluster][R]: the chi^2 partials, on rank 0
+  float* cst = partial + kCluster * R;
+  const int row0 = (blockIdx.x / kCluster) * R;
   const int D = d.in;
   const int N = d.out;
-  if (threadIdx.x < ROWS) bad[threadIdx.x] = 0;
+
+  // the product table: layer1 (A -> B), residual blocks (B -> A, A -> B,
+  // B -> A; lin1 into H and skip as one product, then lin2 adds to the
+  // skip's output), layers 6 (A -> B), 7 (B -> A), 8 (A -> B, delta), then
+  // this block's columns of C^-1 delta into its own A (no peer writes A any
+  // more)
+  if (threadIdx.x == 0) {
+    const Seg none{nullptr, nullptr, nullptr, 0, 0, false};
+    int np = 0;
+    float* c = cst;
+    auto add = [&](const float* in, int ld_in, int K, Seg s0, Seg s1, float alpha, Out mode) {
+      Product& P = prods[np++];
+      P.s0 = s0;
+      P.s1 = s1;
+      P.in = in;
+      P.ld_in = ld_in;
+      P.K = K;
+      P.alpha = alpha;
+      P.mode = mode;
+      plan_product(P, R, rank);
+      P.cst = c;
+      c += (mode == Out::kDelta ? 5 : 1) * P.ncols;
+    };
+    add(A, la, D, Seg{w.w[0], w.w[1], B, lb, d.h, true}, none, 1.f, Out::kPush);
+    const int in_w[3] = {d.h, d.h2, d.h4};
+    const int ch[3] = {d.c1, d.c2, d.c3};
+    const int out_w[3] = {d.h2, d.h4, d.h8};
+    for (int i = 0; i < 3; ++i) {
+      const int b = 2 + 5 * i;  // (lin1 w, lin1 b, lin2 w, lin2 b, skip w)
+      const float* src = i == 1 ? A : B;
+      float* dst = i == 1 ? B : A;
+      const int ls = i == 1 ? la : lb, ldst = i == 1 ? lb : la;
+      add(src, ls, in_w[i], Seg{w.w[b], w.w[b + 1], H, d.hmax, ch[i], true},
+          Seg{w.w[b + 4], nullptr, dst, ldst, out_w[i], false}, 1.f, Out::kPush);
+      add(H, d.hmax, ch[i], Seg{w.w[b + 2], w.w[b + 3], dst, ldst, out_w[i], true}, none, 0.1f,
+          Out::kAccum);
+    }
+    add(A, la, d.h8, Seg{w.w[17], w.w[18], B, lb, d.l6, true}, none, 1.f, Out::kPush);
+    add(B, lb, d.l6, Seg{w.w[19], w.w[20], A, la, N, true}, none, 1.f, Out::kPush);
+    add(A, la, N, Seg{w.w[21], w.w[22], B, lb, N, false}, none, 1.f, Out::kDelta);
+    add(B, lb, N, Seg{a.inv_cov, nullptr, A, la, N, false}, none, 1.f, Out::kLocal);
+  }
+  if (threadIdx.x < R) bad[threadIdx.x] = 0;
   __syncthreads();
 
-  // 1-3: prior transform, log10 lanes (with the bad-row flag), standardize
-  for (int i = threadIdx.x; i < ROWS * D; i += blockDim.x) {
+  // the epilogue constants of this block's columns
+  for (int p = 0; p < kProducts; ++p) {
+    const Product& P = prods[p];
+    for (int jj = threadIdx.x; jj < P.ncols; jj += blockDim.x) {
+      const int j = P.c0 + jj;
+      const bool first = j < P.s0.n;
+      const int col = first ? j : j - P.s0.n;
+      const float* bias = first ? P.s0.bias : P.s1.bias;
+      P.cst[jj] = bias ? __ldg(bias + col) : 0.f;
+      if (P.mode == Out::kDelta) {
+        P.cst[P.ncols + jj] = __ldg(a.y_std + col);
+        P.cst[2 * P.ncols + jj] = __ldg(a.y_mean + col);
+        P.cst[3 * P.ncols + jj] = __ldg(a.sigma + col);
+        P.cst[4 * P.ncols + jj] = __ldg(a.data + col);
+      }
+    }
+  }
+  // 1-3 (in every block of the cluster): prior transform, log10 lanes (with
+  // the bad-row flag), standardize
+  for (int i = threadIdx.x; i < R * D; i += blockDim.x) {
     const int r = i / D, k = i % D;
     const float xw = row0 + r < nrows ? x[(size_t)(row0 + r) * D + k] : 0.f;
-    s.X[r * d.ldx + k] = xw;
+    X[r * d.ldx + k] = xw;
     const float lo = a.arg1[k], hi = a.arg2[k];
     float phys;
     if (a.is_gauss[k]) {
@@ -259,40 +529,138 @@ fused_log_prob_kernel(const float* __restrict__ x, int nrows, TrunkWeights w, Tr
       if (phys <= 0.f) atomicOr(&bad[r], 1);
       xin = log10f(fmaxf(phys, 1e-30f));
     }
-    s.A[r * d.width + k] = (xin - a.x_mean[k]) / a.x_std[k];
+    A[r * la + k] = (xin - a.x_mean[k]) / a.x_std[k];
   }
-  __syncthreads();
-  if (threadIdx.x < ROWS) {
+  // every block of the cluster has started, and holds its input, before any
+  // block writes into a peer
+  cluster.sync();
+  if (threadIdx.x < R) {
     float q = 0.f;
-    for (int k = 0; k < D; ++k) q += s.X[threadIdx.x * d.ldx + k] * s.X[threadIdx.x * d.ldx + k];
+    for (int k = 0; k < D; ++k) q += X[threadIdx.x * d.ldx + k] * X[threadIdx.x * d.ldx + k];
     lnprior[threadIdx.x] = -0.5f * q;
   }
 
-  // 4: the trunk (prediction in B)
-  trunk<ROWS>(w, d, s.A, s.B, s.H, s.red);
-
-  // 5: destandardize -> exp when ypositive -> sigma scale; delta = m - data (in B)
-  for (int i = threadIdx.x; i < ROWS * N; i += blockDim.x) {
-    const int r = i / N, c = i % N;
-    float m = s.B[r * d.width + c] * a.y_std[c] + a.y_mean[c];
-    if (a.ypositive) m = expf(m);
-    s.B[r * d.width + c] = m * a.sigma[c] - a.data[c];
-  }
-  __syncthreads();
-
-  // 6: C^-1 delta (in A), then chi^2 = delta . (C^-1 delta), one warp per row
-  linear<ROWS>(a.inv_cov, nullptr, s.B, d.width, N, s.A, d.width, N, 1.f, false, false, s.red);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float inv_t = 1.f / a.temperature[0];
-  for (int r = warp; r < ROWS; r += blockDim.x / 32) {
-    float q = 0.f;
-    for (int c = lane; c < N; c += 32) q += s.B[r * d.width + c] * s.A[r * d.width + c];
-    for (int off = 16; off > 0; off >>= 1) q += __shfl_xor_sync(0xffffffffu, q, off);
-    // 7: tempered likelihood + unit-normal prior; NaN or a bad row -> -inf
-    if (lane == 0 && row0 + r < nrows) {
-      float v = -0.5f * q * inv_t + lnprior[r];
-      lp[row0 + r] = (isnan(v) || bad[r]) ? -INFINITY : v;
+  // 4-6: the products, one code path for all (the instruction cache stays
+  // warm).  A thread takes one task and leaves its sums in `red`; then each
+  // thread loads the sums of its epilogue values before it stores any (a
+  // store into a peer would otherwise hold back every later load).  One
+  // cluster barrier after each product: its writes into the peers are then
+  // complete, and no block reads a buffer that a peer's next product
+  // overwrites.  The last (chi^2) writes only this block's A.
+#pragma unroll 1
+  for (int p = 0; p < kProducts; ++p) {
+    const Product& P = prods[p];
+    const int ld_red = P.ngc * kColTile;
+    LINNA_PHASE(p, 0);
+    if ((int)threadIdx.x < P.tiles * P.split) {
+      const Task t = make_task(P, threadIdx.x);
+      float acc[kRowTile][kColTile];
+#pragma unroll
+      for (int r = 0; r < kRowTile; ++r) {
+#pragma unroll
+        for (int i = 0; i < kColTile; ++i) acc[r][i] = 0.f;
+      }
+      tile_sums(t, P.in + t.r0 * P.ld_in, P.ld_in, acc);
+#pragma unroll
+      for (int r = 0; r < kRowTile; ++r) {
+#pragma unroll
+        for (int i = 0; i < kColTile; ++i) {
+          red[(t.part * R + t.r0 + r) * ld_red + t.g + i * P.ngc] = acc[r][i];
+        }
+      }
     }
+    LINNA_PHASE(p, 1);
+    __syncthreads();
+    LINNA_PHASE(p, 2);
+    // the epilogue of this thread's values idx = threadIdx.x + it * kThreads
+    // (walker idx / ncols, column c0 + idx % ncols): every load (the split
+    // sums, the constants, the output a residual block adds to) comes before
+    // any store, since a store into a peer would hold back every later load
+    const int ncols = P.ncols, c0 = P.c0, s0n = P.s0.n, nsplit = P.split, mode = (int)P.mode;
+    const float alpha = P.alpha;
+    const float* cst = P.cst;
+    float* const out0 = P.s0.out;
+    float* const out1 = P.s1.out;
+    const int ld0 = P.s0.ld, ld1 = P.s1.ld;
+    const bool relu0 = P.s0.relu, relu1 = P.s1.relu;
+    float y[kItems];
+    float* dst[kItems];
+    int row[kItems], col[kItems];
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+      const int idx = threadIdx.x + it * kThreads;
+      row[it] = ncols > 0 ? idx / ncols : R;  // row R: no value
+      col[it] = idx - row[it] * ncols;
+      y[it] = 0.f;
+    }
+    for (int q = 0; q < nsplit; ++q) {
+      const float* part = red + q * R * ld_red;
+#pragma unroll
+      for (int it = 0; it < kItems; ++it) {
+        if (row[it] >= R) break;
+        y[it] += part[row[it] * ld_red + col[it]];
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+      if (row[it] >= R) break;
+      const int r = row[it], jj = col[it];
+      const bool first = c0 + jj < s0n;
+      dst[it] = first ? out0 + r * ld0 + c0 + jj : out1 + r * ld1 + c0 + jj - s0n;
+      float v = (y[it] + cst[jj]) * alpha;
+      if (mode == (int)Out::kAccum) v += *dst[it];
+      if (first ? relu0 : relu1) v = fmaxf(v, 0.f);
+      if (mode == (int)Out::kDelta) {
+        float m = v * cst[ncols + jj] + cst[2 * ncols + jj];
+        if (a.ypositive) m = expf(m);
+        v = m * cst[3 * ncols + jj] - cst[4 * ncols + jj];
+      }
+      y[it] = v;
+    }
+    LINNA_PHASE(p, 3);
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+      if (row[it] >= R) break;
+      if (mode == (int)Out::kLocal) {
+        *dst[it] = y[it];
+      } else {
+#pragma unroll
+        for (int q = 0; q < kCluster; ++q) *cluster.map_shared_rank(dst[it], q) = y[it];
+      }
+    }
+    LINNA_PHASE(p, 4);
+    if (p + 1 < kProducts) {
+      cluster.sync();
+    } else {
+      __syncthreads();
+    }
+    LINNA_PHASE(p, 5);
+  }
+
+  // 6 (end): this block's part of delta . (C^-1 delta), one warp per
+  // walker, into rank 0's partials
+  const Product& chi2 = prods[kProducts - 1];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < R; r += blockDim.x / 32) {
+    float q = 0.f;
+    for (int c = chi2.c0 + lane; c < chi2.c0 + chi2.ncols; c += 32) {
+      q += B[r * lb + c] * A[r * la + c];
+    }
+    for (int off = 16; off > 0; off >>= 1) q += __shfl_xor_sync(0xffffffffu, q, off);
+    if (lane == 0) *cluster.map_shared_rank(partial + rank * R + r, 0) = q;
+  }
+  // the last cluster barrier: after it no block touches a peer's shared
+  // memory, so every block may leave
+  cluster.sync();
+
+  // 7 (rank 0): chi^2 summed over the ranks in order, tempered likelihood +
+  // unit-normal prior; NaN or a bad row -> -inf
+  if (rank == 0 && (int)threadIdx.x < R && row0 + (int)threadIdx.x < nrows) {
+    const int r = threadIdx.x;
+    float q = 0.f;
+    for (int p = 0; p < kCluster; ++p) q += partial[p * R + r];
+    const float v = -0.5f * q * (1.f / a.temperature[0]) + lnprior[r];
+    lp[row0 + r] = (isnan(v) || bad[r]) ? -INFINITY : v;
   }
 }
 
@@ -327,10 +695,10 @@ TrunkWeights make_weights(const void* const* ptrs) {
   return w;
 }
 
-// Walkers per block: as few as keep a launch near one wave of blocks on the
-// 132 SMs (a block's serial walk over the layers sets a small launch's
-// time), more for large batches, where each weight read is reused over
-// more rows.  From a sweep of block shapes at the DES width (PERF.md).
+// fused_apply: walkers per block, as few as keep a launch near one wave of
+// blocks on the 132 SMs (a block's serial walk over the layers sets a small
+// launch's time), more for large batches, where each weight read is reused
+// over more rows.  From a sweep of block shapes at the DES width (PERF.md).
 int rows_for(int nrows) { return nrows <= 256 ? 2 : nrows <= 512 ? 4 : 8; }
 
 template <typename Kernel>
@@ -349,15 +717,92 @@ cudaError_t launch_apply(const float* x, int nrows, const TrunkWeights& w, const
   return cudaGetLastError();
 }
 
-template <int ROWS>
-cudaError_t launch_log_prob(const float* x, int nrows, const TrunkWeights& w, const TrunkDims& d,
-                            const LikeArgs& a, float* lp, cudaStream_t stream) {
-  const size_t smem = smem_bytes<ROWS>(d);
-  cudaError_t err = prepare(fused_log_prob_kernel<ROWS>, smem);
+// The launch of fused_log_prob_kernel over nrows walkers, groups x 8 of
+// them per cluster.
+struct ClusterLaunch {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  int walkers;       // per cluster
+  int max_clusters;  // the most clusters of this shape the card holds at once
+};
+
+// Raises the kernel's dynamic shared-memory limit to the launch's (a limit
+// set for a larger launch serves a smaller one) and asks how many clusters
+// of the launch's shape the card holds at once.  Both are cached for the
+// current device: the sampler launches tens of times a step, and each CUDA
+// call here costs more host time than the launch.
+cudaError_t prepare_cluster(ClusterLaunch* L, int groups) {
+  static int dev_done = -1;
+  static size_t limit = 0;
+  static size_t smem_done[kMaxGroups + 1] = {};
+  static int max_done[kMaxGroups + 1] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const int grid = (nrows + ROWS - 1) / ROWS;
-  fused_log_prob_kernel<ROWS><<<grid, kThreads, smem, stream>>>(x, nrows, w, d, a, lp);
-  return cudaGetLastError();
+  if (dev != dev_done) {
+    dev_done = -1;
+    limit = 0;
+    for (size_t& v : smem_done) v = 0;
+  }
+  const size_t smem = L->cfg.dynamicSmemBytes;
+  if (smem > limit) {
+    err = prepare(fused_log_prob_kernel, smem);
+    if (err != cudaSuccess) return err;
+    limit = smem;
+  }
+  if (smem != smem_done[groups]) {
+    err = cudaOccupancyMaxActiveClusters(&max_done[groups], (const void*)fused_log_prob_kernel,
+                                         &L->cfg);
+    if (err != cudaSuccess) return err;
+    smem_done[groups] = smem;
+  }
+  dev_done = dev;
+  L->max_clusters = max_done[groups];
+  return cudaSuccess;
+}
+
+// Whether, at R walkers per cluster, every block's part of every product
+// is one task per thread at most and kItems epilogue values per thread.
+bool fits_block(const TrunkDims& d, int R) {
+  for (int p = 0; p < kProducts; ++p) {
+    const int n = product_width(d, p);
+    for (int q = 0; q < kCluster; ++q) {
+      const int ncols = slice_edge(n, q + 1) - slice_edge(n, q);
+      const int tiles = (ncols + kColTile - 1) / kColTile * (R / kRowTile);
+      if (tiles > kThreads || R * ncols > kItems * kThreads) return false;
+    }
+  }
+  return true;
+}
+
+// Walkers per cluster: the fewest row groups (8 walkers each) whose clusters
+// all fit on the card at once, so that a launch is one wave (a cluster of 8
+// blocks must fit in one GPC, and the H100's GPCs hold 15 at one block per
+// SM, not 132 / 8), else the most.  Returns kTooWide when not even one row
+// group fits a block.
+int plan_log_prob(int nrows, const TrunkDims& d, cudaStream_t stream, ClusterLaunch* L) {
+  if (!fits_block(d, kRowTile)) return kTooWide;
+  for (int groups = 1;; ++groups) {
+    const int R = groups * kRowTile;
+    L->walkers = R;
+    L->attr.id = cudaLaunchAttributeClusterDimension;
+    L->attr.val.clusterDim.x = kCluster;
+    L->attr.val.clusterDim.y = 1;
+    L->attr.val.clusterDim.z = 1;
+    L->cfg = cudaLaunchConfig_t{};
+    L->cfg.gridDim = dim3(((nrows + R - 1) / R) * kCluster);  // a multiple of the cluster size
+    L->cfg.blockDim = dim3(kThreads);
+    L->cfg.dynamicSmemBytes = cluster_smem_bytes(d, R);
+    L->cfg.stream = stream;
+    L->cfg.attrs = &L->attr;
+    L->cfg.numAttrs = 1;
+    const cudaError_t err = prepare_cluster(L, groups);
+    if (err != cudaSuccess) return err;
+    if (groups == kMaxGroups || !fits_block(d, R + kRowTile) ||
+        (int)L->cfg.gridDim.x / kCluster <= L->max_clusters) {
+      return cudaSuccess;
+    }
+  }
 }
 
 }  // namespace
@@ -382,6 +827,9 @@ int linna_fused_apply(const float* x, int nrows, const void* const* weights, con
 
 // like: is_gauss, arg1, arg2, x_mean, x_std, x_log10, y_mean, y_std, sigma,
 // data, inv_cov, temperature (12 device pointers).
+// Returns a cudaError_t, or kNoCluster / kTooWide when no cluster of the
+// launch's shape fits on the card or the model is too wide for the kernel
+// (linna_error_string says which); the launch does not synchronise.
 int linna_fused_log_prob(const float* x, int nrows, const void* const* weights, const int* dims,
                          const void* const* like, int ypositive, float* lp, void* stream) {
   if (nrows <= 0) return 0;
@@ -401,23 +849,62 @@ int linna_fused_log_prob(const float* x, int nrows, const void* const* weights, 
   a.inv_cov = static_cast<const float*>(like[10]);
   a.temperature = static_cast<const float*>(like[11]);
   a.ypositive = ypositive;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rows_for(nrows)) {
-    case 2: return launch_log_prob<2>(x, nrows, w, d, a, lp, st);
-    case 4: return launch_log_prob<4>(x, nrows, w, d, a, lp, st);
-    default: return launch_log_prob<8>(x, nrows, w, d, a, lp, st);
-  }
+  ClusterLaunch L;
+  const int planned = plan_log_prob(nrows, d, static_cast<cudaStream_t>(stream), &L);
+  if (planned != 0) return planned;
+  if (L.max_clusters < 1) return kNoCluster;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&L.cfg, fused_log_prob_kernel, x, nrows, L.walkers, w, d, a, lp);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
-// Rows and threads per block and dynamic shared memory of a launch, for the record.
-int linna_launch_shape(int nrows, const int* dims, int* rows, int* threads, long long* smem) {
+// The launch shape of a kernel (0: fused_apply, 1: fused_log_prob) over
+// nrows walkers, for the record.  shape: walkers per block (per cluster for
+// fused_log_prob), blocks per cluster, blocks, threads per block, and the
+// most clusters the card holds at once (-1 for fused_apply); smem: dynamic
+// shared memory per block.  Returns a cudaError_t.
+int linna_launch_shape(int kernel, int nrows, const int* dims, int* shape, long long* smem) {
   const TrunkDims d = make_dims(dims);
-  *rows = rows_for(nrows);
-  *threads = kThreads;
-  *smem = (long long)(*rows == 2 ? smem_bytes<2>(d) : *rows == 4 ? smem_bytes<4>(d) : smem_bytes<8>(d));
-  return 0;
+  shape[3] = kThreads;
+  if (kernel == 0) {
+    const int rows = rows_for(nrows);
+    shape[0] = rows;
+    shape[1] = 1;
+    shape[2] = (nrows + rows - 1) / rows;
+    shape[4] = -1;
+    *smem = (long long)(rows == 2   ? smem_bytes<2>(d)
+                        : rows == 4 ? smem_bytes<4>(d)
+                                    : smem_bytes<8>(d));
+    return 0;
+  }
+  ClusterLaunch L;
+  const int err = plan_log_prob(nrows, d, 0, &L);
+  shape[0] = L.walkers;
+  shape[1] = kCluster;
+  shape[2] = (int)L.cfg.gridDim.x;
+  shape[4] = L.max_clusters;
+  *smem = (long long)L.cfg.dynamicSmemBytes;
+  return err;
 }
 
-const char* linna_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
+#ifdef LINNA_PHASES
+// The stamps of the last launch of fused_log_prob_kernel (kProducts x 6).
+int linna_phases_read(long long* out) {
+  return cudaMemcpyFromSymbol(out, linna_phases, sizeof(linna_phases));
+}
+#endif
+
+const char* linna_error_string(int err) {
+  if (err == kNoCluster) {
+    return "no cluster of 8 blocks of this shape fits on the card "
+           "(cudaOccupancyMaxActiveClusters gave 0)";
+  }
+  if (err == kTooWide) {
+    return "a product of this model is wider than one block's threads take "
+           "at 8 walkers per cluster";
+  }
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
 
 }  // extern "C"

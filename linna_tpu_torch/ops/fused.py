@@ -11,6 +11,11 @@ become hand-written CUDA C++ for Hopper (``csrc/fused_mlp.cu``, built for
   ``ypositive``) -> sigma scale -> chi^2 against the data with the inverse
   covariance -> tempered posterior + unit-normal prior, one f32 per walker.
 
+``fused_log_prob``'s kernel runs on thread-block clusters of 8 blocks that
+split every product's columns and exchange activations through distributed
+shared memory (``launch_shape`` reports the clusters); it raises when no
+cluster of its shape fits on the card.
+
 Each wrapper launches its kernel for a CUDA tensor and raises if the build or
 the launch fails; for a CPU tensor it runs the plain PyTorch version beside
 it (``fused_apply_plain``, ``fused_log_prob_plain``).  ``launches`` counts
@@ -120,7 +125,7 @@ def build() -> str:
     lib.linna_fused_apply.restype = ci
     lib.linna_fused_log_prob.argtypes = [vp, ci, ptrs, ints, ptrs, ci, vp, vp]
     lib.linna_fused_log_prob.restype = ci
-    lib.linna_launch_shape.argtypes = [ci, ints, ints, ints, ctypes.POINTER(ctypes.c_longlong)]
+    lib.linna_launch_shape.argtypes = [ci, ci, ints, ints, ctypes.POINTER(ctypes.c_longlong)]
     lib.linna_launch_shape.restype = ci
     lib.linna_error_string.argtypes = [ci]
     lib.linna_error_string.restype = ctypes.c_char_p
@@ -192,20 +197,33 @@ def _ptrs(tensors: Sequence[torch.Tensor]):
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def launch_shape(spec: N.ModelSpec, nrows: int) -> Dict[str, int]:
-    """Rows per block, blocks and dynamic shared memory of a launch over
-    ``nrows`` walkers (the kernel's occupancy record)."""
+def launch_shape(spec: N.ModelSpec, nrows: int, kernel: str) -> Dict[str, int]:
+    """The launch shape of ``kernel`` over ``nrows`` walkers (its occupancy
+    record).  ``fused_apply``: walkers per block, blocks, threads, dynamic
+    shared memory per block.  ``fused_log_prob`` runs on clusters: walkers
+    per cluster, blocks per cluster, clusters, blocks, threads, shared
+    memory, and the most clusters of that shape the card holds at once."""
     build()
     dims = (ctypes.c_int * 10)(*_dims(spec))
-    rows, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
-    _Library.lib.linna_launch_shape(
-        nrows, dims, ctypes.byref(rows), ctypes.byref(threads), ctypes.byref(smem)
+    shape, smem = (ctypes.c_int * 5)(), ctypes.c_longlong()
+    err = _Library.lib.linna_launch_shape(
+        list(launches).index(kernel), nrows, dims, shape, ctypes.byref(smem)
     )
+    if err != 0:
+        msg = _Library.lib.linna_error_string(err).decode()
+        raise RuntimeError(f"{kernel} launch-shape query failed: {msg} (cudaError {err})")
+    rows, cluster, blocks, threads, max_clusters = shape
+    if kernel == "fused_apply":
+        return {"rows_per_block": rows, "blocks": blocks, "threads_per_block": threads,
+                "smem_bytes": smem.value}
     return {
-        "rows_per_block": rows.value,
-        "blocks": -(-nrows // rows.value),
-        "threads_per_block": threads.value,
+        "walkers_per_cluster": rows,
+        "cluster_size": cluster,
+        "clusters": blocks // cluster,
+        "blocks": blocks,
+        "threads_per_block": threads,
         "smem_bytes": smem.value,
+        "max_active_clusters": max_clusters,
     }
 
 

@@ -77,17 +77,39 @@ def _chain_incomplete(chain_path: str, method: str) -> bool:
     return not done
 
 
+def _kmeans_1d(x: np.ndarray, k: int, n_init: int = 10, max_iter: int = 300, seed: int = 0):
+    """Lloyd's k-means on 1-D points from ``n_init`` k-means++ starts; the
+    lowest-inertia result as (labels, centers)."""
+    rng = np.random.default_rng(seed)
+    best = None
+    for _ in range(n_init):
+        centers = [x[rng.integers(len(x))]]
+        for _ in range(1, k):
+            # k <= the number of distinct points, so some point is off every center
+            d2 = np.min((x[:, None] - np.asarray(centers)[None, :]) ** 2, axis=1)
+            centers.append(x[rng.choice(len(x), p=d2 / d2.sum())])
+        c = np.asarray(centers, dtype=np.float64)
+        for _ in range(max_iter):
+            labels = np.argmin(np.abs(x[:, None] - c[None, :]), axis=1)
+            new = np.array([x[labels == j].mean() if np.any(labels == j) else c[j]
+                            for j in range(k)])
+            if np.array_equal(new, c):
+                break
+            c = new
+        labels = np.argmin(np.abs(x[:, None] - c[None, :]), axis=1)
+        inertia = float(np.sum((x - c[labels]) ** 2))
+        if best is None or inertia < best[0]:
+            best = (inertia, labels, c)
+    return best[1], best[2]
+
+
 def get_good_walker_list(log_prob_samples: np.ndarray) -> np.ndarray:
     """Cluster walkers by (int-cast) mean log-prob and keep the cluster with
-    the highest center.  Needs scikit-learn, imported here."""
-    from sklearn.cluster import KMeans
-
-    x = np.mean(log_prob_samples[-10000:, :], axis=0)
-    X = np.stack([x, np.zeros_like(x)], axis=1).astype(int)
-    n_clusters = min(8, len(np.unique(X[:, 0])))
-    ms = KMeans(n_clusters=max(n_clusters, 1), n_init=10).fit(X)
-    best = int(np.argmax(ms.cluster_centers_[:, 0]))
-    return np.where(ms.labels_ == best)[0]
+    the highest center: k-means with at most 8 clusters and 10 restarts, as
+    the JAX package does with scikit-learn's ``KMeans``."""
+    x = np.mean(log_prob_samples[-10000:, :], axis=0).astype(int).astype(np.float64)
+    labels, centers = _kmeans_1d(x, max(min(8, len(np.unique(x))), 1))
+    return np.where(labels == int(np.argmax(centers)))[0]
 
 
 def read_chain_and_cut(

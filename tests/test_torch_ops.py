@@ -57,9 +57,10 @@ def test_fused_apply_autograd_function_gradients(monkeypatch):
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), rtol=1e-4, atol=1e-5)
 
 
-def test_fused_log_prob_matches_pallas_and_reference():
+@pytest.mark.parametrize("batch", [1, 8, 37, 129])
+def test_fused_log_prob_matches_pallas_and_reference(batch):
     p = problem()
-    x = walkers(37, 5, seed=9)
+    x = walkers(batch, 5, seed=9)
     lp_t = TF.fused_log_prob(
         p.tspec, p.params_t, p.ts_t, p.pack_t, p.data, p.inv_cov,
         temperature=4.0, device=CPU,

@@ -43,10 +43,27 @@ def test_import_leaves_jax_and_the_jax_package_out():
 
 def test_sources_never_import_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(import jax|from jax)|linna_tpu\.", re.M)
-    sources = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    sources = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "fused_phases.py"]
     assert len(sources) > 10
     for path in sources:
         assert not pattern.search(path.read_text()), path
+
+
+def test_the_port_never_imports_sklearn():
+    """The card has no scikit-learn: the walker cut is numpy k-means."""
+    sources = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "fused_phases.py"]
+    for path in sources:
+        assert "sklearn" not in path.read_text(), path
+    code = (
+        "import sys, numpy as np, linna_tpu_torch.orchestrator as O; "
+        "O.get_good_walker_list(np.arange(12.0).reshape(3, 4) * 50); "
+        "print('sklearn' in sys.modules)"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=str(REPO), timeout=120, check=True)
+    assert out.stdout.strip() == "False"
 
 
 def test_entry_points_without_a_device_raise_off_the_card(tmp_path):
