@@ -18,7 +18,9 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    non-positive rows that must be -inf in both; ypositive), both gradients,
    and the per-launch times at 128 and 256 rows with each kernel's launch
    shape (``fused_log_prob``: clusters of 8 blocks, and how many the card
-   holds at once).
+   holds at once).  Both kernels also against their plain versions at the
+   LSST-Y10 width (40 -> 1560) at 128 and 256 rows, where a block's shared
+   memory holds 8 walkers of ``fused_log_prob``'s cluster, not 16.
 4. The sampling stage of one ``ml_sampler_core`` iteration on a DES-width
    iteration directory written with the port's own writers:
    ``retrieve_model`` -> ``make_log_prob(use_fused=True, temperature=16)``
@@ -52,6 +54,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(ROOT, ".chip_smoke")
 
 NDIM, NDATA = 27, 457  # DES-Y1-3x2pt (examples/des_synthetic.yaml)
+WIDE = (40, 1560)  # LSST-Y10-6x2pt+N (examples/lsst_synthetic.yaml)
 NWALKERS = 256
 TEMPERATURE = 16.0  # T^2 of iteration 0 (T = 4)
 STEPS = 300
@@ -219,7 +222,7 @@ def bound_ms(kernel: str, spec, params, rows: int) -> tuple:
 # ---------------------------------------------------------------- phases
 
 
-def phase_kernels(device, batches=BATCHES, timed=TIMED_ROWS, ndim=NDIM, ndata=NDATA):
+def phase_kernels(device, batches=BATCHES, timed=TIMED_ROWS, ndim=NDIM, ndata=NDATA, wide=WIDE):
     """Each kernel against its plain version; returns per-kernel records."""
     from linna_tpu_torch import likelihood as LK
     from linna_tpu_torch.ops import fused as F
@@ -256,6 +259,23 @@ def phase_kernels(device, batches=BATCHES, timed=TIMED_ROWS, ndim=NDIM, ndata=ND
             if case == "log10 lanes":
                 x[: (b + 1) // 2, 0] = -3.0  # physical 0.3 - 3 < 0 on a log10 lane
             note("fused_log_prob", compare(lp_k(x), lp_p(x), f"fused_log_prob {case} B={b}"))
+
+    # the widest model the repo configures: its launch shape and both kernels
+    spec, params, ts, pack, data, inv_cov = make_problem(device, *wide)
+    lp_k = LK.make_log_prob(spec, params, ts, pack, data, inv_cov,
+                            temperature=TEMPERATURE, use_fused=True, device=device)
+    lp_p = LK.make_log_prob(spec, params, ts, pack, data, inv_cov,
+                            temperature=TEMPERATURE, device=device)
+    wide_shapes = {}
+    for b in timed:
+        x = torch.randn((b, wide[0]), generator=gen).to(device)
+        note("fused_apply", compare(F.fused_apply(spec, params, x),
+                                    F.fused_apply_plain(spec, params, x),
+                                    f"fused_apply {wide[0]} -> {wide[1]} B={b}"))
+        note("fused_log_prob", compare(lp_k(x), lp_p(x),
+                                       f"fused_log_prob {wide[0]} -> {wide[1]} B={b}"))
+        wide_shapes[b] = F.launch_shape(spec, b, "fused_log_prob")
+        log(f"  fused_log_prob {wide[0]} -> {wide[1]} B={b}: launch shape {wide_shapes[b]}")
 
     # gradients: the kernels' autograd.Functions against plain autograd
     spec, params, ts, pack, data, inv_cov = make_problem(device, ndim, ndata)
@@ -302,7 +322,7 @@ def phase_kernels(device, batches=BATCHES, timed=TIMED_ROWS, ndim=NDIM, ndata=ND
                     f"{r['call_ms'][b]:.4f} / {r['plain_call_ms'][b]:.4f} ms; bound "
                     f"{r['bound'][b][0]:.4f} ms ({r['bound'][b][1]}); "
                     f"launch shape {r['shape'][b]}")
-    for b, shape in rec["fused_log_prob"]["shape"].items():
+    for b, shape in [*rec["fused_log_prob"]["shape"].items(), *wide_shapes.items()]:
         if shape["cluster_size"] != 8 or shape["max_active_clusters"] < 1:
             raise AssertionError(f"fused_log_prob B={b}: launch shape {shape}")
     return rec

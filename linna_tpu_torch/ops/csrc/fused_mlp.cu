@@ -45,9 +45,10 @@
 // memory feeds 4 FMAs, each weight 8); the epilogue constants of a block's
 // columns are copied to shared memory once per launch; and the epilogue
 // does all its loads before any store into a peer.  R is 8, 16 or 24, the
-// fewest that let all of a launch's clusters be resident at once: a cluster
+// fewest that let all of a launch's clusters be resident at once (a cluster
 // must fit in one GPC, and the H100's GPCs hold 15 clusters of 8 one-block
-// SMs, so 16 clusters of 8 walkers at 128 rows would take two waves.
+// SMs, so 16 clusters of 8 walkers at 128 rows would take two waves), or
+// the most that fit a block's shared memory, in more than one wave.
 //
 // Semantics kept from the TPU kernels: f32 accumulation; log10 lanes take
 // log10(max(x, 1e-30)) and flag the row when any masked physical value is
@@ -68,7 +69,7 @@ constexpr int kUnroll = 16;    // weight loads in flight per thread (a multiple 
 constexpr int kWeights = 23;  // layer1 (2) + 3 resblocks (5 each) + layers 6/7/8 (2 each)
 constexpr int kCluster = 8;    // blocks per cluster of fused_log_prob_kernel
 // linna_fused_log_prob's return values when no cluster fits on the card, and
-// when a product is too wide for one block's threads
+// when the model is too wide for one block's threads or shared memory
 constexpr int kNoCluster = 1 << 20;
 constexpr int kTooWide = kNoCluster + 1;
 
@@ -344,17 +345,6 @@ __device__ void plan_product(Product& P, int R, int rank) {
   P.kchunk = P.split == 0 ? 0 : (((P.K + P.split - 1) / P.split) + 3) & ~3;
 }
 
-// Clock stamps of block 0, thread 0 at each product's phases, for
-// fused_phases.py, which builds with -DLINNA_PHASES; nothing in a normal
-// build.  Phase i of product p ends at stamp [p][i + 1].
-#ifdef LINNA_PHASES
-__device__ long long linna_phases[kProducts][6];
-#define LINNA_PHASE(p, i) \
-  if (blockIdx.x == 0 && threadIdx.x == 0) linna_phases[p][i] = clock64()
-#else
-#define LINNA_PHASE(p, i)
-#endif
-
 struct Task {
   const float* w[kColTile];  // column i's weights at w[i] + k * ldw[i]
   int ldw[kColTile];
@@ -551,7 +541,6 @@ fused_log_prob_kernel(const float* __restrict__ x, int nrows, int R, TrunkWeight
   for (int p = 0; p < kProducts; ++p) {
     const Product& P = prods[p];
     const int ld_red = P.ngc * kColTile;
-    LINNA_PHASE(p, 0);
     if ((int)threadIdx.x < P.tiles * P.split) {
       const Task t = make_task(P, threadIdx.x);
       float acc[kRowTile][kColTile];
@@ -569,9 +558,7 @@ fused_log_prob_kernel(const float* __restrict__ x, int nrows, int R, TrunkWeight
         }
       }
     }
-    LINNA_PHASE(p, 1);
     __syncthreads();
-    LINNA_PHASE(p, 2);
     // the epilogue of this thread's values idx = threadIdx.x + it * kThreads
     // (walker idx / ncols, column c0 + idx % ncols): every load (the split
     // sums, the constants, the output a residual block adds to) comes before
@@ -617,7 +604,6 @@ fused_log_prob_kernel(const float* __restrict__ x, int nrows, int R, TrunkWeight
       }
       y[it] = v;
     }
-    LINNA_PHASE(p, 3);
 #pragma unroll
     for (int it = 0; it < kItems; ++it) {
       if (row[it] >= R) break;
@@ -628,13 +614,11 @@ fused_log_prob_kernel(const float* __restrict__ x, int nrows, int R, TrunkWeight
         for (int q = 0; q < kCluster; ++q) *cluster.map_shared_rank(dst[it], q) = y[it];
       }
     }
-    LINNA_PHASE(p, 4);
     if (p + 1 < kProducts) {
       cluster.sync();
     } else {
       __syncthreads();
     }
-    LINNA_PHASE(p, 5);
   }
 
   // 6 (end): this block's part of delta . (C^-1 delta), one warp per
@@ -726,44 +710,20 @@ struct ClusterLaunch {
   int max_clusters;  // the most clusters of this shape the card holds at once
 };
 
-// Raises the kernel's dynamic shared-memory limit to the launch's (a limit
-// set for a larger launch serves a smaller one) and asks how many clusters
-// of the launch's shape the card holds at once.  Both are cached for the
-// current device: the sampler launches tens of times a step, and each CUDA
-// call here costs more host time than the launch.
-cudaError_t prepare_cluster(ClusterLaunch* L, int groups) {
-  static int dev_done = -1;
-  static size_t limit = 0;
-  static size_t smem_done[kMaxGroups + 1] = {};
-  static int max_done[kMaxGroups + 1] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+// Sets the kernel's dynamic shared-memory limit to the launch's and asks how
+// many clusters of the launch's shape the card holds at once.
+cudaError_t prepare_cluster(ClusterLaunch* L) {
+  const cudaError_t err = prepare(fused_log_prob_kernel, L->cfg.dynamicSmemBytes);
   if (err != cudaSuccess) return err;
-  if (dev != dev_done) {
-    dev_done = -1;
-    limit = 0;
-    for (size_t& v : smem_done) v = 0;
-  }
-  const size_t smem = L->cfg.dynamicSmemBytes;
-  if (smem > limit) {
-    err = prepare(fused_log_prob_kernel, smem);
-    if (err != cudaSuccess) return err;
-    limit = smem;
-  }
-  if (smem != smem_done[groups]) {
-    err = cudaOccupancyMaxActiveClusters(&max_done[groups], (const void*)fused_log_prob_kernel,
-                                         &L->cfg);
-    if (err != cudaSuccess) return err;
-    smem_done[groups] = smem;
-  }
-  dev_done = dev;
-  L->max_clusters = max_done[groups];
-  return cudaSuccess;
+  return cudaOccupancyMaxActiveClusters(&L->max_clusters, (const void*)fused_log_prob_kernel,
+                                        &L->cfg);
 }
 
-// Whether, at R walkers per cluster, every block's part of every product
-// is one task per thread at most and kItems epilogue values per thread.
-bool fits_block(const TrunkDims& d, int R) {
+// Whether, at R walkers per cluster, a block's shared memory fits in
+// smem_max bytes and every block's part of every product is one task per
+// thread at most and kItems epilogue values per thread.
+bool fits_block(const TrunkDims& d, int R, int smem_max) {
+  if (cluster_smem_bytes(d, R) > (size_t)smem_max) return false;
   for (int p = 0; p < kProducts; ++p) {
     const int n = product_width(d, p);
     for (int q = 0; q < kCluster; ++q) {
@@ -778,10 +738,18 @@ bool fits_block(const TrunkDims& d, int R) {
 // Walkers per cluster: the fewest row groups (8 walkers each) whose clusters
 // all fit on the card at once, so that a launch is one wave (a cluster of 8
 // blocks must fit in one GPC, and the H100's GPCs hold 15 at one block per
-// SM, not 132 / 8), else the most.  Returns kTooWide when not even one row
-// group fits a block.
+// SM, not 132 / 8); else the most that fit a block, in more than one wave
+// (the LSST width, 40 -> 1560, fits 8 walkers in the 227 KB of shared memory
+// a block may have, not 16).  Returns kTooWide when not even one row group
+// fits a block.
 int plan_log_prob(int nrows, const TrunkDims& d, cudaStream_t stream, ClusterLaunch* L) {
-  if (!fits_block(d, kRowTile)) return kTooWide;
+  int dev = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err != cudaSuccess) return err;
+  if (!fits_block(d, kRowTile, smem_max)) return kTooWide;
   for (int groups = 1;; ++groups) {
     const int R = groups * kRowTile;
     L->walkers = R;
@@ -796,9 +764,9 @@ int plan_log_prob(int nrows, const TrunkDims& d, cudaStream_t stream, ClusterLau
     L->cfg.stream = stream;
     L->cfg.attrs = &L->attr;
     L->cfg.numAttrs = 1;
-    const cudaError_t err = prepare_cluster(L, groups);
+    err = prepare_cluster(L);
     if (err != cudaSuccess) return err;
-    if (groups == kMaxGroups || !fits_block(d, R + kRowTile) ||
+    if (groups == kMaxGroups || !fits_block(d, R + kRowTile, smem_max) ||
         (int)L->cfg.gridDim.x / kCluster <= L->max_clusters) {
       return cudaSuccess;
     }
@@ -888,20 +856,13 @@ int linna_launch_shape(int kernel, int nrows, const int* dims, int* shape, long 
   return err;
 }
 
-#ifdef LINNA_PHASES
-// The stamps of the last launch of fused_log_prob_kernel (kProducts x 6).
-int linna_phases_read(long long* out) {
-  return cudaMemcpyFromSymbol(out, linna_phases, sizeof(linna_phases));
-}
-#endif
-
 const char* linna_error_string(int err) {
   if (err == kNoCluster) {
     return "no cluster of 8 blocks of this shape fits on the card "
            "(cudaOccupancyMaxActiveClusters gave 0)";
   }
   if (err == kTooWide) {
-    return "a product of this model is wider than one block's threads take "
+    return "this model is too wide for one block's threads or shared memory "
            "at 8 walkers per cluster";
   }
   return cudaGetErrorString(static_cast<cudaError_t>(err));

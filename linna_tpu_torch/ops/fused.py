@@ -91,6 +91,10 @@ def _nvcc() -> str:
     return found
 
 
+# linna_launch_shape's kernel ids
+_KERNEL_IDS = {"fused_apply": 0, "fused_log_prob": 1}
+
+
 def build() -> str:
     """Compile ``csrc/fused_mlp.cu`` into ``_build/`` (cached by a hash of
     the source and flags) and load it.  Returns the compiler output
@@ -207,7 +211,7 @@ def launch_shape(spec: N.ModelSpec, nrows: int, kernel: str) -> Dict[str, int]:
     dims = (ctypes.c_int * 10)(*_dims(spec))
     shape, smem = (ctypes.c_int * 5)(), ctypes.c_longlong()
     err = _Library.lib.linna_launch_shape(
-        list(launches).index(kernel), nrows, dims, shape, ctypes.byref(smem)
+        _KERNEL_IDS[kernel], nrows, dims, shape, ctypes.byref(smem)
     )
     if err != 0:
         msg = _Library.lib.linna_error_string(err).decode()

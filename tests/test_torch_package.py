@@ -43,7 +43,7 @@ def test_import_leaves_jax_and_the_jax_package_out():
 
 def test_sources_never_import_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(import jax|from jax)|linna_tpu\.", re.M)
-    sources = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "fused_phases.py"]
+    sources = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(sources) > 10
     for path in sources:
         assert not pattern.search(path.read_text()), path
@@ -51,7 +51,7 @@ def test_sources_never_import_jax_or_the_jax_package():
 
 def test_the_port_never_imports_sklearn():
     """The card has no scikit-learn: the walker cut is numpy k-means."""
-    sources = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "fused_phases.py"]
+    sources = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     for path in sources:
         assert "sklearn" not in path.read_text(), path
     code = (
