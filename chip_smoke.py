@@ -12,15 +12,20 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    report.
 3. Kernels against their plain PyTorch versions at the DES-Y1-3x2pt width
    (27 -> 457, hidden 1000) for B in {1, 37, 128, 200, 256, 4096} (200
-   leaves a ragged last cluster of ``fused_log_prob``): ``fused_apply``
-   against the plain trunk, ``fused_log_prob`` against the plain
-   ``make_log_prob`` composition (mixed gauss/flat priors; log10 lanes with
-   non-positive rows that must be -inf in both; ypositive), both gradients,
-   and the per-launch times at 128 and 256 rows with each kernel's launch
-   shape (``fused_log_prob``: clusters of 8 blocks, and how many the card
-   holds at once).  Both kernels also against their plain versions at the
-   LSST-Y10 width (40 -> 1560) at 128 and 256 rows, where a block's shared
-   memory holds 8 walkers of ``fused_log_prob``'s cluster, not 16.
+   leaves a ragged last cluster of ``fused_log_prob`` and a ragged row tile
+   of ``fused_apply``): ``fused_apply`` against the plain trunk,
+   ``fused_log_prob`` against the plain ``make_log_prob`` composition (mixed
+   gauss/flat priors; log10 lanes with non-positive rows that must be -inf
+   in both; ypositive), both gradients, and the device time per launch with
+   each kernel's launch shape and its bounds: ``fused_apply`` at 128, 256
+   and 4096 rows (one cooperative launch of 64 x 64 output tiles),
+   ``fused_log_prob`` at the sampler's 128 and 256 (clusters of 8 blocks,
+   and how many the card holds at once).  Both kernels also against their
+   plain versions at the LSST-Y10 width (40 -> 1560): ``fused_apply`` at
+   128, 256 and 4096 rows, ``fused_log_prob`` at 128 and 256, where a
+   block's shared memory holds 8 walkers of its cluster, not 16.  Each
+   kernel's time counts its own device events in torch.profiler and fails
+   unless it saw one per launch (shown once on a deliberate mismatch).
 4. The sampling stage of one ``ml_sampler_core`` iteration on a DES-width
    iteration directory written with the port's own writers:
    ``retrieve_model`` -> ``make_log_prob(use_fused=True, temperature=16)``
@@ -42,6 +47,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -59,7 +65,10 @@ NWALKERS = 256
 TEMPERATURE = 16.0  # T^2 of iteration 0 (T = 4)
 STEPS = 300
 BATCHES = (1, 37, 128, 200, 256, 4096)
-TIMED_ROWS = (128, 256)
+# fused_apply at the sampler's batches and at bench.py's 4096 walkers, the
+# batch it exists for; fused_log_prob where the sampler calls it
+TIMED_ROWS = {"fused_apply": (128, 256, 4096), "fused_log_prob": (128, 256)}
+WIDE_ROWS = {"fused_apply": (128, 256, 4096), "fused_log_prob": (128, 256)}
 REPS = 30
 
 # tests/test_ops.py's kernel tolerance; both sides accumulate in f32 and
@@ -68,12 +77,15 @@ RTOL = ATOL = 2e-4
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_F32_FLOPS = 67e12  # CUDA cores, no tensor cores
+PEAK_TF32_FLOPS = 494.7e12  # tensor cores, TF32
 PEAK_BYTES = 3.35e12
 SOURCE = "linna_tpu_torch/ops/csrc/fused_mlp.cu"
 REPLACES = {
     "fused_apply": "linna_tpu/ops/fused.py:138",
     "fused_log_prob": "linna_tpu/ops/fused.py:250",
 }
+# each kernel's name in the compiler's report and the profiler's events
+KERNEL_NAMES = {"fused_apply": "fused_apply_kernel", "fused_log_prob": "fused_log_prob_kernel"}
 
 
 def log(*a) -> None:
@@ -148,41 +160,77 @@ def _warm(fn) -> None:
     torch.cuda.synchronize()
 
 
-def kernel_us(prof) -> dict:
-    """Device microseconds by kernel name in a torch.profiler run: the
-    device-side events only, as the profiler's own table totals them (a CPU
-    op's device time is the same kernels counted again)."""
+def kernel_events(prof) -> dict:
+    """Device events by kernel name in a torch.profiler run, as (count,
+    microseconds): the device-side events only, as the profiler's own table
+    totals them (a CPU op's device time is the same kernels counted again)."""
     from torch.autograd import DeviceType
 
     out: dict = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            out[e.key] = out.get(e.key, 0.0) + e.self_device_time_total
-    return {k: v for k, v in out.items() if v > 0}
+            n, us = out.get(e.key, (0, 0.0))
+            out[e.key] = (n + e.count, us + e.self_device_time_total)
+    return out
 
 
-def device_ms(fn, reps=REPS) -> tuple:
-    """Device time per call: the time of every CUDA kernel the call launches,
-    from torch.profiler over ``reps`` calls.  Returns (ms, method); where
-    the profiler records no device time, CUDA events around ``reps``
-    back-to-back calls instead (host launch gaps included)."""
+def kernel_us(prof) -> dict:
+    """Device microseconds by kernel name in a torch.profiler run."""
+    return {k: us for k, (_, us) in kernel_events(prof).items() if us > 0}
+
+
+def _profiled_events(fn, reps: int) -> tuple:
+    """(device events, device microseconds) of ``reps`` calls by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
-    _warm(fn)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(kernel_us(prof).values())
-    if total_us > 0:
-        return total_us / reps / 1e3, "torch.profiler"
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps, "cuda events, back-to-back calls"
+    return kernel_events(prof)
+
+
+def device_ms(fn, kernel=None, per_call=1, reps=REPS, attempts=3) -> tuple:
+    """Device time per call from torch.profiler's device events over
+    ``reps`` calls; returns (ms, method).
+
+    ``kernel``: the name of the call's own CUDA kernel, which it launches
+    ``per_call`` times.  Only that kernel's events are timed, and there must
+    be reps x per_call of them: a profile that missed some would read short
+    without a sign.  A count that differs is logged and the reading taken
+    again; after ``attempts`` readings it raises.
+
+    ``kernel=None``: a call with no kernel of its own (a plain version, a
+    chain of library kernels whose count per call the profiler does not
+    reproduce: 37 to 40 at 4096 rows of the plain trunk on the H100).  Every
+    device event is timed and their count reported, not checked.  Where the
+    profiler records no device event at all, the time comes from CUDA events
+    around ``reps`` back-to-back calls, host launch gaps included, and the
+    method says so."""
+    _warm(fn)
+    if kernel is None:
+        events = _profiled_events(fn, reps).values()
+        n, us = sum(c for c, _ in events), sum(u for _, u in events)
+        if n:
+            return us / reps / 1e3, f"torch.profiler, {n} device events of the call's kernels"
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return (start.elapsed_time(end) / reps,
+                "cuda events around back-to-back calls (the profiler saw no device event)")
+    want = reps * per_call
+    for attempt in range(1, attempts + 1):
+        mine = [v for k, v in _profiled_events(fn, reps).items() if kernel in k]
+        n, us = sum(c for c, _ in mine), sum(u for _, u in mine)
+        if n == want:
+            return us / reps / 1e3, f"torch.profiler, {n} device events of {kernel}"
+        log(f"  device_ms: {n} device events of {kernel} where {want} were launched "
+            f"(reading {attempt} of {attempts})")
+    raise AssertionError(f"device_ms: the profiler saw {n} device events of {kernel}, "
+                         f"not the {want} launched")
 
 
 def call_ms(fn, reps=REPS) -> float:
@@ -200,9 +248,12 @@ def call_ms(fn, reps=REPS) -> float:
     return float(np.median(times))
 
 
-def bound_ms(kernel: str, spec, params, rows: int) -> tuple:
-    """Least time for the work: (flops at the f32 peak, bytes at the memory
-    rate); each input read once and each output written once."""
+def bound_ms(kernel: str, spec, params, rows: int) -> dict:
+    """Least time for the work: the operations at the peak of the kernel's
+    own arithmetic (fused_apply: 3 TF32 tensor-core products per f32
+    product; fused_log_prob: f32 FMAs on the CUDA cores) or the bytes at the
+    memory rate, whichever is longer; each input read once and each output
+    written once.  Both operation bounds are returned for both kernels."""
     from linna_tpu_torch import nn as N
 
     n_params = N.count_params(params)
@@ -215,14 +266,37 @@ def bound_ms(kernel: str, spec, params, rows: int) -> tuple:
         nbytes += 4.0 * (n * n + 6 * spec.in_size + 4 * n + rows)
     else:
         nbytes += 4.0 * rows * spec.out_size
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    f32 = flops / PEAK_F32_FLOPS * 1e3
+    tf32x3 = 3.0 * flops / PEAK_TF32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = tf32x3 if kernel == "fused_apply" else f32
+    return {"ms": max(t_ops, t_bytes), "by": "operations" if t_ops >= t_bytes else "bytes",
+            "f32_cuda_core_ms": f32, "tf32x3_tensor_core_ms": tf32x3, "bytes_ms": t_bytes}
+
+
+def kernel_resources(report: str) -> dict:
+    """Registers and spilled bytes of each kernel, from nvcc's -Xptxas -v
+    report."""
+    out: dict = {}
+    name = None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = next((k for k, v in KERNEL_NAMES.items() if v in line), None)
+        elif name is not None:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            if spill:
+                out.setdefault(name, {})["spill_bytes"] = int(spill[1]) + int(spill[2])
+            if regs:
+                out.setdefault(name, {})["registers"] = int(regs[1])
+    return out
 
 
 # ---------------------------------------------------------------- phases
 
 
-def phase_kernels(device, batches=BATCHES, timed=TIMED_ROWS, ndim=NDIM, ndata=NDATA, wide=WIDE):
+def phase_kernels(device, batches=BATCHES, timed=TIMED_ROWS, ndim=NDIM, ndata=NDATA, wide=WIDE,
+                  wide_rows=WIDE_ROWS):
     """Each kernel against its plain version; returns per-kernel records."""
     from linna_tpu_torch import likelihood as LK
     from linna_tpu_torch.ops import fused as F
@@ -266,16 +340,19 @@ def phase_kernels(device, batches=BATCHES, timed=TIMED_ROWS, ndim=NDIM, ndata=ND
                             temperature=TEMPERATURE, use_fused=True, device=device)
     lp_p = LK.make_log_prob(spec, params, ts, pack, data, inv_cov,
                             temperature=TEMPERATURE, device=device)
+    wide_fns = {"fused_apply": (lambda x: F.fused_apply(spec, params, x),
+                                lambda x: F.fused_apply_plain(spec, params, x)),
+                "fused_log_prob": (lp_k, lp_p)}
     wide_shapes = {}
-    for b in timed:
-        x = torch.randn((b, wide[0]), generator=gen).to(device)
-        note("fused_apply", compare(F.fused_apply(spec, params, x),
-                                    F.fused_apply_plain(spec, params, x),
-                                    f"fused_apply {wide[0]} -> {wide[1]} B={b}"))
-        note("fused_log_prob", compare(lp_k(x), lp_p(x),
-                                       f"fused_log_prob {wide[0]} -> {wide[1]} B={b}"))
-        wide_shapes[b] = F.launch_shape(spec, b, "fused_log_prob")
-        log(f"  fused_log_prob {wide[0]} -> {wide[1]} B={b}: launch shape {wide_shapes[b]}")
+    for k, rows in wide_rows.items():
+        kern, plain = wide_fns[k]
+        for b in rows:
+            x = torch.randn((b, wide[0]), generator=gen).to(device)
+            note(k, compare(kern(x), plain(x), f"{k} {wide[0]} -> {wide[1]} B={b}"))
+            shape = F.launch_shape(spec, b, k)
+            log(f"  {k} {wide[0]} -> {wide[1]} B={b}: launch shape {shape}")
+            if k == "fused_log_prob":
+                wide_shapes[b] = shape
 
     # gradients: the kernels' autograd.Functions against plain autograd
     spec, params, ts, pack, data, inv_cov = make_problem(device, ndim, ndata)
@@ -300,27 +377,37 @@ def phase_kernels(device, batches=BATCHES, timed=TIMED_ROWS, ndim=NDIM, ndata=ND
     lp_p(xp).sum().backward()
     compare(xk.grad, xp.grad, "fused_log_prob grad x")
 
-    # per-launch times at the sampler's batch sizes
-    for b in timed:
-        x = torch.randn((b, ndim), generator=gen).to(device)
-        fns = {
-            "fused_apply": (lambda: F.fused_apply(spec, params, x),
-                            lambda: F.fused_apply_plain(spec, params, x)),
-            "fused_log_prob": (lambda: lp_k(x), lambda: lp_p(x)),
-        }
-        with torch.no_grad():
-            for k, (kern, plain) in fns.items():
-                r = rec[k]
-                r["ms"][b], r["method"] = device_ms(kern)
-                r["plain_ms"][b], _ = device_ms(plain)
-                r["call_ms"][b] = call_ms(kern)
-                r["plain_call_ms"][b] = call_ms(plain)
+    # device time per launch
+    fns = {"fused_apply": (lambda x: F.fused_apply(spec, params, x),
+                           lambda x: F.fused_apply_plain(spec, params, x)),
+           "fused_log_prob": (lp_k, lp_p)}
+    with torch.no_grad():
+        x = torch.randn((timed["fused_apply"][0], ndim), generator=gen).to(device)
+        try:
+            device_ms(lambda: F.fused_apply(spec, params, x), KERNEL_NAMES["fused_apply"],
+                      per_call=2, reps=3, attempts=1)
+        except AssertionError as e:
+            log(f"  device_ms refuses a count that does not match the launches: {e}")
+        else:
+            raise AssertionError("device_ms took a reading with half the launched events")
+        for k, rows in timed.items():
+            kern, plain = fns[k]
+            r = rec[k]
+            for b in rows:
+                x = torch.randn((b, ndim), generator=gen).to(device)
+                r["ms"][b], r["method"] = device_ms(lambda: kern(x), KERNEL_NAMES[k])
+                r["plain_ms"][b], r["plain_method"] = device_ms(lambda: plain(x))
+                r["call_ms"][b] = call_ms(lambda: kern(x))
+                r["plain_call_ms"][b] = call_ms(lambda: plain(x))
                 r["bound"][b] = bound_ms(k, spec, params, b)
                 r["shape"][b] = F.launch_shape(spec, b, k)
+                bd = r["bound"][b]
                 log(f"  {k} B={b}: kernel {r['ms'][b]:.4f} ms ({r['method']}), plain "
-                    f"{r['plain_ms'][b]:.4f} ms device; per call with host "
-                    f"{r['call_ms'][b]:.4f} / {r['plain_call_ms'][b]:.4f} ms; bound "
-                    f"{r['bound'][b][0]:.4f} ms ({r['bound'][b][1]}); "
+                    f"{r['plain_ms'][b]:.4f} ms device ({r['plain_method']}); per call with "
+                    f"host {r['call_ms'][b]:.4f} / {r['plain_call_ms'][b]:.4f} ms; bound "
+                    f"{bd['ms']:.4f} ms ({bd['by']}; f32 CUDA cores "
+                    f"{bd['f32_cuda_core_ms']:.4f}, 3xTF32 tensor cores "
+                    f"{bd['tf32x3_tensor_core_ms']:.4f}, bytes {bd['bytes_ms']:.4f}); "
                     f"launch shape {r['shape'][b]}")
     for b, shape in [*rec["fused_log_prob"]["shape"].items(), *wide_shapes.items()]:
         if shape["cluster_size"] != 8 or shape["max_active_clusters"] < 1:
@@ -529,6 +616,8 @@ def main() -> int:
     for line in report.splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log("  " + line.strip())
+    resources = kernel_resources(report)
+    log(f"  registers and spills: {resources}")
 
     log("== 3. kernels against their plain versions")
     rec = phase_kernels(device)
@@ -556,16 +645,19 @@ def main() -> int:
             "tolerance": {"rtol": RTOL, "atol": ATOL},
             "ms": r["ms"][b],
             "plain_ms": r["plain_ms"][b],
-            "bound_ms": r["bound"][b][0],
-            "bound_by": r["bound"][b][1],
+            "bound_ms": r["bound"][b]["ms"],
+            "bound_by": r["bound"][b]["by"],
             "library_ms": None,
             "rows": b,
             "timing": r["method"],
+            "plain_timing": r["plain_method"],
             "ms_by_rows": r["ms"],
+            "bound_by_rows": r["bound"],
             "plain_ms_by_rows": r["plain_ms"],
             "call_ms_by_rows": r["call_ms"],
             "plain_call_ms_by_rows": r["plain_call_ms"],
             "launch_shape_by_rows": r["shape"],
+            **resources.get(k, {}),
             "check": "pass",
         })
     print(json.dumps({"kernels": kernels}), flush=True)

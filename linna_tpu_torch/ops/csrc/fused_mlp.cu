@@ -1,27 +1,48 @@
-// Fused emulator kernels for Hopper (sm_90a), f32 on the CUDA cores.
+// Fused emulator kernels for Hopper (sm_90a).
 //
-// Replaces the two Pallas TPU kernels of linna_tpu/ops/fused.py:
+// Replace the two Pallas TPU kernels of linna_tpu/ops/fused.py:
 //   linna_fused_apply     <- _apply_impl     (the ChtoModelv2 trunk, one launch)
 //   linna_fused_log_prob  <- _log_prob_impl  (whitened walker -> one log-posterior f32)
 //
 // What bounds them: per walker 2.52 MFLOP for the trunk (+0.42 MFLOP for the
 // 457x457 chi^2 product) against 5.03 MB (+0.84 MB) of weights per launch at
-// the DES width (27 -> 457, hidden 1000), so the card's f32 rate bounds the
-// work (~11 us at 256 walkers).  On the TPU every weight sits in VMEM for the
-// whole launch.  Here the weights are far above one SM's 227 KB of shared
-// memory, so they stream from global memory (they stay resident in the 50 MB
-// L2 across blocks and launches) and blocks keep only activations on chip.
+// the DES width (27 -> 457, hidden 1000), so operations bound the work, not
+// bytes.  On the TPU every weight sits in VMEM for the whole launch.  Here
+// the weights are far above one SM's 227 KB of shared memory, so they stream
+// from global memory (they stay resident in the 50 MB L2 across blocks and
+// launches).
 //
-// fused_apply_kernel: each block takes ROWS walkers and walks all 14 layers
-// for them (`trunk`), keeping two ping-pong buffers of the widest
-// activation, one for the residual blocks' narrow inner channels and a
-// split-K scratch.  A thread owns one output column at a time with one
-// accumulator per walker in registers, reads activations from shared memory
-// as broadcast float4 loads and keeps 16 weight loads in flight; products
-// narrower than the block split their reduction over its threads.  Every
-// block re-reads every weight from L2, and every FMA needs its own
-// activation word from shared memory, whose path to the registers moves 32
-// words a clock per SM against 128 FMAs.
+// fused_apply_kernel, on the tensor cores.  Its f32 work at 4096 rows is
+// 10.3 GFLOP: 0.154 ms at the 67 TFLOP/s of the CUDA cores.  f32 accuracy on
+// the TF32 tensor cores takes three products per product (3xTF32: each
+// operand split into a TF32 big part and the remainder; a_small*b_big +
+// a_big*b_small, then a_big*b_big, summed in f32), so its bound there is
+// 3 x FLOPs / 494.7 TFLOP/s: 0.0625 ms at 4096 rows, 0.0039 ms at 256.  The
+// design: one cooperative launch of SMs x 4 blocks, which walk the work
+// items of the trunk's 10 products in turn, with a grid barrier after each
+// product.  lin1 and skip of a residual block read the same input and form
+// one product of two segments.  The activations live in a global scratch
+// (two ping-pong buffers and the inner-channel buffer, row strides
+// multiples of 4 floats; ~33 MB at 4096 rows, so they stay in L2 beside
+// the weights).  A work item is a 64 x 64 output tile: 4 warps of
+// mma.sync.m16n8k8 TF32, each warp a 32 x 32 quarter; K runs in chunks of
+// 32 staged by cp.async into a 3-stage ring in shared memory, so the next
+// chunks' copies overlap this chunk's products.  Each weight is thus read
+// from L2 once per 64-row tile, and each value staged in shared memory
+// feeds a whole fragment.  The epilogue runs on the accumulators in
+// registers: bias, alpha, the skip output a residual block's lin2 adds,
+// relu per segment, and stores of rows < nrows only, every load before any
+// store.  At the sampler's 128-256 rows a product has only 4-64 tiles, and
+// one block walks a tile's k-chunks in sequence, so a product with fewer
+// tiles than blocks splits its k-chunks over more blocks (at least 2
+// chunks each); their partial tiles go to the scratch, and after one more
+// grid barrier every block sums a share of them in a fixed order and
+// applies the epilogue.  The scratch is written by other SMs before a
+// barrier, so it is read only through L2 (cp.async.cg, ld.global.cg),
+// never through the read-only or L1 path.  On the card (PERF.md) the
+// k-loop is bound by L2 bandwidth for the tiles that each block re-reads
+// and by the instructions that feed mma.sync (the splits, the fragment
+// loads), not by the tensor cores.
 //
 // fused_log_prob_kernel: thread-block clusters of 8 blocks (the portable
 // cluster size).  A cluster takes R walkers and block rank q computes
@@ -55,6 +76,7 @@
 // <= 0; such a row, or a NaN log-posterior, gives -inf.  Rows past the batch
 // are computed on zeros and never stored (no padding by repeating row 0).
 
+#include <algorithm>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -64,8 +86,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;  // threads per block
-constexpr int kUnroll = 16;    // weight loads in flight per thread (a multiple of 4)
+constexpr int kThreads = 512;  // threads per block of fused_log_prob_kernel
 constexpr int kWeights = 23;  // layer1 (2) + 3 resblocks (5 each) + layers 6/7/8 (2 each)
 constexpr int kCluster = 8;    // blocks per cluster of fused_log_prob_kernel
 // linna_fused_log_prob's return values when no cluster fits on the card, and
@@ -100,158 +121,375 @@ struct LikeArgs {
   int ypositive;
 };
 
-// out[r, c] = epilogue(sum_k in[r, k] * W[k, c]) for r < ROWS, c < N.
-// epilogue: (+ bias[c]) * alpha (+ out[r, c] when accum) (relu when relu).
-// `in` and `out` are shared-memory row blocks with strides ld_in / ld_out.
-template <int ROWS>
-__device__ void linear(const float* __restrict__ W, const float* __restrict__ bias,
-                       const float* in, int ld_in, int K, float* out, int ld_out, int N,
-                       float alpha, bool accum, bool relu, float* red) {
-  const int T = blockDim.x;
-  const int split = N >= T ? 1 : T / N;
-  const int kchunk = (((K + split - 1) / split) + 3) & ~3;
-  for (int task = threadIdx.x; task < N * split; task += T) {
-    const int col = task % N;
-    const int part = task / N;
-    const int k0 = part * kchunk;
-    const int k1 = min(K, k0 + kchunk);
-    float acc[ROWS];
+// ------------------------------------------- fused_apply on the tensor cores
+
+constexpr int kBM = 64;             // rows of an output tile
+constexpr int kBN = 64;             // columns of an output tile
+constexpr int kBK = 32;             // k of one stage of the ring
+constexpr int kStages = 3;          // stages of the cp.async ring
+constexpr int kWarpsM = 2;          // warps down a tile's rows
+constexpr int kWarpsN = 2;          // warps across its columns
+constexpr int kApplyThreads = 32 * kWarpsM * kWarpsN;
+constexpr int kMT = kBM / kWarpsM / 16;  // m16 fragments of a warp's part of the tile
+constexpr int kNT = kBN / kWarpsN / 8;   // n8 fragments
+// Row strides of a stage's tiles in shared memory, padded so that the 32
+// lanes' fragment loads fall in 32 different banks.
+constexpr int kLdA = kBK + 4;
+constexpr int kLdW = kBN + 8;
+constexpr int kStageFloats = kBM * kLdA + kBK * kLdW;
+constexpr size_t kApplySmem = sizeof(float) * kStages * kStageFloats;
+// layer1, 3 x (lin1 | skip, lin2), layers 6, 7, 8
+constexpr int kApplyProducts = 10;
+// the fewest k-chunks of one part of a product split over blocks
+constexpr int kMinSplitChunks = 2;
+
+// One output segment of a product: out[r, c] = relu?((in[r, :] @ W[:, c] +
+// bias[c]) * alpha (+ out[r, c] when accum)) for c < n.
+struct ApplySeg {
+  const float* W;     // [K, n], row-major
+  const float* bias;  // [n] or nullptr
+  float* out;
+  int ld;             // row stride of out
+  int n;
+  int col_tiles;      // ceil(n / kBN); 0 for an absent segment
+  float alpha;
+  bool relu, accum;
+  bool vec;           // W's rows are 16-byte aligned: 16-byte copies
+};
+
+// One product: segments that read the same input (a residual block's lin1
+// and skip; other products leave seg[1] empty).  Its k-chunks are split
+// into `split` ranges, each a work item of its own (plan_apply).
+struct ApplyProduct {
+  const float* in;  // [nrows, K], row stride ld
+  int ld, K;
+  bool vec;         // in's rows are 16-byte aligned
+  int split;
+  ApplySeg seg[2];
+};
+
+struct ApplyPlan {
+  ApplyProduct prod[kApplyProducts];
+  float* part;  // split products' partial tiles, [work item][kBM][kBN]
+  int nrows, row_tiles;
+  int deal;     // block b takes the work items i = b * deal mod blocks (plan_apply)
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes through L2 only (.cg: the scratch is written by other SMs before
+// a grid barrier, so it must not come from a stale L1 line); the bytes past
+// `bytes` are zero-filled, and none is read when `bytes` is 0.
+__device__ __forceinline__ void copy16(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// 4 bytes (or a zero when `bytes` is 0), for rows that are not 16-byte
+// aligned: the weights and the input x only, which nothing in the launch writes.
+__device__ __forceinline__ void copy4(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// v = big + small: big is v with the 13 low mantissa bits that TF32 does
+// not hold cleared, small = v - big (exact in f32, |small| < 2^-10 |v|),
+// which the tensor cores read as TF32 by dropping its own low bits, an
+// error below 2^-20 |v|.  Two instructions; cvt.rna.tf32.f32 compiles to
+// four with a predicate, and the splits, not the products, bound a warp's
+// instruction issue.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
+  big = __float_as_uint(v) & 0xffffe000u;
+  small = __float_as_uint(v - __uint_as_float(big));
+}
+
+// d += a (16 x 8, row-major) @ b (8 x 8, column-major) in TF32, f32 sums.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// What one tile reads: rows [row0, row0 + kBM) of `in` and columns
+// [col0, col0 + kBN) of W.
+struct TileSrc {
+  const float* in;
+  const float* W;
+  int ld, K, n, nrows, row0, col0;
+  bool vec_in, vec_w;
+};
+
+// Stage k-chunk [k0, k0 + kBK) of the tile: sa[r][k] = in[row0 + r, k0 + k],
+// sw[k][c] = W[k0 + k, col0 + c]; zeros past nrows, K and n.
+__device__ __forceinline__ void load_chunk(const TileSrc& t, int k0, float* sa, float* sw) {
+  if (t.vec_in) {
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
-    int k = k0;
-    // kUnroll weight loads in flight per thread: the long reductions wait
-    // on L2, not on the FMA rate
-    for (; k + kUnroll <= k1; k += kUnroll) {
-      float wv[kUnroll];
+    for (int it = 0; it < kBM * kBK / 4 / kApplyThreads; ++it) {
+      const int i = threadIdx.x + it * kApplyThreads;
+      const int r = i / (kBK / 4), k = (i % (kBK / 4)) * 4;
+      const int row = t.row0 + r;
+      const int bytes = row < t.nrows ? 4 * max(0, min(4, t.K - k0 - k)) : 0;
+      copy16(sa + r * kLdA + k, bytes ? t.in + (size_t)row * t.ld + k0 + k : t.in, bytes);
+    }
+  } else {
+#pragma unroll 4
+    for (int it = 0; it < kBM * kBK / kApplyThreads; ++it) {
+      const int i = threadIdx.x + it * kApplyThreads;
+      const int r = i / kBK, k = i % kBK;
+      const int row = t.row0 + r;
+      const bool ok = row < t.nrows && k0 + k < t.K;
+      copy4(sa + r * kLdA + k, ok ? t.in + (size_t)row * t.ld + k0 + k : t.in, ok ? 4 : 0);
+    }
+  }
+  if (t.vec_w) {
 #pragma unroll
-      for (int j = 0; j < kUnroll; ++j) wv[j] = __ldg(W + (size_t)(k + j) * N + col);
+    for (int it = 0; it < kBK * kBN / 4 / kApplyThreads; ++it) {
+      const int i = threadIdx.x + it * kApplyThreads;
+      const int k = i / (kBN / 4), c = (i % (kBN / 4)) * 4;
+      const int bytes = k0 + k < t.K ? 4 * max(0, min(4, t.n - t.col0 - c)) : 0;
+      copy16(sw + k * kLdW + c, bytes ? t.W + (size_t)(k0 + k) * t.n + t.col0 + c : t.W, bytes);
+    }
+  } else {
+#pragma unroll 4
+    for (int it = 0; it < kBK * kBN / kApplyThreads; ++it) {
+      const int i = threadIdx.x + it * kApplyThreads;
+      const int k = i / kBN, c = i % kBN;
+      const bool ok = k0 + k < t.K && t.col0 + c < t.n;
+      copy4(sw + k * kLdW + c, ok ? t.W + (size_t)(k0 + k) * t.n + t.col0 + c : t.W, ok ? 4 : 0);
+    }
+  }
+}
+
+// acc += this warp's part of sa @ sw over one chunk, in 3xTF32.  Fragment
+// layouts of m16n8k8 (g = lane / 4, q = lane % 4): A holds rows g, g + 8
+// and columns q, q + 4; B rows (k) q, q + 4 and column g; the sums rows g,
+// g + 8 and columns 2q, 2q + 1.  Each of the three passes is kMT x kNT
+// independent products, so no product waits on the one before it.
+__device__ __forceinline__ void mma_chunk(const float* sa, const float* sw, int wm, int wn, int g,
+                                          int q, float (&acc)[kMT][kNT][4]) {
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
+  for (int kk = 0; kk < kBK; kk += 8) {
+    uint32_t a_big[kMT][4], a_small[kMT][4], b_big[kNT][2], b_small[kNT][2];
 #pragma unroll
-        for (int j = 0; j < kUnroll; j += 4) {
-          const float4 a = *reinterpret_cast<const float4*>(in + r * ld_in + k + j);
-          acc[r] = fmaf(a.x, wv[j + 0], acc[r]);
-          acc[r] = fmaf(a.y, wv[j + 1], acc[r]);
-          acc[r] = fmaf(a.z, wv[j + 2], acc[r]);
-          acc[r] = fmaf(a.w, wv[j + 3], acc[r]);
+    for (int i = 0; i < kMT; ++i) {
+      const float* a = sa + (wm * kMT * 16 + i * 16 + g) * kLdA + kk + q;
+      split_tf32(a[0], a_big[i][0], a_small[i][0]);
+      split_tf32(a[8 * kLdA], a_big[i][1], a_small[i][1]);
+      split_tf32(a[4], a_big[i][2], a_small[i][2]);
+      split_tf32(a[8 * kLdA + 4], a_big[i][3], a_small[i][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const float* b = sw + (kk + q) * kLdW + wn * kNT * 8 + j * 8 + g;
+      split_tf32(b[0], b_big[j][0], b_small[j][0]);
+      split_tf32(b[4 * kLdW], b_big[j][1], b_small[j][1]);
+    }
+    // the two small cross terms first, then the big product
+#pragma unroll
+    for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) mma_tf32(acc[i][j], a_small[i], b_big[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) mma_tf32(acc[i][j], a_big[i], b_small[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) mma_tf32(acc[i][j], a_big[i], b_big[j]);
+    }
+  }
+}
+
+// The output value of segment s from its sum v over k; skip: the output
+// lin2 adds to (0 for other segments).
+__device__ __forceinline__ float epilogue(const ApplySeg& s, float v, float bias, float skip) {
+  const float y = (v + bias) * s.alpha + skip;
+  return s.relu ? fmaxf(y, 0.f) : y;
+}
+
+// One 64 x 64 output tile of segment s of product P over k-chunks [c0, c1)
+// through the ring.  Then the epilogue from the accumulators, or, when P is
+// split, the raw sums into `part` ([kBM][kBN]).
+__device__ void apply_tile(const ApplyProduct& P, const ApplySeg& s, int nrows, int row0, int col0,
+                           int c0, int c1, float* part, float* smem) {
+  const TileSrc t{P.in, s.W, P.ld, P.K, s.n, nrows, row0, col0, P.vec, s.vec};
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / kWarpsN, wn = warp % kWarpsN, g = lane / 4, q = lane % 4;
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    }
+  }
+  // chunk c goes to stage (c - c0) % kStages
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    float* st = smem + i * kStageFloats;
+    if (c0 + i < c1) load_chunk(t, (c0 + i) * kBK, st, st + kBM * kLdA);
+    copy_commit();
+  }
+  for (int c = c0; c < c1; ++c) {
+    copy_wait<kStages - 2>();
+    // chunk c has landed for every thread, and every warp is done with
+    // chunk c - 1, whose stage the next copies overwrite
+    __syncthreads();
+    if (c + kStages - 1 < c1) {
+      float* st = smem + ((c - c0 + kStages - 1) % kStages) * kStageFloats;
+      load_chunk(t, (c + kStages - 1) * kBK, st, st + kBM * kLdA);
+    }
+    copy_commit();
+    const float* st = smem + ((c - c0) % kStages) * kStageFloats;
+    mma_chunk(st, st + kBM * kLdA, wm, wn, g, q, acc);
+  }
+  copy_wait<0>();
+  __syncthreads();  // the ring is free for the next tile
+
+  if (part != nullptr) {
+#pragma unroll
+    for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wm * kMT * 16 + i * 16 + g + h * 8;
+          const int c = wn * kNT * 8 + j * 8 + 2 * q;
+          *reinterpret_cast<float2*>(part + r * kBN + c) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
         }
       }
     }
-    for (; k + 4 <= k1; k += 4) {
-      const float w0 = __ldg(W + (size_t)(k + 0) * N + col);
-      const float w1 = __ldg(W + (size_t)(k + 1) * N + col);
-      const float w2 = __ldg(W + (size_t)(k + 2) * N + col);
-      const float w3 = __ldg(W + (size_t)(k + 3) * N + col);
+    return;
+  }
+
+  // the epilogue: every load (bias, the skip output lin2 adds to) before any
+  // store, since a store could alias a later load and would hold it back
+  float* const out = s.out;
+  const int ld = s.ld, n = s.n;
+  float bias[kNT][2];
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float4 a = *reinterpret_cast<const float4*>(in + r * ld_in + k);
-        acc[r] = fmaf(a.x, w0, acc[r]);
-        acc[r] = fmaf(a.y, w1, acc[r]);
-        acc[r] = fmaf(a.z, w2, acc[r]);
-        acc[r] = fmaf(a.w, w3, acc[r]);
+  for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = col0 + wn * kNT * 8 + j * 8 + 2 * q + e;
+      bias[j][e] = s.bias != nullptr && c < n ? __ldg(s.bias + c) : 0.f;
+    }
+  }
+  float skip[kMT][kNT][4] = {};
+  if (s.accum) {
+#pragma unroll
+    for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = row0 + wm * kMT * 16 + i * 16 + g + (e / 2) * 8;
+          const int c = col0 + wn * kNT * 8 + j * 8 + 2 * q + e % 2;
+          if (r < nrows && c < n) skip[i][j][e] = __ldcg(out + (size_t)r * ld + c);
+        }
       }
     }
-    for (; k < k1; ++k) {
-      const float w0 = __ldg(W + (size_t)k * N + col);
+  }
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(in[r * ld_in + k], w0, acc[r]);
-    }
-    if (split == 1) {
-      const float b = bias ? __ldg(bias + col) : 0.f;
+  for (int i = 0; i < kMT; ++i) {
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        float y = (acc[r] + b) * alpha;
-        if (accum) y += out[r * ld_out + col];
-        out[r * ld_out + col] = relu ? fmaxf(y, 0.f) : y;
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[i][j][e] = epilogue(s, acc[i][j][e], bias[j][e % 2], skip[i][j][e]);
       }
-    } else {
+    }
+  }
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) red[(part * ROWS + r) * N + col] = acc[r];
+  for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row0 + wm * kMT * 16 + i * 16 + g + (e / 2) * 8;
+        const int c = col0 + wn * kNT * 8 + j * 8 + 2 * q + e % 2;
+        if (r < nrows && c < n) out[(size_t)r * ld + c] = acc[i][j][e];
+      }
     }
   }
-  if (split > 1) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < ROWS * N; idx += T) {
-      const int r = idx / N;
-      const int col = idx % N;
-      float s = 0.f;
-      for (int p = 0; p < split; ++p) s += red[(p * ROWS + r) * N + col];
-      float y = (s + (bias ? __ldg(bias + col) : 0.f)) * alpha;
-      if (accum) y += out[r * ld_out + col];
-      out[r * ld_out + col] = relu ? fmaxf(y, 0.f) : y;
-    }
-  }
-  __syncthreads();
 }
 
-// The ChtoModelv2 trunk on ROWS rows: input in A[:, :in], output in B[:, :out].
-// relu(x@W1+b1) -> 3x relu(0.1*(relu(s@L1+b)@L2+b) + s@Skip) -> relu(L6) -> relu(L7) -> L8
-template <int ROWS>
-__device__ void trunk(const TrunkWeights& w, const TrunkDims& d, float* A, float* B, float* H,
-                      float* red) {
-  const int ld = d.width;
-  linear<ROWS>(w.w[0], w.w[1], A, ld, d.in, B, ld, d.h, 1.f, false, true, red);
-  // residual blocks: (lin1 w, lin1 b, lin2 w, lin2 b, skip w) at 2 + 5*i
-  const int in_w[3] = {d.h, d.h2, d.h4};
-  const int ch[3] = {d.c1, d.c2, d.c3};
-  const int out_w[3] = {d.h2, d.h4, d.h8};
-  float* src = B;
-  float* dst = A;
-  for (int i = 0; i < 3; ++i) {
-    const float* const* p = w.w + 2 + 5 * i;
-    linear<ROWS>(p[0], p[1], src, ld, in_w[i], H, d.hmax, ch[i], 1.f, false, true, red);
-    linear<ROWS>(p[4], nullptr, src, ld, in_w[i], dst, ld, out_w[i], 1.f, false, false, red);
-    linear<ROWS>(p[2], p[3], H, d.hmax, ch[i], dst, ld, out_w[i], 0.1f, true, true, red);
-    float* t = src;
-    src = dst;
-    dst = t;
-  }
-  // after three blocks the activation is in A (src)
-  linear<ROWS>(w.w[17], w.w[18], A, ld, d.h8, B, ld, d.l6, 1.f, false, true, red);
-  linear<ROWS>(w.w[19], w.w[20], B, ld, d.l6, A, ld, d.out, 1.f, false, true, red);
-  linear<ROWS>(w.w[21], w.w[22], A, ld, d.out, B, ld, d.out, 1.f, false, false, red);
+// Tile `tile` of product P: its segment, first row and first column.
+__device__ __forceinline__ const ApplySeg& tile_of(const ApplyProduct& P, int row_tiles, int tile,
+                                                   int& row0, int& col0) {
+  const int ct = tile / row_tiles, n0 = P.seg[0].col_tiles;
+  row0 = (tile % row_tiles) * kBM;
+  col0 = (ct < n0 ? ct : ct - n0) * kBN;
+  return P.seg[ct < n0 ? 0 : 1];
 }
 
-struct Smem {
-  float* A;
-  float* B;
-  float* H;
-  float* red;
-  float* X;
-};
-
-template <int ROWS>
-__device__ Smem carve(float* smem, const TrunkDims& d) {
-  Smem s;
-  s.A = smem;
-  s.B = s.A + ROWS * d.width;
-  s.H = s.B + ROWS * d.width;
-  s.red = s.H + ROWS * d.hmax;
-  s.X = s.red + kThreads * ROWS;
-  return s;
-}
-
-template <int ROWS>
-size_t smem_bytes(const TrunkDims& d) {
-  return sizeof(float) * ((size_t)ROWS * (2 * d.width + d.hmax + kThreads + d.ldx + 2));
-}
-
-template <int ROWS>
-__global__ void __launch_bounds__(kThreads)
-fused_apply_kernel(const float* __restrict__ x, int nrows, TrunkWeights w, TrunkDims d,
-                   float* __restrict__ out) {
+// The trunk on nrows rows (ApplyPlan: make_apply_plan, plan_apply).  Each
+// product's work items (its tiles, or tiles x k ranges when it is split)
+// go round the grid's blocks; a grid barrier then makes the product's
+// outputs visible to every block before the next product reads them.  A
+// split product has one more barrier, after which its partial tiles are
+// summed in a fixed order and the epilogue applied, by all threads of the
+// grid.  4 blocks an SM (at most 128 registers a thread, ~100 bytes
+// spilled) ran faster at 4096 rows than 3 blocks without the spill.
+__global__ void __launch_bounds__(kApplyThreads, 4)
+fused_apply_kernel(const __grid_constant__ ApplyPlan plan) {
   extern __shared__ float4 smem4[];
-  Smem s = carve<ROWS>(reinterpret_cast<float*>(smem4), d);
-  const int row0 = blockIdx.x * ROWS;
-  for (int i = threadIdx.x; i < ROWS * d.in; i += blockDim.x) {
-    const int r = i / d.in, k = i % d.in;
-    s.A[r * d.width + k] = row0 + r < nrows ? x[(size_t)(row0 + r) * d.in + k] : 0.f;
-  }
-  __syncthreads();
-  trunk<ROWS>(w, d, s.A, s.B, s.H, s.red);
-  for (int i = threadIdx.x; i < ROWS * d.out; i += blockDim.x) {
-    const int r = i / d.out, c = i % d.out;
-    if (row0 + r < nrows) out[(size_t)(row0 + r) * d.out + c] = s.B[r * d.width + c];
+  float* smem = reinterpret_cast<float*>(smem4);
+  cg::grid_group grid = cg::this_grid();
+  constexpr int kTile = kBM * kBN;
+  // the first work item of this block (plan_apply: a product with few
+  // items spreads them over many SMs)
+  const int rank = (int)((long long)blockIdx.x * plan.deal % gridDim.x);
+#pragma unroll 1
+  for (int p = 0; p < kApplyProducts; ++p) {
+    const ApplyProduct& P = plan.prod[p];
+    const int tiles = plan.row_tiles * (P.seg[0].col_tiles + P.seg[1].col_tiles);
+    const int split = P.split, nk = (P.K + kBK - 1) / kBK;
+    for (int item = rank; item < tiles * split; item += gridDim.x) {
+      const int tile = item / split, part = item % split;
+      int row0, col0;
+      const ApplySeg& s = tile_of(P, plan.row_tiles, tile, row0, col0);
+      apply_tile(P, s, plan.nrows, row0, col0, part * nk / split, (part + 1) * nk / split,
+                 split > 1 ? plan.part + (size_t)item * kTile : nullptr, smem);
+    }
+    if (split > 1) {
+      grid.sync();
+      for (int e = rank * kApplyThreads + threadIdx.x; e < tiles * kTile;
+           e += gridDim.x * kApplyThreads) {
+        const int tile = e / kTile, at = e % kTile;
+        int row0, col0;
+        const ApplySeg& s = tile_of(P, plan.row_tiles, tile, row0, col0);
+        const int r = row0 + at / kBN, c = col0 + at % kBN;
+        if (r >= plan.nrows || c >= s.n) continue;
+        const float* sums = plan.part + (size_t)tile * split * kTile + at;
+        float v = 0.f;
+#pragma unroll 4
+        for (int q = 0; q < split; ++q) v += __ldcg(sums + (size_t)q * kTile);
+        float* dst = s.out + (size_t)r * s.ld + c;
+        const float bias = s.bias != nullptr ? __ldg(s.bias + c) : 0.f;
+        *dst = epilogue(s, v, bias, s.accum ? __ldcg(dst) : 0.f);
+      }
+    }
+    if (p + 1 < kApplyProducts) grid.sync();
   }
 }
 
@@ -679,26 +917,130 @@ TrunkWeights make_weights(const void* const* ptrs) {
   return w;
 }
 
-// fused_apply: walkers per block, as few as keep a launch near one wave of
-// blocks on the 132 SMs (a block's serial walk over the layers sets a small
-// launch's time), more for large batches, where each weight read is reused
-// over more rows.  From a sweep of block shapes at the DES width (PERF.md).
-int rows_for(int nrows) { return nrows <= 256 ? 2 : nrows <= 512 ? 4 : 8; }
-
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int ROWS>
-cudaError_t launch_apply(const float* x, int nrows, const TrunkWeights& w, const TrunkDims& d,
-                         float* out, cudaStream_t stream) {
-  const size_t smem = smem_bytes<ROWS>(d);
-  cudaError_t err = prepare(fused_apply_kernel<ROWS>, smem);
+// Floats of fused_apply's activations over nrows rows: the ping-pong
+// buffers A and B (row stride width) and the inner-channel buffer H (row
+// stride hmax).  The scratch holds them and then the partial tiles of the
+// split products (ApplyLaunch::part_floats).
+size_t apply_act_floats(int nrows, const TrunkDims& d) {
+  return (size_t)nrows * (2 * d.width + d.hmax);
+}
+
+bool rows_aligned16(const void* p, int ld) {
+  return ld % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+ApplySeg apply_seg(const float* W, const float* bias, float* out, int ld, int n, float alpha,
+                   bool relu, bool accum) {
+  return ApplySeg{W, bias, out, ld, n, (n + kBN - 1) / kBN, alpha, relu, accum,
+                  rows_aligned16(W, n)};
+}
+
+ApplyProduct apply_product(const float* in, int ld, int K, ApplySeg s0,
+                           ApplySeg s1 = ApplySeg{}) {
+  return ApplyProduct{in, ld, K, rows_aligned16(in, ld), 1, {s0, s1}};
+}
+
+// The 10 products of the trunk on nrows rows of x, through the scratch:
+// layer1 (x -> B), residual blocks (B -> A, A -> B, B -> A; lin1 into H and
+// skip as one product, then lin2 adds to the skip's output), layers 6
+// (A -> B), 7 (B -> A) and 8 (A -> out).
+ApplyPlan make_apply_plan(const float* x, int nrows, const TrunkWeights& w, const TrunkDims& d,
+                          float* out, float* scratch) {
+  ApplyPlan P{};
+  P.nrows = nrows;
+  P.row_tiles = (nrows + kBM - 1) / kBM;
+  float* A = scratch;
+  float* B = A + (size_t)nrows * d.width;
+  float* H = B + (size_t)nrows * d.width;
+  const int ld = d.width;
+  int p = 0;
+  P.prod[p++] = apply_product(x, d.in, d.in, apply_seg(w.w[0], w.w[1], B, ld, d.h, 1.f, true, false));
+  const int in_w[3] = {d.h, d.h2, d.h4};
+  const int ch[3] = {d.c1, d.c2, d.c3};
+  const int out_w[3] = {d.h2, d.h4, d.h8};
+  float* src = B;
+  float* dst = A;
+  for (int i = 0; i < 3; ++i) {
+    const float* const* q = w.w + 2 + 5 * i;  // lin1 w, lin1 b, lin2 w, lin2 b, skip w
+    P.prod[p++] = apply_product(src, ld, in_w[i],
+                                apply_seg(q[0], q[1], H, d.hmax, ch[i], 1.f, true, false),
+                                apply_seg(q[4], nullptr, dst, ld, out_w[i], 1.f, false, false));
+    P.prod[p++] = apply_product(H, d.hmax, ch[i],
+                                apply_seg(q[2], q[3], dst, ld, out_w[i], 0.1f, true, true));
+    float* t = src;
+    src = dst;
+    dst = t;
+  }
+  // after three blocks the activation is in A (src)
+  P.prod[p++] = apply_product(A, ld, d.h8, apply_seg(w.w[17], w.w[18], B, ld, d.l6, 1.f, true, false));
+  P.prod[p++] = apply_product(B, ld, d.l6, apply_seg(w.w[19], w.w[20], A, ld, d.out, 1.f, true, false));
+  P.prod[p++] = apply_product(A, ld, d.out,
+                              apply_seg(w.w[21], w.w[22], out, d.out, d.out, 1.f, false, false));
+  return P;
+}
+
+// The cooperative launch of fused_apply_kernel.
+struct ApplyLaunch {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  int sms;            // the card's SMs
+  int per_sm;         // blocks of the kernel an SM holds at once
+  int max_items;      // the most work items of any product
+  size_t part_floats; // the split products' partial tiles
+};
+
+// Sets the kernel's dynamic shared-memory limit, sizes the grid (every
+// block the card holds at once: a cooperative launch may have no more) and
+// splits the k-chunks of each product whose tiles are fewer than the
+// blocks, into as many ranges of at least kMinSplitChunks chunks as keep
+// its work items within the grid.  At the sampler's 128-256 rows a product
+// has 4-64 tiles, and one block walks a tile's k-chunks in sequence.
+cudaError_t plan_apply(ApplyPlan& P, cudaStream_t stream, ApplyLaunch* L) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&L->sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = prepare(fused_apply_kernel, kApplySmem);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&L->per_sm, fused_apply_kernel,
+                                                        kApplyThreads, kApplySmem);
+  }
   if (err != cudaSuccess) return err;
-  const int grid = (nrows + ROWS - 1) / ROWS;
-  fused_apply_kernel<ROWS><<<grid, kThreads, smem, stream>>>(x, nrows, w, d, out);
-  return cudaGetLastError();
+  // a grid the card cannot hold at once is refused at launch
+  // (cudaErrorCooperativeLaunchTooLarge)
+  const int grid = std::max(1, L->sms * L->per_sm);
+  L->max_items = 1;
+  L->part_floats = 0;
+  for (ApplyProduct& p : P.prod) {
+    const int tiles = P.row_tiles * (p.seg[0].col_tiles + p.seg[1].col_tiles);
+    const int nk = (p.K + kBK - 1) / kBK;
+    p.split = std::max(1, std::min(grid / std::max(tiles, 1), nk / kMinSplitChunks));
+    L->max_items = std::max(L->max_items, tiles * p.split);
+    if (p.split > 1) L->part_floats = std::max(L->part_floats, (size_t)tiles * p.split * kBM * kBN);
+  }
+  L->attr.id = cudaLaunchAttributeCooperative;
+  L->attr.val.cooperative = 1;
+  L->cfg = cudaLaunchConfig_t{};
+  L->cfg.gridDim = dim3(grid);
+  // Work item i goes to block i * 37 mod grid (deal is 37's inverse mod
+  // grid; 37 is prime, and a grid that 37 divides keeps items in block
+  // order).  The card places consecutive blocks on the few SMs of one GPC
+  // before the next, so blocks 0..31 of a 4-per-SM grid share 8 SMs; a
+  // stride of 37 blocks spreads a product's first items over the GPCs.
+  P.deal = 1;
+  if (grid % 37 != 0) {
+    while ((long long)P.deal * 37 % grid != 1) ++P.deal;
+  }
+  L->cfg.blockDim = dim3(kApplyThreads);
+  L->cfg.dynamicSmemBytes = kApplySmem;
+  L->cfg.stream = stream;
+  L->cfg.attrs = &L->attr;
+  L->cfg.numAttrs = 1;
+  return cudaSuccess;
 }
 
 // The launch of fused_log_prob_kernel over nrows walkers, groups x 8 of
@@ -779,18 +1121,37 @@ extern "C" {
 
 // dims: in, h, h/2, h/4, h/8, c, 2c, 4c, layer6 width, out.
 // weights: 23 device pointers in the JAX package's _flatten_params order.
-// Returns a cudaError_t (0 on success); the launch does not synchronise.
+// scratch: scratch_floats >= linna_apply_scratch_floats(nrows, dims)
+// floats, 16-byte aligned.  Returns a cudaError_t (0 on success;
+// cudaErrorCooperativeLaunchTooLarge when the card cannot hold the grid at
+// once); the launch does not synchronise.
 int linna_fused_apply(const float* x, int nrows, const void* const* weights, const int* dims,
-                      float* out, void* stream) {
+                      float* out, float* scratch, long long scratch_floats, void* stream) {
+  if (nrows <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(scratch) % 16 != 0) return cudaErrorMisalignedAddress;
+  const TrunkDims d = make_dims(dims);
+  ApplyPlan P = make_apply_plan(x, nrows, make_weights(weights), d, out, scratch);
+  ApplyLaunch L{};
+  cudaError_t err = plan_apply(P, static_cast<cudaStream_t>(stream), &L);
+  if (err != cudaSuccess) return err;
+  const size_t act = apply_act_floats(nrows, d);
+  if ((size_t)scratch_floats < act + L.part_floats) return cudaErrorInvalidValue;
+  P.part = scratch + act;
+  err = cudaLaunchKernelEx(&L.cfg, fused_apply_kernel, P);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The floats of linna_fused_apply's scratch over nrows rows on the current
+// device, or minus a cudaError_t.
+long long linna_apply_scratch_floats(int nrows, const int* dims) {
   if (nrows <= 0) return 0;
   const TrunkDims d = make_dims(dims);
-  const TrunkWeights w = make_weights(weights);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rows_for(nrows)) {
-    case 2: return launch_apply<2>(x, nrows, w, d, out, st);
-    case 4: return launch_apply<4>(x, nrows, w, d, out, st);
-    default: return launch_apply<8>(x, nrows, w, d, out, st);
-  }
+  ApplyPlan P = make_apply_plan(nullptr, nrows, TrunkWeights{}, d, nullptr, nullptr);
+  ApplyLaunch L{};
+  const cudaError_t err = plan_apply(P, 0, &L);
+  if (err != cudaSuccess) return -(long long)err;
+  return (long long)(apply_act_floats(nrows, d) + L.part_floats);
 }
 
 // like: is_gauss, arg1, arg2, x_mean, x_std, x_log10, y_mean, y_std, sigma,
@@ -828,29 +1189,32 @@ int linna_fused_log_prob(const float* x, int nrows, const void* const* weights, 
 }
 
 // The launch shape of a kernel (0: fused_apply, 1: fused_log_prob) over
-// nrows walkers, for the record.  shape: walkers per block (per cluster for
-// fused_log_prob), blocks per cluster, blocks, threads per block, and the
-// most clusters the card holds at once (-1 for fused_apply); smem: dynamic
-// shared memory per block.  Returns a cudaError_t.
+// nrows walkers, for the record; smem: dynamic shared memory per block.
+// shape (9 + 10 ints), fused_apply: tile rows, tile columns, blocks,
+// threads per block, blocks per SM, SMs, tile k, stages, the most work
+// items of a product, then each product's k split; fused_log_prob:
+// walkers per cluster, blocks per cluster, blocks, threads per block, the
+// most clusters the card holds at once, then zeros.  Returns a cudaError_t.
 int linna_launch_shape(int kernel, int nrows, const int* dims, int* shape, long long* smem) {
   const TrunkDims d = make_dims(dims);
-  shape[3] = kThreads;
+  for (int i = 0; i < 9 + kApplyProducts; ++i) shape[i] = 0;
   if (kernel == 0) {
-    const int rows = rows_for(nrows);
-    shape[0] = rows;
-    shape[1] = 1;
-    shape[2] = (nrows + rows - 1) / rows;
-    shape[4] = -1;
-    *smem = (long long)(rows == 2   ? smem_bytes<2>(d)
-                        : rows == 4 ? smem_bytes<4>(d)
-                                    : smem_bytes<8>(d));
-    return 0;
+    ApplyPlan P = make_apply_plan(nullptr, nrows, TrunkWeights{}, d, nullptr, nullptr);
+    ApplyLaunch L{};
+    const cudaError_t err = plan_apply(P, 0, &L);
+    const int v[9] = {kBM, kBN, (int)L.cfg.gridDim.x, kApplyThreads, L.per_sm, L.sms, kBK,
+                      kStages, L.max_items};
+    for (int i = 0; i < 9; ++i) shape[i] = v[i];
+    for (int p = 0; p < kApplyProducts; ++p) shape[9 + p] = P.prod[p].split;
+    *smem = (long long)kApplySmem;
+    return err;
   }
   ClusterLaunch L;
   const int err = plan_log_prob(nrows, d, 0, &L);
   shape[0] = L.walkers;
   shape[1] = kCluster;
   shape[2] = (int)L.cfg.gridDim.x;
+  shape[3] = kThreads;
   shape[4] = L.max_clusters;
   *smem = (long long)L.cfg.dynamicSmemBytes;
   return err;

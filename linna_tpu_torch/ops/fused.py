@@ -5,7 +5,8 @@ become hand-written CUDA C++ for Hopper (``csrc/fused_mlp.cu``, built for
 ``sm_90a`` with ``nvcc`` at first use and called through ``ctypes``):
 
 - ``fused_apply`` (replaces ``_apply_impl``): the whole ChtoModelv2 trunk in
-  one launch.
+  one cooperative launch of tiled 3xTF32 tensor-core products, with the
+  activations between products in a scratch buffer the wrapper allocates.
 - ``fused_log_prob`` (replaces ``_log_prob_impl``): whitened walker position
   -> prior transform -> standardize -> trunk -> destandardize (exp when
   ``ypositive``) -> sigma scale -> chi^2 against the data with the inverse
@@ -13,8 +14,8 @@ become hand-written CUDA C++ for Hopper (``csrc/fused_mlp.cu``, built for
 
 ``fused_log_prob``'s kernel runs on thread-block clusters of 8 blocks that
 split every product's columns and exchange activations through distributed
-shared memory (``launch_shape`` reports the clusters); it raises when no
-cluster of its shape fits on the card.
+shared memory; it raises when no cluster of its shape fits on the card.
+``launch_shape`` reports each kernel's launch.
 
 Each wrapper launches its kernel for a CUDA tensor and raises if the build or
 the launch fails; for a CPU tensor it runs the plain PyTorch version beside
@@ -125,8 +126,10 @@ def build() -> str:
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     ints = ctypes.POINTER(ctypes.c_int)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.linna_fused_apply.argtypes = [vp, ci, ptrs, ints, vp, vp]
+    lib.linna_fused_apply.argtypes = [vp, ci, ptrs, ints, vp, vp, ctypes.c_longlong, vp]
     lib.linna_fused_apply.restype = ci
+    lib.linna_apply_scratch_floats.argtypes = [ci, ints]
+    lib.linna_apply_scratch_floats.restype = ctypes.c_longlong
     lib.linna_fused_log_prob.argtypes = [vp, ci, ptrs, ints, ptrs, ci, vp, vp]
     lib.linna_fused_log_prob.restype = ci
     lib.linna_launch_shape.argtypes = [ci, ci, ints, ints, ctypes.POINTER(ctypes.c_longlong)]
@@ -203,25 +206,29 @@ def _ptrs(tensors: Sequence[torch.Tensor]):
 
 def launch_shape(spec: N.ModelSpec, nrows: int, kernel: str) -> Dict[str, int]:
     """The launch shape of ``kernel`` over ``nrows`` walkers (its occupancy
-    record).  ``fused_apply``: walkers per block, blocks, threads, dynamic
-    shared memory per block.  ``fused_log_prob`` runs on clusters: walkers
-    per cluster, blocks per cluster, clusters, blocks, threads, shared
-    memory, and the most clusters of that shape the card holds at once."""
+    record).  ``fused_apply`` is one cooperative launch: the output tile
+    (rows, columns, k per stage, stages), blocks, threads, blocks per SM,
+    the card's SMs, each product's k split over blocks, the most work items
+    (tiles x split) of any product, and dynamic shared memory per block.  ``fused_log_prob`` runs on clusters: walkers per
+    cluster, blocks per cluster, clusters, blocks, threads, shared memory,
+    and the most clusters of that shape the card holds at once."""
     build()
     dims = (ctypes.c_int * 10)(*_dims(spec))
-    shape, smem = (ctypes.c_int * 5)(), ctypes.c_longlong()
+    shape, smem = (ctypes.c_int * 19)(), ctypes.c_longlong()
     err = _Library.lib.linna_launch_shape(
         _KERNEL_IDS[kernel], nrows, dims, shape, ctypes.byref(smem)
     )
     if err != 0:
         msg = _Library.lib.linna_error_string(err).decode()
         raise RuntimeError(f"{kernel} launch-shape query failed: {msg} (cudaError {err})")
-    rows, cluster, blocks, threads, max_clusters = shape
     if kernel == "fused_apply":
-        return {"rows_per_block": rows, "blocks": blocks, "threads_per_block": threads,
-                "smem_bytes": smem.value}
+        tile_rows, tile_cols, blocks, threads, per_sm, sms, tile_k, stages, items = shape[:9]
+        return {"tile": [tile_rows, tile_cols, tile_k], "stages": stages, "blocks": blocks,
+                "threads_per_block": threads, "blocks_per_sm": per_sm, "sms": sms,
+                "split": list(shape[9:]), "max_items": items, "smem_bytes": smem.value}
+    walkers, cluster, blocks, threads, max_clusters = shape[:5]
     return {
-        "walkers_per_cluster": rows,
+        "walkers_per_cluster": walkers,
         "cluster_size": cluster,
         "clusters": blocks // cluster,
         "blocks": blocks,
@@ -271,14 +278,20 @@ def fused_apply_plain(spec: N.ModelSpec, params, x: torch.Tensor) -> torch.Tenso
 
 def _launch_apply(spec: N.ModelSpec, x: torch.Tensor, weights) -> torch.Tensor:
     build()
-    dims = _check_weights(spec, weights, x.device)
+    dims = (ctypes.c_int * 10)(*_check_weights(spec, weights, x.device))
     _require(x, "x", torch.float32, (x.shape[0], spec.in_size), x.device)
     out = torch.empty((x.shape[0], spec.out_size), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
+        # the activations between the kernel's products and the partial
+        # tiles of the products it splits over blocks
+        floats = _Library.lib.linna_apply_scratch_floats(x.shape[0], dims)
+        if floats < 0:
+            _check(-floats, "fused_apply")
+        scratch = torch.empty((floats,), dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _Library.lib.linna_fused_apply(
-            x.data_ptr(), x.shape[0], _ptrs(weights), (ctypes.c_int * 10)(*dims),
-            out.data_ptr(), stream,
+            x.data_ptr(), x.shape[0], _ptrs(weights), dims, out.data_ptr(),
+            scratch.data_ptr(), floats, stream,
         )
     _check(err, "fused_apply")
     launches["fused_apply"] += 1

@@ -1,0 +1,88 @@
+"""chip_smoke.py's measurement helpers, on the CPU: the kernel-time reading
+refuses a profile whose device-event count differs from the launches, the
+bounds give both the f32 CUDA-core and the 3xTF32 tensor-core times, and the
+compiler's register report is read per kernel.  The profiler itself is
+replaced by fixed event counts; the card runs the real one."""
+
+import pathlib
+import sys
+
+import pytest
+import torch
+
+import linna_tpu_torch
+from linna_tpu_torch import nn as TN
+
+REPO = pathlib.Path(linna_tpu_torch.__file__).parent.parent
+if str(REPO) not in sys.path:
+    sys.path.insert(0, str(REPO))
+import chip_smoke as C  # noqa: E402
+
+torch.set_num_threads(1)
+
+KERNEL = "(anonymous namespace)::fused_apply_kernel((anonymous namespace)::ApplyPlan)"
+
+
+def _profile_gives(monkeypatch, *readings):
+    """Each profiled run returns the next of ``readings`` ({name: (count, us)})."""
+    it = iter(readings)
+    monkeypatch.setattr(C, "_warm", lambda fn: None)
+    monkeypatch.setattr(C, "_profiled_events", lambda fn, reps: next(it))
+
+
+def test_device_ms_times_the_kernels_own_events(monkeypatch):
+    _profile_gives(monkeypatch, {KERNEL: (30, 2700.0), "memset": (30, 90.0)})
+    ms, method = C.device_ms(lambda: None, "fused_apply_kernel", reps=30)
+    assert ms == pytest.approx(0.09)
+    assert "30 device events of fused_apply_kernel" in method
+
+
+@pytest.mark.parametrize("seen", [0, 15, 29, 31])
+def test_device_ms_refuses_a_count_that_differs_from_the_launches(monkeypatch, seen):
+    _profile_gives(monkeypatch, *[{KERNEL: (seen, 1635.0)}] * 3)
+    with pytest.raises(AssertionError, match=f"saw {seen} device events .* not the 30 launched"):
+        C.device_ms(lambda: None, "fused_apply_kernel", reps=30)
+
+
+def test_device_ms_takes_a_reading_again_after_a_short_one(monkeypatch):
+    _profile_gives(monkeypatch, {KERNEL: (17, 930.0)}, {KERNEL: (60, 5400.0)})
+    ms, _ = C.device_ms(lambda: None, "fused_apply_kernel", per_call=2, reps=30)
+    assert ms == pytest.approx(0.18)
+
+
+def test_device_ms_of_a_plain_version_times_every_event(monkeypatch):
+    _profile_gives(monkeypatch, {"gemm": (330, 1200.0), "relu": (390, 270.0)})
+    ms, method = C.device_ms(lambda: None, reps=30)
+    assert ms == pytest.approx(0.049)
+    assert "720 device events of the call's kernels" in method
+
+
+def test_bounds_give_both_operation_rates():
+    spec = TN.make_model_spec("chto_v2", 27, 457)
+    params = TN.init_model(spec, seed=0, device="cpu")
+    flops = 2.0 * TN.count_params(params) * 4096
+    apply = C.bound_ms("fused_apply", spec, params, 4096)
+    assert apply["f32_cuda_core_ms"] == pytest.approx(flops / 67e12 * 1e3)
+    assert apply["tf32x3_tensor_core_ms"] == pytest.approx(3 * flops / 494.7e12 * 1e3)
+    assert apply["ms"] == apply["tf32x3_tensor_core_ms"] and apply["by"] == "operations"
+    assert apply["tf32x3_tensor_core_ms"] == pytest.approx(0.0625, abs=5e-4)
+    assert C.bound_ms("fused_apply", spec, params, 256)["ms"] == pytest.approx(0.0039, abs=5e-5)
+    lp = C.bound_ms("fused_log_prob", spec, params, 256)
+    assert lp["ms"] == lp["f32_cuda_core_ms"] > lp["tf32x3_tensor_core_ms"]
+
+
+def test_kernel_resources_reads_each_kernels_registers_and_spills():
+    report = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118fused_apply_kernelENS_9ApplyPlanE' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_118fused_apply_kernelENS_9ApplyPlanE",
+        "    56 bytes stack frame, 52 bytes spill stores, 52 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers, 1616 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121fused_log_prob_kernelEPKfi' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_121fused_log_prob_kernelEPKfi",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers",
+    ])
+    assert C.kernel_resources(report) == {
+        "fused_apply": {"spill_bytes": 104, "registers": 128},
+        "fused_log_prob": {"spill_bytes": 0, "registers": 128},
+    }

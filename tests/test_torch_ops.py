@@ -28,9 +28,10 @@ torch.set_num_threads(1)
 TOL = dict(rtol=2e-4, atol=2e-4)  # tests/test_ops.py's likelihood tolerance
 
 
-def test_fused_apply_plain_matches_pallas_and_reference():
+@pytest.mark.parametrize("batch", [1, 37, 129])  # ragged row tiles
+def test_fused_apply_plain_matches_pallas_and_reference(batch):
     p = problem()
-    x = walkers(37, 5, seed=7)  # odd batch
+    x = walkers(batch, 5, seed=7)
     want = np.asarray(j_fused_apply(p.spec, p.params_j, x, interpret=True))
     got = TF.fused_apply(p.tspec, p.params_t, t(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
