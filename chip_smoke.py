@@ -179,8 +179,8 @@ def kernel_us(prof) -> dict:
     return {k: us for k, (_, us) in kernel_events(prof).items() if us > 0}
 
 
-def _profiled_events(fn, reps: int) -> tuple:
-    """(device events, device microseconds) of ``reps`` calls by kernel name."""
+def _profiled_events(fn, reps: int) -> dict:
+    """{kernel name: (device events, device microseconds)} of ``reps`` calls."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
