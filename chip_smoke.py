@@ -36,11 +36,27 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    before and read just after: ``fused_log_prob`` must have launched and the
    plain versions must not have run.  ``fused_apply`` is not on this path
    (as in the JAX package); phase 3 alone launches it.
-5. One ``{"kernels": [...]}`` line, the card's name and power limit, and the
+5. Training at the DES width: iteration 0 of a
+   pipeline with 10000 training and 500 validation points on a flat Latin
+   hypercube over phase 4's priors, the theory a smooth synthetic function
+   from a seed, trained by ``train_emulator`` as the README's K=4
+   ``EnsembleTrainer`` for ``TRAIN_EPOCHS`` epochs (the paper's 4500 cut to
+   fit the time limit).  Every member's best val loss must be finite and
+   below 1/10 of its initial weights', and every artifact must exist.  The
+   trained ensemble is then sampled (zeus, 256 walkers, T^2 = 16), trained
+   member 0's ``make_log_prob(use_fused=True)`` is held against the plain
+   composition at the chain's last positions (one launch, no plain call),
+   and the canonical ``ml_sampler_core`` drive (ndim 3, 2 iterations, zeus,
+   ``use_fused``) runs on the card.  A 10-epoch chunk is timed and another
+   traced: ms per epoch, rows per second, launches per epoch, the device's
+   busy share and the host's time by op.  The kernels' counts are zeroed
+   before the phase and read after it: ``fused_log_prob`` must have
+   launched.
+6. One ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 
-The weights are random (from a seed), not a trained emulator.  Exits nonzero
-with no result line when no CUDA device is present.
+Phase 4's weights are random (from a seed); phase 5 trains its own.  Exits
+nonzero with no result line when no CUDA device is present.
 """
 
 from __future__ import annotations
@@ -70,6 +86,12 @@ BATCHES = (1, 37, 128, 200, 256, 4096)
 TIMED_ROWS = {"fused_apply": (128, 256, 4096), "fused_log_prob": (128, 256)}
 WIDE_ROWS = {"fused_apply": (128, 256, 4096), "fused_log_prob": (128, 256)}
 REPS = 30
+# phase 5: ml_sampler's training set (orchestrator.py:582-583) and ensemble
+# (:614), depth cut from 4500 epochs to TRAIN_EPOCHS
+NTRAIN, NVAL = 10000, 500
+NENSEMBLE = 4
+TRAIN_EPOCHS = 300
+ENS_STEPS = 100
 
 # tests/test_ops.py's kernel tolerance; both sides accumulate in f32 and
 # differ only in summation order
@@ -107,11 +129,7 @@ def make_problem(device, ndim=NDIM, ndata=NDATA, seed=0, log10=(), ypositive=Fal
     params = N.init_model(spec, seed=seed, device=device)
     mask = np.zeros(ndim, bool)
     mask[list(log10)] = True
-    priors = [
-        {"dist": "gauss", "arg1": 0.3, "arg2": 1.0} if i % 3 == 0
-        else {"dist": "flat", "arg1": -2.0, "arg2": 2.0}
-        for i in range(ndim)
-    ]
+    priors = mixed_priors(ndim)
     if ypositive:
         y_mean, y_std = np.zeros(ndata), np.full(ndata, 0.05)
     else:
@@ -455,11 +473,7 @@ def write_iteration_dir(outdir, device, seed=3, ndim=NDIM, ndata=NDATA, ntrain=2
     from linna_tpu_torch.utils import checkpoint as ckpt
 
     rng = np.random.default_rng(seed)
-    priors = [
-        {"dist": "gauss", "arg1": 0.3, "arg2": 1.0} if i % 3 == 0
-        else {"dist": "flat", "arg1": -2.0, "arg2": 2.0}
-        for i in range(ndim)
-    ]
+    priors = mixed_priors(ndim)
     pack = P.priors_from_list(priors, device)
     os.makedirs(outdir, exist_ok=True)
     spec = N.make_model_spec("chto_v2", ndim, ndata)
@@ -584,6 +598,320 @@ def phase_slice(device, outdir, nwalkers=NWALKERS, steps=STEPS, ndim=NDIM, ndata
     return res
 
 
+# ---------------------------------------------------------------- training
+
+
+class SmoothTheory:
+    """A smooth synthetic theory made from a seed: ``y = 10 + tanh(x A) B``
+    with A (ndim, width) and B (width, ndata) Gaussian.  Called as the
+    pipeline calls a theory, ``theory([index, x], scratch_dir)``."""
+
+    def __init__(self, ndim: int, ndata: int, seed: int = 5, width: int = 64):
+        rng = np.random.default_rng(seed)
+        self.a = rng.normal(size=(ndim, width)) / np.sqrt(ndim)
+        self.b = rng.normal(size=(width, ndata)) / np.sqrt(width)
+
+    def batch(self, x: np.ndarray) -> np.ndarray:
+        return 10.0 + np.tanh(np.asarray(x, np.float64) @ self.a) @ self.b
+
+    def __call__(self, task, outdir) -> np.ndarray:
+        return self.batch(np.asarray(task[1])[None])[0]
+
+
+def mixed_priors(ndim: int) -> list:
+    """Phase 4's priors: Gaussian on every third parameter, flat elsewhere."""
+    return [
+        {"dist": "gauss", "arg1": 0.3, "arg2": 1.0} if i % 3 == 0
+        else {"dist": "flat", "arg1": -2.0, "arg2": 2.0}
+        for i in range(ndim)
+    ]
+
+
+def iteration_missing(outdir: str, nensemble: int, chain: bool = False) -> list:
+    """The artifacts of a trained (and, with ``chain``, sampled) iteration
+    directory that are not there: the sample files, transforms, marker, and
+    each member's checkpoints and learning rate."""
+    from linna_tpu_torch import orchestrator as O
+
+    need = ["train_samples_x.txt", "train_samples_y.npy", "val_samples_x.txt",
+            "val_samples_y.npy", O.TRANSFORMS_FILE, O.FINISH_MARKER]
+    for k in range(nensemble):
+        sub = "" if k == 0 else f"ens_{k}"
+        need += [os.path.join(sub, f) for f in (O.BEST_CKPT, "last.ckpt.npz", "lr.npy")]
+    missing = [f for f in need if not os.path.isfile(os.path.join(outdir, f))]
+    if chain and not O._open_backend(os.path.join(outdir, O._chain_filename("zeus")), "zeus").exists():
+        missing.append(O._chain_filename("zeus"))
+    return missing
+
+
+def member_dirs(outdir: str, nensemble: int) -> list:
+    return [outdir] + [os.path.join(outdir, f"ens_{k}") for k in range(1, nensemble)]
+
+
+def initial_val_losses(outdir, spec, data, cov, seeds, device) -> list:
+    """Each member's validation loss (the median chi^2 ratio) at its initial
+    weights, which its seed fixes, under the iteration's transforms."""
+    from linna_tpu_torch import data as D
+    from linna_tpu_torch import losses as L
+    from linna_tpu_torch import nn as N
+    from linna_tpu_torch import orchestrator as O
+    from linna_tpu_torch import transforms as T
+
+    ts = T.load_transforms(os.path.join(outdir, O.TRANSFORMS_FILE), device=device)
+    ls = L.build_loss_state(data, cov, ts)
+    stack = D.load_curated_stack([outdir])
+    vx = torch.as_tensor(stack.val_x, dtype=torch.float32, device=device)
+    vy = torch.as_tensor(stack.val_y, dtype=torch.float32, device=device)
+    out = []
+    with torch.no_grad():
+        for s in seeds:
+            pred = N.apply_model(spec, N.init_model(spec, seed=s, device=device), ts.x_transform(vx))
+            out.append(float(L.val_metric_fn(ls, ts, pred, vy)[0]))
+    return out
+
+
+def best_val_losses(outdir: str, nensemble: int) -> list:
+    from linna_tpu_torch import orchestrator as O
+    from linna_tpu_torch.utils import checkpoint as ckpt
+
+    return [float(ckpt.read_checkpoint_raw(os.path.join(d, O.BEST_CKPT))[1]["best_val_loss"])
+            for d in member_dirs(outdir, nensemble)]
+
+
+def not_learned(best: list, initial: list, factor: float = 10.0) -> list:
+    """Members whose best val loss is not finite or not below 1/factor of
+    their initial weights' val loss: [(member, best, initial)]."""
+    return [(m, b, i) for m, (b, i) in enumerate(zip(best, initial))
+            if not (np.isfinite(b) and b < i / factor)]
+
+
+def trained_ensemble_trainer(outdir, data, cov, nensemble, batch_size, device):
+    """An EnsembleTrainer holding the trained members' best weights, over
+    the iteration's rows, for a timed and a traced chunk."""
+    from linna_tpu_torch import data as D
+    from linna_tpu_torch import losses as L
+    from linna_tpu_torch import nn as N
+    from linna_tpu_torch import orchestrator as O
+    from linna_tpu_torch import transforms as T
+    from linna_tpu_torch.parallel import EnsembleTrainer
+    from linna_tpu_torch.utils import checkpoint as ckpt
+
+    stack = D.load_curated_stack([outdir])
+    ts = T.load_transforms(os.path.join(outdir, O.TRANSFORMS_FILE), device=device)
+    spec = N.make_model_spec("chto_v2", stack.train_x.shape[1], stack.train_y.shape[1])
+    params = [ckpt.load_checkpoint(os.path.join(d, O.BEST_CKPT), device="cpu")[0]
+              for d in member_dirs(outdir, nensemble)]
+    tr = EnsembleTrainer(spec, ts, L.build_loss_state(data, cov, ts), [None] * nensemble,
+                         list(range(nensemble)), params=params, device=device)
+    tr._batch_size = batch_size
+    rows = tr._prepare(stack.train_x, stack.train_y, stack.val_x, stack.val_y)
+    return tr, rows, len(stack.train_x)
+
+
+def timed_train_chunk(tr, rows, n, device, epochs=10) -> dict:
+    """Where a training epoch's time goes: a chunk of ``epochs`` epochs timed
+    with a synchronize on each side, then one traced by torch.profiler
+    (its wall includes the profiler's own cost): device busy share, kernel
+    launches per epoch, and device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tr._epochs_tracked(tr._draw_perms(1, n), rows)  # warm
+    perms = tr._draw_perms(epochs, n)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    tr._epochs_tracked(perms, rows)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    perms = tr._draw_perms(epochs, n)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr._epochs_tracked(perms, rows)
+        torch.cuda.synchronize(device)
+        traced_wall = time.perf_counter() - t0
+    events = kernel_events(prof)
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0), key=lambda r: -r[1])
+    n_kernels = sum(c for c, _ in events.values())
+    dev_ms = sum(us for _, us in events.values()) / 1e3
+    by_kernel = sorted(((k, us / 1e3) for k, (_, us) in events.items()), key=lambda kv: -kv[1])
+    rows_per_epoch = (n // tr._batch_size) * tr._batch_size * tr.n_members
+    return {
+        "epochs": epochs,
+        "ms_per_epoch": wall / epochs * 1e3,
+        "rows_per_s": rows_per_epoch * epochs / wall,
+        "traced_wall_ms": traced_wall * 1e3,
+        "device_ms": dev_ms,
+        "device_busy_share": dev_ms / (traced_wall * 1e3),
+        "launches_per_epoch": n_kernels / epochs,
+        "device_ms_by_kernel": dict(by_kernel[:8]),
+        "host_ms_and_calls_by_op": {k: [ms, n] for k, ms, n in host[:10]},
+    }
+
+
+def drive_pipeline(outdir, device, use_fused=False) -> dict:
+    """The canonical ml_sampler_core drive (ndim 3, 2 iterations, zeus) of
+    the verify recipe; ``use_fused`` routes its single emulator through
+    ``fused_log_prob``."""
+    import linna_tpu_torch as LT
+
+    ndim = 3
+    cov, means = np.diag([0.3, 0.5, 0.2]), np.array([0.3, -0.2, 0.5])
+    priors = [{"param": f"p{i}", "dist": "flat", "arg1": -2.0, "arg2": 2.0} for i in range(ndim)]
+    t0 = time.perf_counter()
+    chain, logp = LT.ml_sampler_core(
+        ntrainArr=[400, 400], nvalArr=[80, 80], nkeepArr=[2, 4], ntimesArr=[8, 15],
+        ntautolArr=[0.2, 0.1], meanshiftArr=[0.5, 0.5], stdshiftArr=[0.5, 0.5],
+        outdir=outdir, theory=_identity_theory, priors=priors, data=means, cov=cov,
+        init=np.zeros(ndim), pool=None, nwalkers=24, temperatureArr=[2.0, 1.0],
+        params={"trainingoption": 1, "num_epochs": 300, "batch_size": 100,
+                "use_fused": use_fused},
+        method="zeus", seed=3, device=device,
+    )
+    seconds = time.perf_counter() - t0
+    missing = [f"iter_{i}/{f}" for i in range(2)
+               for f in iteration_missing(os.path.join(outdir, f"iter_{i}"), 1, chain=True)]
+    if missing:
+        raise AssertionError(f"ml_sampler_core left artifacts out: {missing}")
+    if chain.ndim != 2 or chain.shape[1] != ndim or not np.isfinite(chain).all() \
+            or not np.isfinite(logp).all():
+        raise AssertionError(f"ml_sampler_core chain {chain.shape} is not finite")
+    sd = np.sqrt(np.diag(cov))
+    return {"seconds": seconds, "samples": int(chain.shape[0]),
+            "mean_offset_sigma": ((chain.mean(axis=0) - means) / sd).tolist(),
+            "std_ratio": (chain.std(axis=0) / sd).tolist()}
+
+
+def _identity_theory(task, outdir):
+    return np.asarray(task[1], dtype=np.float64).copy()
+
+
+def phase_train(device, outdir, ndim=NDIM, ndata=NDATA, ntrain=NTRAIN, nval=NVAL,
+                epochs=TRAIN_EPOCHS, nensemble=NENSEMBLE, nwalkers=NWALKERS, steps=ENS_STEPS,
+                chunk_epochs=10):
+    """Training at the DES width: iteration 0 of a pipeline (flat LHS points,
+    a smooth synthetic theory) trained as the README's K=4 ensemble through
+    ``train_emulator``, then sampled, then the fused likelihood held against
+    the plain composition on trained member 0, then the canonical drive of
+    ``ml_sampler_core``.  Returns the records the result line reports."""
+    from linna_tpu_torch import likelihood as LK
+    from linna_tpu_torch import nn as N
+    from linna_tpu_torch import orchestrator as O
+    from linna_tpu_torch import priors as P
+    from linna_tpu_torch import sample_gen as SG
+    from linna_tpu_torch.ops import fused as F
+    from linna_tpu_torch.samplers import run as R
+    from linna_tpu_torch.train import _walk
+
+    on_card = device.type == "cuda"
+    it0 = os.path.join(outdir, "train", "iter_0")
+    theory = SmoothTheory(ndim, ndata)
+    priors = mixed_priors(ndim)
+    pack = P.priors_from_list(priors, device)
+    rng = np.random.default_rng(11)
+    truth = P.transform_np(pack, rng.normal(size=(1, ndim)) * 0.3)[0]
+    sigma = np.full(ndata, 0.1)
+    data = theory.batch(truth[None])[0] + sigma * rng.normal(size=ndata)
+    cov = np.diag(sigma**2)
+    inv_cov = np.linalg.inv(cov)
+
+    t0 = time.perf_counter()
+    SG.generate_training_point(theory, SG.NNSampler(it0, P.prior_range(pack)), None, it0,
+                               ntrain, nval, data, inv_cov)
+    t1 = time.perf_counter()
+    params = {"trainingoption": 1, "nensemble": nensemble, "batch_size": 500, "num_epochs": epochs}
+    rec: dict = {}
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    O.train_emulator(it0, [it0], data, cov, sigma, None, False, "chto_v2", params,
+                     trace_rec=rec, device=device)
+    if on_card:
+        torch.cuda.synchronize(device)
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated(device) if on_card else None
+    missing = iteration_missing(it0, nensemble)
+    if missing:
+        raise AssertionError(f"train_emulator left artifacts out: {missing}")
+    plots = {f: [os.path.isfile(os.path.join(d, f)) for d in member_dirs(it0, nensemble)]
+             for f in ("lr_tunning.png", "training_progress.png", "trainniing.png")}
+
+    spec = N.make_model_spec("chto_v2", ndim, ndata)
+    seeds = [1234 + 1000 * k for k in range(nensemble)]  # train_emulator's member seeds
+    initial = initial_val_losses(it0, spec, data, cov, seeds, device)
+    best = best_val_losses(it0, nensemble)
+    log(f"  val loss per member: initial {initial}, best {best}")
+    bad = not_learned(best, initial)
+    if bad:
+        raise AssertionError(f"members that did not learn (member, best, initial): {bad}")
+
+    # sample the trained ensemble, then hold the fused likelihood of trained
+    # member 0 against the plain composition at the chain's last positions
+    model = O.retrieve_model(it0, ndim, ndata, device=device)
+    members = O.retrieve_ensemble_params(it0, model)
+    off = ["/".join(k) for m in members for k, v in _walk(m) if v.device != device]
+    if len(members) != nensemble or off:
+        raise AssertionError(f"{len(members)} members retrieved, tensors off {device}: {off}")
+    log_prob = LK.make_log_prob(model.spec, members, model.transforms, pack, data, inv_cov,
+                                temperature=TEMPERATURE, device=device)
+    init_white = P.inv_transform(pack, torch.as_tensor(truth, dtype=torch.float32, device=device))
+    x0 = init_white.cpu().numpy() + 0.001 * rng.standard_normal((nwalkers, ndim))
+    t3 = time.perf_counter()
+    R.run_ensemble(log_prob, x0, it0, method="zeus", transform=lambda x: P.transform_np(pack, x),
+                   check_every=min(100, steps), max_iterations=steps, convergence_check=False,
+                   seed=0, device=device)
+    t4 = time.perf_counter()
+    chain_path = os.path.join(it0, O._chain_filename("zeus"))
+    chain, lp, reader = O.read_chain_and_cut(chain_path, nk=2, ntimes=10, method="zeus", flat=True)
+    last = reader.get_chain()[-1]
+    if not (np.isfinite(chain).all() and np.isfinite(lp).all()) or last.shape != (nwalkers, ndim):
+        raise AssertionError(f"trained-ensemble chain {chain.shape} is not finite")
+    fused = LK.make_log_prob(model.spec, model.params, model.transforms, pack, data, inv_cov,
+                             temperature=TEMPERATURE, use_fused=True, device=device)
+    plain = LK.make_log_prob(model.spec, model.params, model.transforms, pack, data, inv_cov,
+                             temperature=TEMPERATURE, device=device)
+    x_last = torch.as_tensor(last, dtype=torch.float32, device=device)
+    before = dict(F.launches), dict(F.plain_calls)
+    with torch.no_grad():
+        got = fused(x_last)
+        moved = F.launches["fused_log_prob"] - before[0]["fused_log_prob"]
+        plain_in_fused = F.plain_calls["fused_log_prob"] - before[1]["fused_log_prob"]
+        err = compare(got, plain(x_last), "fused_log_prob on trained member 0")
+    if on_card and (moved != 1 or plain_in_fused):
+        raise AssertionError(f"the fused call launched {moved} kernels and ran the plain "
+                             f"version {plain_in_fused} times")
+
+    t5 = time.perf_counter()
+    drive = drive_pipeline(os.path.join(outdir, "drive"), device, use_fused=True)
+    log(f"  ml_sampler_core drive: {json.dumps(drive)}")
+
+    res = {
+        "epochs": epochs,
+        "epochs_run": rec.get("epochs_run"),
+        "train_emulator_s": t2 - t1,
+        "points_s": t1 - t0,
+        "ms_per_epoch_in_train_emulator": (rec["trainer"]["dispatch"] + rec["trainer"]["wait_fetch"])
+        / max(rec["epochs_run"], 1) * 1e3,
+        "trainer_phase_s": rec["trainer"],
+        "stack_fit_s": rec.get("stack_fit_s"),
+        "trainer_init_s": rec.get("trainer_init_s"),
+        "peak_device_bytes": peak,
+        "initial_val_loss": initial,
+        "best_val_loss": best,
+        "plots_written": plots,
+        "ensemble_sample_s": t4 - t3,
+        "ensemble_steps": steps,
+        "fused_check": err,
+        "drive": drive,
+        "drive_s": time.perf_counter() - t5,
+    }
+    if on_card:
+        tr, rows, n = trained_ensemble_trainer(it0, data, cov, nensemble, 500, device)
+        if any(t.device != device for t in (tr.flat, *tr.opt, *rows[:4])):
+            raise AssertionError("the trainer's tensors are not all on the card")
+        res["chunk"] = timed_train_chunk(tr, rows, n, device, chunk_epochs)
+    log(f"  training: {json.dumps(res, default=float)}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -629,7 +957,19 @@ def main() -> int:
     finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
 
-    log("== 5. result")
+    log("== 5. training at the DES width")
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    F.reset_counts()
+    try:
+        train = phase_train(device, RUN_DIR)
+    finally:
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
+    train_launches, train_plain = dict(F.launches), dict(F.plain_calls)
+    log(f"  training path launches {train_launches}, plain calls {train_plain}")
+    if train_launches["fused_log_prob"] == 0:
+        raise AssertionError("fused_log_prob did not launch on the training path")
+
+    log("== 6. result")
     kernels = []
     for k in REPLACES:
         r = rec[k]
@@ -640,6 +980,7 @@ def main() -> int:
             "source": SOURCE,
             "replaces": REPLACES[k],
             "launches": res["launches"][k],
+            "launches_by_path": {"sampling": res["launches"][k], "training": train_launches[k]},
             "max_abs_err": r["abs"],
             "max_rel_err": r["rel"],
             "tolerance": {"rtol": RTOL, "atol": ATOL},

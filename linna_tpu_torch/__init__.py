@@ -8,13 +8,34 @@ hand-written CUDA kernels (``ops/csrc/fused_mlp.cu``) when
 ``make_log_prob(..., use_fused=True)`` is asked for on a CUDA device.
 """
 
-from . import device, likelihood, nn, ops, orchestrator, priors, samplers, transforms, utils  # noqa: F401
+from . import (  # noqa: F401
+    data,
+    device,
+    likelihood,
+    losses,
+    nn,
+    ops,
+    orchestrator,
+    parallel,
+    pool,
+    priors,
+    sample_gen,
+    samplers,
+    train,
+    transforms,
+    utils,
+)
 from .orchestrator import (  # noqa: F401
+    ml_sampler,
+    ml_sampler_core,
     read_chain_and_cut,
     retrieve_ensemble_params,
     retrieve_model,
     retrieve_model_exist,
     retrieve_model_wrapper,
+    train_emulator,
 )
+from .parallel import EnsembleTrainer  # noqa: F401
+from .train import Trainer  # noqa: F401
 
 __version__ = "0.1.0"

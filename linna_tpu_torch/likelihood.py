@@ -59,6 +59,7 @@ def make_log_prob(
     ensemble_k_std: float = 1.0,
     use_fused: bool = False,
     out_cut: Optional[int] = None,
+    compute_dtype: Optional[str] = None,
     device: DeviceLike = None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Build the batched whitened-space log-posterior on ``device``.
@@ -77,10 +78,19 @@ def make_log_prob(
     ``out_cut``: compare only the first ``out_cut`` components of a wider
     checkpoint's prediction with ``data``.
 
+    ``compute_dtype`` (a reduced-precision emulator forward, such as
+    ``"bfloat16"``) is not ported: any value but ``None`` raises
+    ``NotImplementedError`` rather than running the request in float32.
+
     Ensemble likelihood: ``params`` may be a list of K parameter dicts; the
     effective chi^2 is ``mean_k chi2_k + ensemble_k_std * std_k chi2_k``
     with the population std (ddof=0).  Only for the Gaussian likelihood.
     """
+    if compute_dtype is not None:
+        raise NotImplementedError(
+            f"compute_dtype={compute_dtype!r} is not ported to linna_tpu_torch "
+            "yet (see ROADMAP.md); pass compute_dtype=None for float32"
+        )
     device = resolve_device(device)
     data_t = _f32(data, device)
     inv_cov_t = _f32(inv_cov, device)

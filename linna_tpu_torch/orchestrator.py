@@ -1,31 +1,54 @@
-"""The sampling stage of one LINNA iteration (PyTorch).
+"""The LINNA outer loop (PyTorch): sample -> evaluate theory -> train
+emulator -> MCMC.
 
-Counterpart of the parts of ``linna_tpu/orchestrator.py`` that the sampling
-stage of ``ml_sampler_core`` calls: rebuild the trained emulator of an
-iteration directory (``transforms.npz``, ``best.ckpt.npz``, the training
-sample files, ``finish.json``), and read and cut the chain that
-``samplers.run.run_ensemble`` wrote.  Artifacts have the JAX package's
-names and layouts, so an iteration directory written by either package is
-sampled by the other.
+Counterpart of ``linna_tpu/orchestrator.py`` in one process:
+
+- ``ml_sampler`` carries the paper's hyperparameters (linna/main.py:47-75);
+- ``ml_sampler_core`` runs the iterations: read and cut the previous chain,
+  draw training points focused on it, fan the theory out over the host
+  pool, train the emulator (:func:`train_emulator`) and sample it with zeus
+  at the iteration's temperature (squared before use, linna/main.py:153);
+- the retrieval helpers rebuild a trained emulator from an iteration
+  directory (``transforms.npz``, ``best.ckpt.npz``, the training sample
+  files, ``finish.json``), and ``read_chain_and_cut`` reads the chain.
+
+Every stage is file-gated, so a rerun of the same command resumes after a
+crash.  Artifacts have the JAX package's names and layouts: an iteration
+directory written by either package is read by the other.  Training and
+sampling run on ``device`` (``cuda:0`` unless the caller passes another);
+the theory and the files stay on the host.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import time
 import warnings
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from . import data as D
+from . import likelihood as LK
+from . import losses as L
 from . import nn as N
+from . import priors as P
+from . import sample_gen as SG
 from . import transforms as T
 from .device import DeviceLike, resolve_device
 from .samplers import backends, convergence
 from .samplers import run as sampler_run
+from .train import Trainer
 from .utils import checkpoint as ckpt
+from .utils.runtime import check_map_count
+from .utils.trace import PhaseTimer, device_profile
 
 __all__ = [
+    "ml_sampler",
+    "ml_sampler_core",
+    "train_emulator",
     "FINISH_MARKER",
     "TRANSFORMS_FILE",
     "BEST_CKPT",
@@ -258,3 +281,431 @@ def retrieve_model_wrapper(
         return out[0] if one else out
 
     return emulator
+
+
+# ------------------------------------------------------------------- training
+
+
+def _write_finish(path: str) -> None:
+    with open(path, "w") as f:
+        json.dump({"status": "done"}, f)
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to linna_tpu_torch yet; see ROADMAP.md")
+
+
+def train_emulator(
+    outdir_in: str,
+    outdir_list: Sequence[str],
+    data_vec: np.ndarray,
+    cov: np.ndarray,
+    sigma: np.ndarray,
+    dolog10index: Optional[Sequence[int]],
+    ypositive: bool,
+    model_name: str,
+    params: dict,
+    retrain: bool = False,
+    usebest: bool = False,
+    seed: int = 1234,
+    verbose: bool = False,
+    trace_rec: Optional[dict] = None,
+    device: DeviceLike = None,
+) -> None:
+    """Train one iteration's emulator on ``device``: stack every iteration's
+    samples so far, curate, fit and save the transforms, train, and write
+    ``finish.json``.
+
+    ``params["nensemble"] = K > 1`` trains K members seeded ``seed + 1000 k``
+    as one :class:`EnsembleTrainer` (member 0 into ``outdir_in``, member k
+    into ``ens_k/``), or one after another with ``params["serial_members"]``.
+    Skipped when ``finish.json`` exists, or when every member's
+    ``best.ckpt.npz`` does (then the marker is written), unless ``retrain``.
+    ``trace_rec`` receives the wall-time breakdown."""
+    if params.get("linearmodel"):
+        raise _not_ported("params['linearmodel'] (the PCA + polynomial pre-model)")
+    if params.get("train_compute_dtype") is not None:
+        raise _not_ported(f"params['train_compute_dtype']={params['train_compute_dtype']!r}")
+    device = resolve_device(device)
+    finish_path = os.path.join(outdir_in, FINISH_MARKER)
+    if os.path.isfile(finish_path) and not retrain:
+        return
+    n_ensemble = int(params.get("nensemble", 1))
+    member_dirs = [outdir_in] + [
+        os.path.join(outdir_in, f"ens_{k}/") for k in range(1, n_ensemble)
+    ]
+    if all(os.path.isfile(os.path.join(d, BEST_CKPT)) for d in member_dirs) and not retrain:
+        _write_finish(finish_path)
+        return
+
+    t0 = time.perf_counter()
+    stack = D.load_curated_stack(outdir_list, ypositive, usebest=usebest)
+    transforms = T.TransformSet(
+        T.fit_x_transform(stack.train_x, dolog10index, device=device),
+        T.fit_y_transform(stack.train_y_for_stats / np.asarray(sigma), ypositive=ypositive,
+                          device=device),
+        T.YTransformData(torch.as_tensor(np.asarray(sigma, np.float32), device=device)),
+    )
+    T.save_transforms(os.path.join(outdir_in, TRANSFORMS_FILE), transforms)
+    if trace_rec is not None:
+        trace_rec["stack_fit_s"] = round(time.perf_counter() - t0, 3)
+
+    spec = N.make_model_spec(model_name, stack.train_x.shape[-1], stack.train_y.shape[-1])
+    loss_state = L.build_loss_state(data_vec, cov, transforms)
+    seeds = [seed + 1000 * k for k in range(n_ensemble)]
+    train_kwargs = dict(
+        num_epochs=int(params.get("num_epochs", 4500)),
+        batch_size=int(params.get("batch_size", 500)),
+        initfrombest=True,
+        epochs_per_dispatch=params.get("epochs_per_dispatch"),
+        verbose=verbose,
+    )
+    rows = (stack.train_x, stack.train_y, stack.val_x, stack.val_y)
+    if n_ensemble > 1 and not params.get("serial_members"):
+        from .parallel.ensemble import EnsembleTrainer
+
+        t0 = time.perf_counter()
+        trainer = EnsembleTrainer(spec, transforms, loss_state, member_dirs, seeds, device=device)
+        if trace_rec is not None:
+            trace_rec["trainer_init_s"] = round(time.perf_counter() - t0, 3)
+        trainer.train(*rows, **train_kwargs)
+        if trace_rec is not None:
+            trace_rec["trainer"] = {k: round(v, 3) for k, v in trainer.phase_seconds.items()}
+            trace_rec["epochs_run"] = trainer.epochs_run
+    else:
+        for mi, (member_dir, member_seed) in enumerate(zip(member_dirs, seeds)):
+            os.makedirs(member_dir, exist_ok=True)
+            t0 = time.perf_counter()
+            trainer = Trainer(spec, transforms, loss_state, outdir=member_dir,
+                              seed=member_seed, device=device)
+            if trace_rec is not None:
+                trace_rec[f"trainer_init_s_m{mi}"] = round(time.perf_counter() - t0, 3)
+            trainer.train(*rows, **train_kwargs)
+            if trace_rec is not None:
+                trace_rec[f"trainer_m{mi}"] = {
+                    k: round(v, 3) for k, v in trainer.phase_seconds.items()
+                }
+                trace_rec[f"epochs_run_m{mi}"] = trainer.epochs_run
+    _write_finish(finish_path)
+
+
+# ------------------------------------------------------------------ main loop
+
+
+def ml_sampler(
+    outdir: str,
+    theory: Callable,
+    priors: Sequence[dict],
+    data: np.ndarray,
+    cov: np.ndarray,
+    init: np.ndarray,
+    pool=None,
+    nwalkers: int = 128,
+    gpunode: Optional[str] = None,
+    omegab2cut: Optional[Sequence] = None,
+    nepoch: int = 4500,
+    method: str = "zeus",
+    nbest=None,
+    chisqcut: Optional[float] = None,
+    loglikelihoodfunc: Optional[Callable] = None,
+    device: DeviceLike = None,
+):
+    """LINNA with the To et al. 2022 hyperparameters (reference
+    linna/main.py:22-75): 4 iterations of 10000 training and 500 validation
+    points, temperatures 4, 2, 1, 1, and a 4-member emulator ensemble.
+    ``method`` is ``"zeus"`` or a 4-entry list of it; the other samplers are
+    not ported yet."""
+    ntrainArr = [10000] * 4
+    nvalArr = [500] * 4
+    per_method = {"zeus": ([2, 2, 5, 5], [5, 5, 10, 50], [0.03, 0.03, 0.02, 0.01])}
+    methods = [method] * 4 if isinstance(method, str) else [str(m) for m in method]
+    if len(methods) != 4:
+        raise ValueError(
+            f"ml_sampler's paper schedule has 4 iterations; method list has "
+            f"{len(methods)} entries (use ml_sampler_core for other schedules)"
+        )
+    for m in methods:
+        _check_method(m)
+    nkeepArr = [per_method[m][0][i] for i, m in enumerate(methods)]
+    ntimesArr = [per_method[m][1][i] for i, m in enumerate(methods)]
+    ntautolArr = [per_method[m][2][i] for i, m in enumerate(methods)]
+    params = {"trainingoption": 1, "num_epochs": nepoch, "batch_size": 500, "nensemble": 4}
+    return ml_sampler_core(
+        ntrainArr, nvalArr, nkeepArr, ntimesArr, ntautolArr, [0.2] * 4, [0.15] * 4,
+        outdir, theory, priors, data, cov, init, pool, nwalkers,
+        device=device,
+        temperatureArr=[4.0, 2.0, 1.0, 1.0],
+        omegab2cut=omegab2cut,
+        gpunode=gpunode,
+        nnmodel_in="chto_v2",
+        params=params,
+        method=methods,
+        nbest=nbest,
+        chisqcut=chisqcut,
+        loglikelihoodfunc=loglikelihoodfunc,
+    )
+
+
+def _check_method(method: str) -> None:
+    _chain_filename(method)  # unknown names raise NotImplementedError(method)
+    if method != "zeus":
+        raise _not_ported(f"method={method!r} (only 'zeus' is)")
+
+
+def ml_sampler_core(
+    ntrainArr,
+    nvalArr,
+    nkeepArr,
+    ntimesArr,
+    ntautolArr,
+    meanshiftArr,
+    stdshiftArr,
+    outdir: str,
+    theory: Callable,
+    priors: Sequence[dict],
+    data: np.ndarray,
+    cov: np.ndarray,
+    init: np.ndarray,
+    pool=None,
+    nwalkers: int = 128,
+    device: DeviceLike = None,
+    dolog10index: Optional[Sequence[int]] = None,
+    ypositive: bool = False,
+    temperatureArr: Sequence[float] = (4.0, 2.0, 1.0, 1.0),
+    omegab2cut: Optional[Sequence] = None,
+    docuda: bool = False,
+    tsize: int = 1,
+    gpunode: Optional[str] = None,
+    nnmodel_in: str = "chto_v2",
+    params: Optional[dict] = None,
+    method: str = "zeus",
+    nbest=None,
+    chisqcut: Optional[float] = None,
+    loglikelihoodfunc: Optional[Callable] = None,
+    nsigma: float = 3,
+    externalloglike: Optional[Callable] = None,
+    seed: int = 0,
+    verbose: bool = False,
+):
+    """The iterative loop (reference linna/main.py:77-335) on ``device``.
+    Returns (chain, log_prob) of the final iteration, the chain in physical
+    space.  ``docuda``, ``tsize`` and ``gpunode`` are accepted for the
+    reference's signature and unused.
+
+    Not ported yet (``NotImplementedError``): samplers other than zeus,
+    ``params["train_subprocess"]``, ``params["linearmodel"]``,
+    ``params["train_compute_dtype"]`` and ``params["compute_dtype"]``."""
+    D.clear_cache()  # never reuse a previous run's curated stacks
+    check_map_count()
+    params = dict(params or {})
+    if params.get("train_subprocess"):
+        raise _not_ported("params['train_subprocess'] (training in a child process)")
+    if not isinstance(nnmodel_in, str):
+        nnmodel_in = getattr(nnmodel_in, "__name__", "chto_v2")
+        nnmodel_in = {
+            "ChtoModelv2": "chto_v2",
+            "ChtoModelsimple": "chto_simple",
+            "ChtoModelv2_linear": "chto_v2_linear",
+        }.get(nnmodel_in, "chto_v2")
+    device = resolve_device(device)
+    data = np.asarray(data, dtype=np.float64)
+    cov = np.asarray(cov, dtype=np.float64)
+    init = np.asarray(init, dtype=np.float64)
+    ndim = len(init)
+    sigma = np.sqrt(np.diag(cov))
+    inv_cov = np.linalg.inv(cov)
+    pack = P.priors_from_list(priors, device)
+    prior_range = P.prior_range(pack)
+    init_white = P.inv_transform(pack, torch.as_tensor(init, dtype=torch.float32, device=device))
+    init_white = np.atleast_1d(init_white.cpu().numpy().astype(np.float64))
+    if isinstance(method, str):
+        methods = [method] * len(ntrainArr)
+    else:
+        methods = [str(m) for m in method]
+        if len(methods) != len(ntrainArr):
+            raise ValueError(
+                f"method list has {len(methods)} entries for {len(ntrainArr)} iterations"
+            )
+    for m in methods:
+        _check_method(m)
+    is_master = pool is None or pool.is_master()
+    options = int(params.get("trainingoption", 0))
+    timer = PhaseTimer(outdir if is_master else None)
+    rng = np.random.default_rng(seed)
+
+    chain = None
+    for i, (nt, nv, nk, ntimes, tautol, temperature, meanshift, stdshift) in enumerate(
+        zip(ntrainArr, nvalArr, nkeepArr, ntimesArr, ntautolArr, temperatureArr,
+            meanshiftArr, stdshiftArr)
+    ):
+        nbest_in = nbest[i] if isinstance(nbest, list) else nbest
+        if isinstance(nbest, list) and nbest_in is not None and nbest_in <= 0:
+            nbest_in = None
+        negloglike = None
+        if nbest_in is not None:
+            import tempfile
+
+            tempdir = tempfile.mkdtemp()
+
+            def negloglike(x, _tmp=tempdir):
+                d = data - theory([-1, x], _tmp)
+                return float(d @ inv_cov @ d)
+
+        temperature = float(temperature) ** 2  # linna/main.py:153
+        outdir_in = os.path.join(outdir, f"iter_{i}/")
+        if i > 0:
+            prev = os.path.join(outdir, f"iter_{i-1}/", _chain_filename(methods[i - 1]))
+            with timer.phase("read_chain_and_cut", iteration=i - 1):
+                chain, _, _ = read_chain_and_cut(prev, nk, ntimes, method=methods[i - 1])
+
+        nnsampler = SG.NNSampler(outdir_in, prior_range)
+        with timer.phase("generate_training_point", iteration=i, n=nt + nv):
+            SG.generate_training_point(
+                theory, nnsampler, pool, outdir_in, nt, nv, data, inv_cov, chain,
+                nsigma=nsigma, omegab2cut=omegab2cut, options=options,
+                negloglike=negloglike, nbest_in=nbest_in, chisqcut=chisqcut,
+            )
+        chain = None
+
+        if not is_master:
+            continue
+        outdir_list = [os.path.join(outdir, f"iter_{m}/") for m in range(i + 1)]
+        with timer.phase("train_emulator", iteration=i) as trec, \
+                device_profile(f"train_iter{i}"):
+            train_emulator(
+                outdir_in, outdir_list, data, cov, sigma, dolog10index, ypositive,
+                nnmodel_in, params, usebest=nbest_in is not None, verbose=verbose,
+                trace_rec=trec, device=device,
+            )
+
+        # sample unless this iteration's chain exists and is complete; a
+        # chain whose sampler died mid-run resumes from its saved state
+        chain_path = os.path.join(outdir_in, _chain_filename(methods[i]))
+        if (_open_backend(chain_path, methods[i]).exists()
+                and not _chain_incomplete(chain_path, methods[i])):
+            continue
+        in_saved, out_saved = _saved_shapes(outdir_in)
+        out_cut = len(data) if out_saved != len(data) else None
+        if in_saved == ndim and out_cut is None:
+            model = retrieve_model(outdir_in, ndim, len(data), nnmodel_in, device=device)
+            pack_run, ndim_run, init_run = pack, ndim, init_white
+        else:
+            # a checkpoint trained with more parameters or outputs: walkers
+            # get flat [-1, 1] priors for the extra inputs, and predictions
+            # are cut to the data width
+            model, incut, _ = retrieve_model_exist(outdir_in, ndim, len(data), nnmodel_in,
+                                                   device=device)
+            priors_new = list(priors) + [
+                {"dist": "flat", "arg1": -1, "arg2": 1} for _ in range(incut - ndim)
+            ]
+            pack_run = P.priors_from_list(priors_new, device)
+            ndim_run = incut
+            init_run = np.concatenate([init_white, np.zeros(incut - ndim)])
+        params_lp = retrieve_ensemble_params(outdir_in, model)
+        log_prob = LK.make_log_prob(
+            model.spec,
+            params_lp if len(params_lp) > 1 else model.params,
+            model.transforms,
+            pack_run,
+            data,
+            inv_cov,
+            temperature=temperature,
+            loglike_fn=loglikelihoodfunc,
+            external_loglike=externalloglike,
+            use_fused=bool(params.get("use_fused")),
+            compute_dtype=params.get("compute_dtype"),
+            out_cut=out_cut,
+            linearmodel=model.linearmodel,
+            device=device,
+        )
+        x0 = init_run + 0.001 * rng.standard_normal((nwalkers, ndim_run))
+        with timer.phase("mcmc", iteration=i, method=methods[i]) as mrec, \
+                device_profile(f"mcmc_iter{i}"):
+            sampler_run.run_ensemble(
+                log_prob,
+                x0,
+                outdir_in,
+                method=methods[i],
+                transform=lambda x, _p=pack_run: P.transform_np(_p, x),
+                ntimes=ntimes,
+                tautol=tautol,
+                meanshift=meanshift,
+                stdshift=stdshift,
+                nk=nk,
+                seed=seed + i,
+                progress=verbose,
+                trace_rec=mrec,
+                device=device,
+            )
+
+    last = os.path.join(outdir, f"iter_{len(ntrainArr)-1}/", _chain_filename(methods[-1]))
+    # the returned log-probs are the same cut rows as the chain
+    with timer.phase("read_chain_and_cut", iteration=len(ntrainArr) - 1):
+        chain, log_prob_samples, _ = read_chain_and_cut(
+            last, nkeepArr[-1], ntimesArr[-1], method=methods[-1], flat=True
+        )
+    if "nimp" in params and is_master:
+        with timer.phase("importance_sampling", n=int(params["nimp"])):
+            chain, log_prob_samples = _importance_sampling(
+                outdir, last, params, nkeepArr[-1], ntimesArr[-1], methods[-1], theory,
+                pool, pack, data, inv_cov, prior_range, rng,
+            )
+    return chain, log_prob_samples
+
+
+def _importance_sampling(
+    outdir, chain_name, params, nk, ntimes, method, theory, pool, pack, data, inv_cov,
+    prior_range, rng,
+):
+    """Exact-theory importance reweighting of the final chain (reference
+    linna/main.py:297-334): subsample, evaluate the true theory, weight by
+    exp(logp_true - logp_emulator) in log space, and zero out log-weights
+    beyond 2 sigma of the finite ones."""
+    samples_path = os.path.join(outdir, "samples_im.npy")
+    logp_path = os.path.join(outdir, "log_prob_samples_x.npy")
+    if not os.path.isfile(samples_path):
+        chain, log_prob_samples, _ = read_chain_and_cut(
+            chain_name, nk, ntimes, method=method, flat=True
+        )
+        log_prob_samples = np.asarray(log_prob_samples).flatten()
+        select = rng.integers(0, len(chain), int(params["nimp"]))
+        chain = chain[select]
+        log_prob_samples = log_prob_samples[select]
+        np.save(samples_path, chain)
+        np.save(logp_path, log_prob_samples)
+    else:
+        chain = np.load(samples_path)
+        log_prob_samples = np.load(logp_path)
+
+    outimp = os.path.join(outdir, "imp/")
+    os.makedirs(outimp, exist_ok=True)
+    theory_path = os.path.join(outdir, "theory.npy")
+    nnsampler = SG.NNSampler(outimp, prior_range)
+    if not os.path.isfile(theory_path):
+        theory_vals = nnsampler.generate_training_data(
+            zip(range(len(chain)), chain), theory, pool=pool, args=[outimp]
+        )
+        np.save(theory_path, theory_vals)
+    else:
+        theory_vals = np.load(theory_path)
+
+    resid = np.asarray(theory_vals, np.float64)[:, : len(data)] - data
+    x = torch.as_tensor(np.asarray(chain, np.float32), device=pack.arg1.device)
+    logp = (
+        -0.5 * np.einsum("ij,jk,ik->i", resid, inv_cov, resid)
+        + P.log_prior_physical(pack, x).double().cpu().numpy()
+    )
+    logw = logp - log_prob_samples
+    finite = np.isfinite(logw)
+    if not finite.any():
+        raise RuntimeError(
+            "importance sampling: every subsampled point produced a "
+            f"non-finite log-weight; inspect {theory_path}"
+        )
+    ref = logw[finite]
+    keep = finite & (np.abs(logw - np.mean(ref)) <= 2 * np.std(ref))
+    w = np.zeros_like(logw)
+    w[keep] = np.exp(logw[keep] - np.max(logw[keep]))
+    w = w / np.sum(w)
+    np.save(os.path.join(outdir, "weight_im.npy"), [log_prob_samples, logp, w])
+    return chain, log_prob_samples

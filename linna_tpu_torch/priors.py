@@ -27,6 +27,7 @@ __all__ = [
     "transform_np",
     "inv_transform",
     "lnprior",
+    "log_prior_physical",
     "prior_range",
 ]
 
@@ -121,6 +122,16 @@ def lnprior(x: torch.Tensor) -> torch.Tensor:
     """Whitened-space log-prior, exactly unit normal: ``-0.5 * sum(x^2)``
     over the last axis."""
     return -0.5 * torch.sum(torch.square(x), dim=-1)
+
+
+def log_prior_physical(pack: PriorPack, x: torch.Tensor) -> torch.Tensor:
+    """Physical-space log-prior, the importance weights' prior: a flat box
+    adds -inf outside its bounds, a Gaussian ``-0.5 ((x-mu)/sigma)^2``;
+    summed over the last axis."""
+    gauss_term = -0.5 * torch.square((x - pack.arg1) / pack.arg2)
+    inside = (x >= pack.arg1) & (x <= pack.arg2)
+    flat_term = torch.where(inside, torch.zeros_like(x), torch.full_like(x, -torch.inf))
+    return torch.sum(torch.where(pack.is_gauss, gauss_term, flat_term), dim=-1)
 
 
 def prior_range(pack: PriorPack) -> np.ndarray:

@@ -58,6 +58,11 @@ class YTransformData(NamedTuple):
     def inverse(self, y: torch.Tensor) -> torch.Tensor:
         return y * self.sigma
 
+    def transform_cov(self, cov: np.ndarray) -> np.ndarray:
+        """``D^-1 C D^-1`` with ``D = diag(sigma)``, in float64 on the host."""
+        inv_sigma = 1.0 / self.sigma.detach().cpu().numpy().astype(np.float64)
+        return cov * inv_sigma[:, None] * inv_sigma[None, :]
+
 
 class YTransform(NamedTuple):
     """Network-output destandardization: ``y*std + mean``, then ``exp``
@@ -77,6 +82,22 @@ class YTransform(NamedTuple):
         if self.ypositive:
             y = torch.log(y)
         return (y - self.mean) / self.std
+
+    def transform_cov(self, cov: np.ndarray, data: Optional[np.ndarray] = None) -> np.ndarray:
+        """Map a sigma-scaled covariance into the standardized network-output
+        space, in float64 on the host.  For ``ypositive`` the covariance is
+        first taken to log space as ``log(1 + C/(d_i d_j))`` around the data
+        vector ``data``."""
+        std = self.std.detach().cpu().numpy().astype(np.float64)
+        if self.ypositive:
+            if data is None:
+                raise ValueError("ypositive covariance transform needs the data vector")
+            d = np.asarray(data, dtype=np.float64)
+            cov0 = cov / (d[:, None] * d[None, :])
+            cov0 = np.where(cov0 <= -1.0, 1e-10 - 1.0, cov0)
+            cov = np.log1p(cov0)
+        inv_std = 1.0 / std
+        return cov * inv_std[:, None] * inv_std[None, :]
 
 
 class TransformSet(NamedTuple):

@@ -1,12 +1,15 @@
-"""chip_smoke.py's measurement helpers, on the CPU: the kernel-time reading
-refuses a profile whose device-event count differs from the launches, the
-bounds give both the f32 CUDA-core and the 3xTF32 tensor-core times, and the
-compiler's register report is read per kernel.  The profiler itself is
-replaced by fixed event counts; the card runs the real one."""
+"""chip_smoke.py's helpers, on the CPU: the kernel-time reading refuses a
+profile whose device-event count differs from the launches, the bounds give
+both the f32 CUDA-core and the 3xTF32 tensor-core times, the compiler's
+register report is read per kernel (the profiler is replaced by fixed event
+counts; the card runs the real one), and the training phase's synthetic
+theory, iteration-directory check and learned check."""
 
+import os
 import pathlib
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -86,3 +89,63 @@ def test_kernel_resources_reads_each_kernels_registers_and_spills():
         "fused_apply": {"spill_bytes": 104, "registers": 128},
         "fused_log_prob": {"spill_bytes": 0, "registers": 128},
     }
+
+
+# ------------------------------------------------- the training phase's helpers
+
+
+def test_smooth_theory_is_seeded_and_called_like_a_pipeline_theory():
+    a, b = C.SmoothTheory(4, 6, seed=5), C.SmoothTheory(4, 6, seed=5)
+    x = np.random.default_rng(0).normal(size=(3, 4))
+    assert np.array_equal(a.batch(x), b.batch(x)) and a.batch(x).shape == (3, 6)
+    assert np.allclose(a([1, x[1]], "/unused"), a.batch(x)[1])
+    assert np.all(np.abs(a.batch(x * 100) - 10.0) <= np.abs(a.b).sum(axis=0) + 1e-12)
+    assert not np.array_equal(C.SmoothTheory(4, 6, seed=6).batch(x), a.batch(x))
+
+
+def test_iteration_checks_name_each_missing_artifact(tmp_path):
+    d = str(tmp_path / "iter_0")
+    assert "transforms.npz" in C.iteration_missing(d, 2)
+    for sub in ("", "ens_1"):
+        os.makedirs(os.path.join(d, sub), exist_ok=True)
+        for f in ("best.ckpt.npz", "last.ckpt.npz", "lr.npy"):
+            open(os.path.join(d, sub, f), "w").close()
+    for f in ("train_samples_x.txt", "train_samples_y.npy", "val_samples_x.txt",
+              "val_samples_y.npy", "transforms.npz", "finish.json"):
+        open(os.path.join(d, f), "w").close()
+    assert C.iteration_missing(d, 2) == []
+    assert C.iteration_missing(d, 3) == [os.path.join("ens_2", f)
+                                         for f in ("best.ckpt.npz", "last.ckpt.npz", "lr.npy")]
+    assert C.iteration_missing(d, 2, chain=True) == ["zeus_256.h5"]
+    assert C.member_dirs(d, 2) == [d, os.path.join(d, "ens_1")]
+
+
+def test_learned_check():
+    assert C.not_learned([0.05, 0.009], [0.9, 0.1]) == []
+    assert C.not_learned([0.09, 0.01], [0.9, 0.1]) == [(0, 0.09, 0.9), (1, 0.01, 0.1)]
+    assert [m for m, *_ in C.not_learned([float("nan"), float("inf"), 1e-3], [1.0] * 3)] == [0, 1]
+
+
+def test_initial_and_best_val_losses_on_a_trained_iteration(tmp_path):
+    """On the CPU at a small width: the phase's initial loss is the
+    untrained members' val metric, and training lowers it."""
+    from linna_tpu_torch import orchestrator as O
+    from linna_tpu_torch import priors as P
+    from linna_tpu_torch import sample_gen as SG
+
+    ndim, ndata, seeds = 4, 6, [1234, 2234]
+    theory = C.SmoothTheory(ndim, ndata)
+    pack = P.priors_from_list(C.mixed_priors(ndim), "cpu")
+    d = str(tmp_path / "iter_0")
+    sigma = np.full(ndata, 0.1)
+    data, cov = theory.batch(np.zeros((1, ndim)))[0], np.diag(sigma**2)
+    SG.generate_training_point(theory, SG.NNSampler(d, P.prior_range(pack)), None, d, 200, 40,
+                               data, np.linalg.inv(cov))
+    O.train_emulator(d, [d], data, cov, sigma, None, False, "chto_v2",
+                     {"num_epochs": 20, "batch_size": 50, "nensemble": 2}, device="cpu")
+    spec = TN.make_model_spec("chto_v2", ndim, ndata)
+    initial = C.initial_val_losses(d, spec, data, cov, seeds, torch.device("cpu"))
+    best = C.best_val_losses(d, 2)
+    assert len(initial) == len(best) == 2 and all(np.isfinite(initial))
+    assert all(b < i for b, i in zip(best, initial))
+    assert C.iteration_missing(d, 2) == []
