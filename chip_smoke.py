@@ -52,11 +52,31 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    busy share and the host's time by op.  The kernels' counts are zeroed
    before the phase and read after it: ``fused_log_prob`` must have
    launched.
-6. One ``{"kernels": [...]}`` line, the card's name and power limit, and the
+6. The gradient samplers and emcee at the DES width on phase 4's single
+   emulator with ``use_fused=True`` at T = 1: the per-walker gradient
+   through ``fused_log_prob`` (one launch; the backward recomputes the plain
+   composition) against the plain gradient at 256 positions, log10 lanes'
+   -inf rows included (zero, not NaN); then ``run_ensemble`` with the MAP
+   search and 100 NUTS samples, 20 HMC samples, and 300 emcee steps at 256
+   walkers: s/100 samples, launches per sample (31 per NUTS sample at depth
+   5), mean acceptance, and the device busy share of a traced NUTS chunk.
+7. ``python -m linna_tpu_torch.driver zeus None <yaml> examples`` as a
+   subprocess on the card, the yaml being ``examples/des_synthetic.yaml``
+   cut to depth (two iterations, zeus then nuts at T = 4 then 1,
+   ``DRIVER_EPOCHS`` epochs, ``DRIVER_STEPS`` sampler steps an iteration;
+   each cut printed), on inputs written with
+   ``examples/des_theory.py``: every artifact, the chain stores,
+   ``precond.npz``, ``time.npy``, bfloat16 training, and the posterior mean's
+   offsets from ``EXACT_POSTERIOR.json`` (reported, not gated).
+8. One ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 
-Phase 4's weights are random (from a seed); phase 5 trains its own.  Exits
-nonzero with no result line when no CUDA device is present.
+``--phases 1,2,6`` runs a subset (phases 1 and 2 always run) and prints no
+result line.
+
+Phase 4's and 6's weights are random (from a seed); phases 5 and 7 train
+their own.  Exits nonzero with no result line when no CUDA device is
+present.
 """
 
 from __future__ import annotations
@@ -92,6 +112,12 @@ NTRAIN, NVAL = 10000, 500
 NENSEMBLE = 4
 TRAIN_EPOCHS = 300
 ENS_STEPS = 100
+# phase 6: the gradient samplers and emcee on one emulator
+NUTS_STEPS, HMC_STEPS, EMCEE_STEPS = 100, 20, 300
+# phase 7: des_synthetic.yaml through the driver, its 1000 epochs cut
+DRIVER_EPOCHS = 100
+DRIVER_STEPS = 200
+DRIVER_TIMEOUT = 900
 
 # tests/test_ops.py's kernel tolerance; both sides accumulate in f32 and
 # differ only in summation order
@@ -433,32 +459,34 @@ def phase_kernels(device, batches=BATCHES, timed=TIMED_ROWS, ndim=NDIM, ndata=ND
     return rec
 
 
-def traced_chunk(log_prob, coords, device, steps=20) -> dict:
-    """Where the time goes: one profiled ``steps``-step slice chunk from the
-    chain's last positions (run after the main path's counts were read).
-    Returns its wall time, the device's busy share and the device time by
-    kernel; the profiler's own host cost is inside the wall time."""
+def traced_call(fn, device) -> dict:
+    """Where the time goes in one profiled call of ``fn``: its wall time, the
+    device's busy share and the device time by kernel (the profiler's own
+    host cost is inside the wall time)."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = kernel_events(prof)
+    total = sum(us for _, us in events.values()) / 1e3
+    by_kernel = sorted(((k, us / 1e3) for k, (_, us) in events.items()), key=lambda kv: -kv[1])
+    return {"wall_ms": wall_ms, "device_ms": total, "device_busy_share": total / wall_ms,
+            "launches": sum(n for n, _ in events.values()),
+            "device_ms_by_kernel": dict(by_kernel[:6])}
+
+
+def traced_chunk(log_prob, coords, device, steps=20) -> dict:
+    """Where the time goes: one profiled ``steps``-step slice chunk from the
+    chain's last positions (run after the main path's counts were read)."""
     from linna_tpu_torch.samplers import slicemove as S
 
     state = S.init_slice_state(torch.Generator(device=device).manual_seed(1),
                                torch.as_tensor(coords, dtype=torch.float32, device=device), log_prob)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        S.slice_chunk(log_prob, state, steps)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = {k: v / 1e3 for k, v in sorted(kernel_us(prof).items(), key=lambda kv: -kv[1])}
-    total = sum(dev.values())
-    return {
-        "steps": steps,
-        "wall_ms": wall_ms,
-        "device_ms": total,
-        "device_busy_share": total / wall_ms,
-        "device_ms_by_kernel": dict(list(dev.items())[:6]),
-    }
+    return {"steps": steps, **traced_call(lambda: S.slice_chunk(log_prob, state, steps), device)}
 
 
 def write_iteration_dir(outdir, device, seed=3, ndim=NDIM, ndata=NDATA, ntrain=2000):
@@ -912,7 +940,237 @@ def phase_train(device, outdir, ndim=NDIM, ndata=NDATA, ntrain=NTRAIN, nval=NVAL
     return res
 
 
-def main() -> int:
+# ---------------------------------------------------------------- gradient
+
+
+def check_gradient(device, rows=NWALKERS, ndim=NDIM, ndata=NDATA) -> dict:
+    """The per-walker gradient through ``fused_log_prob`` (its autograd
+    Function: a kernel launch, then the plain composition's backward)
+    against the plain composition's, at ``rows`` positions; with log10
+    lanes where some rows are -inf, whose gradient must be zero, not NaN."""
+    from linna_tpu_torch import likelihood as LK
+    from linna_tpu_torch.ops import fused as F
+    from linna_tpu_torch.samplers import hmc
+
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    out = {}
+    for case, kw in {"mixed priors": {}, "log10 lanes": {"log10": (0, 3)}}.items():
+        spec, params, ts, pack, data, inv_cov = make_problem(device, ndim, ndata, **kw)
+        lp_k = LK.make_log_prob(spec, params, ts, pack, data, inv_cov, use_fused=True,
+                                device=device)
+        lp_p = LK.make_log_prob(spec, params, ts, pack, data, inv_cov, device=device)
+        x = torch.randn((rows, ndim), generator=gen).to(device)
+        if kw:
+            x[: rows // 2, 0] = -3.0  # physical 0.3 - 3 < 0 on a log10 lane
+        before = F.launches["fused_log_prob"]
+        v_k, g_k = hmc.value_and_grad(lp_k, x)
+        if device.type == "cuda" and F.launches["fused_log_prob"] - before != 1:
+            raise AssertionError("the gradient call did not launch fused_log_prob once")
+        v_p, g_p = hmc.value_and_grad(lp_p, x)
+        compare(v_k, v_p, f"value through the gradient path, {case}")
+        if not torch.isfinite(g_k).all():
+            raise AssertionError(f"{case}: a gradient through the kernel is not finite")
+        dead = ~torch.isfinite(v_k)
+        if dead.any() and g_k[dead].abs().max() != 0:
+            raise AssertionError(f"{case}: a -inf walker has a nonzero gradient")
+        out[case] = compare(g_k, g_p, f"per-walker gradient through the kernel, {case}")
+        out[case]["-inf rows"] = int(dead.sum())
+    return out
+
+
+def phase_gradient(device, outdir, nwalkers=NWALKERS, nuts_steps=NUTS_STEPS,
+                   hmc_steps=HMC_STEPS, emcee_steps=EMCEE_STEPS, ndim=NDIM, ndata=NDATA):
+    """The gradient samplers and emcee at the DES width on one emulator with
+    ``use_fused=True`` (phase 4's iteration directory, T = 1): the kernel's
+    gradient against the plain one, then ``run_ensemble`` with the MAP
+    search and ``nuts_steps`` NUTS samples, ``hmc_steps`` HMC samples, and
+    ``emcee_steps`` stretch steps after emcee's 100-step burn-in.  Returns
+    the records and the launch counts of the NUTS and HMC runs."""
+    from linna_tpu_torch import likelihood as LK
+    from linna_tpu_torch import orchestrator as O
+    from linna_tpu_torch import priors as P
+    from linna_tpu_torch.ops import fused as F
+    from linna_tpu_torch.samplers import hmc
+    from linna_tpu_torch.samplers import run as R
+
+    grad = check_gradient(device, ndim=ndim, ndata=ndata)
+    it0 = os.path.join(outdir, "iter_0")
+    priors, data, cov, truth = write_iteration_dir(it0, device, ndim=ndim, ndata=ndata)
+    inv_cov = np.linalg.inv(cov)
+    pack = P.priors_from_list(priors, device)
+    model = O.retrieve_model(it0, ndim, ndata, device=device)
+    log_prob = LK.make_log_prob(model.spec, model.params, model.transforms, pack, data,
+                                inv_cov, temperature=1.0, use_fused=True, device=device)
+    init_white = P.inv_transform(pack, torch.as_tensor(truth, dtype=torch.float32, device=device))
+    x0 = init_white.cpu().numpy() + 0.001 * np.random.default_rng(0).standard_normal((nwalkers, ndim))
+    tfn = lambda x: P.transform_np(pack, x)
+
+    def run(method, steps):
+        d = os.path.join(outdir, method)
+        trace: dict = {}
+        before = dict(F.launches), dict(F.plain_calls)
+        t0 = time.perf_counter()
+        backend = R.run_ensemble(log_prob, x0, d, method=method, transform=tfn,
+                                 check_every=steps, max_iterations=steps,
+                                 convergence_check=False, seed=0, device=device,
+                                 trace_rec=trace)
+        wall = time.perf_counter() - t0
+        launches = F.launches["fused_log_prob"] - before[0]["fused_log_prob"]
+        chain, lps = backend.get_chain(), backend.get_log_prob()
+        if chain.shape != (steps, nwalkers, ndim) or not (np.isfinite(chain).all()
+                                                          and np.isfinite(lps).all()):
+            raise AssertionError(f"{method}: chain {chain.shape} is not finite")
+        if device.type == "cuda" and any(F.plain_calls[k] - before[1][k] for k in F.plain_calls):
+            raise AssertionError(f"{method}: a plain version ran on the gradient path")
+        s = trace["sampler"]
+        loop = s["device_wait"] + s["host"]
+        with backend._open("r") as f:
+            accepted = np.asarray(f["mcmc"]["accepted"][:])
+        half = tfn(chain[steps // 2:].reshape(-1, ndim))
+        rec = {"wall_s": wall, "sampler_s": s, "steps": steps,
+               "s_per_100_steps": loop / steps * 100, "fused_log_prob_launches": launches,
+               "launches_per_step": launches / steps,
+               "mean_acceptance": float(accepted.mean() / steps),
+               "max_truth_offset_in_chain_std": float(np.max(
+                   np.abs(half.mean(axis=0) - truth) / half.std(axis=0)))}
+        log(f"  {method}: {json.dumps(rec, default=float)}")
+        return rec, backend
+
+    res = {"gradient_check": grad}
+    res["nuts"], nuts_backend = run("nuts", nuts_steps)
+    res["hmc"], _ = run("hmc", hmc_steps)
+    gradient_launches = res["nuts"]["fused_log_prob_launches"] + res["hmc"]["fused_log_prob_launches"]
+    res["emcee"], _ = run("emcee", emcee_steps)
+
+    # launches per NUTS sample, and where a sample's time goes, from a
+    # traced chunk of 5 samples at the chain's end in the saved space
+    pre = R._load_precond(os.path.join(outdir, "nuts", R.PRECOND_FILENAME))
+    wrapped = pre.wrap_log_prob(log_prob)
+    y = torch.as_tensor(pre.to_sampling(nuts_backend.get_chain()[-1]), dtype=torch.float32,
+                        device=device)
+    state = hmc.init_nuts_state(torch.Generator(device=device).manual_seed(1), y, wrapped,
+                                m_adapt=0)
+    before = F.launches["fused_log_prob"]
+    chunk = lambda: hmc.nuts_chunk(wrapped, state, 5)
+    if device.type == "cuda":
+        res["nuts_traced_chunk"] = traced_call(chunk, device)
+    else:
+        chunk()
+    per_sample = (F.launches["fused_log_prob"] - before) / 5
+    res["nuts_fused_log_prob_launches_per_sample"] = per_sample
+    if device.type == "cuda" and per_sample != 2**5 - 1:
+        raise AssertionError(f"{per_sample} fused_log_prob launches per NUTS sample, not 31")
+    log(f"  gradient: {json.dumps(res, default=float)}")
+    return res, gradient_launches
+
+
+# ------------------------------------------------------------------ driver
+
+
+def phase_driver(device, outdir, epochs=DRIVER_EPOCHS, steps=DRIVER_STEPS, timeout=DRIVER_TIMEOUT,
+                 theory_mod="examples.des_theory", overrides=None,
+                 exact=os.path.join(ROOT, "EXACT_POSTERIOR.json")) -> dict:
+    """``python -m linna_tpu_torch.driver`` on ``examples/des_synthetic.yaml``
+    with its depth cut: the first two iterations (methods zeus then nuts at
+    T = 4 then 1), ``epochs`` epochs, at most ``steps`` sampler steps an
+    iteration, outdir under the run directory.  The
+    inputs are written with ``examples/des_theory.py``'s functions, as
+    ``examples/make_des_inputs.py`` writes them.  Checks every iteration's
+    artifacts, the chain stores, ``precond.npz``, ``time.npy`` and that
+    training ran in bfloat16, and reports the posterior mean's offsets from
+    the exact posterior (``EXACT_POSTERIOR.json``), not gated at this
+    depth.  ``theory_mod``, ``overrides`` (applied after the cuts) and
+    ``exact`` let a CPU rehearsal run the same phase at a small size."""
+    import importlib
+
+    import yaml
+
+    import des_report
+    from linna_tpu_torch import orchestrator as O
+    from linna_tpu_torch.config import yaml_load
+    from linna_tpu_torch.samplers import run as R
+
+    T = importlib.import_module(theory_mod)
+    inputs = os.path.join(outdir, "des_inputs")
+    os.makedirs(inputs, exist_ok=True)
+    truth = T.data_vector(T.fiducial() + 0.05)
+    np.savetxt(os.path.join(inputs, "data.txt"), np.stack([np.arange(T.NDATA), truth], 1))
+    np.savetxt(os.path.join(inputs, "cov_triplet.txt"), T.cov_triplet_rows(T.noise_sigma(truth)))
+
+    params = yaml_load(os.path.join(ROOT, "examples", "des_synthetic.yaml"),
+                       parent_dir=os.path.join(ROOT, "examples"))
+    n_iter = 2
+    cuts = {
+        "iterations": f"{len(params['ntrainArr'])} -> {n_iter} (the first two of every "
+                      "per-iteration list)",
+        "methodArr": f"{params['methodArr']} -> ['zeus', 'nuts']",
+        "temperatureArr": f"{params['temperatureArr']} -> [4.0, 1.0]",
+        "num_epochs": f"{params['num_epochs']} -> {epochs}",
+        "max_iterations": f"100000 (run_ensemble's default) -> {steps} sampler steps an "
+                          "iteration",
+        "outdir": f"{params['outdir']} -> {outdir}/run",
+        "base_dir": f"{params['base_dir']} -> {inputs}",
+    }
+    for k in ("ntrainArr", "nvalArr", "nkeepArr", "ntimesArr", "ntautolArr", "meanshiftArr",
+              "stdshiftArr"):
+        params[k] = params[k][:n_iter]
+    params.update(methodArr=["zeus", "nuts"], temperatureArr=[4.0, 1.0], num_epochs=epochs,
+                  max_iterations=steps, outdir=os.path.join(outdir, "run"), base_dir=inputs)
+    params.update(overrides or {})
+    log(f"  des_synthetic.yaml cut to depth: {json.dumps(cuts)}")
+    cfg = os.path.join(outdir, "des_synthetic_cut.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump(params, f)
+
+    cmd = [sys.executable, "-m", "linna_tpu_torch.driver", "zeus", "None", cfg, "examples"]
+    if device.type != "cuda":
+        cmd += ["--device", str(device)]
+    log(f"  running: {' '.join(cmd)}")
+    t0 = time.perf_counter()
+    # the driver imports the theory plugin from where this process does
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([ROOT] + [p for p in sys.path if p]))
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout, env=env)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stdout[-3000:])
+        log(proc.stderr[-6000:])
+        raise AssertionError(f"the driver exited with {proc.returncode}")
+    run_dir = params["outdir"]
+    missing = [f"iter_{i}/{f}" for i in range(n_iter)
+               for f in iteration_missing(os.path.join(run_dir, f"iter_{i}"), params["nensemble"])]
+    for i, m in enumerate(params["methodArr"]):
+        path = os.path.join(run_dir, f"iter_{i}", O._chain_filename(m))
+        if not O._open_backend(path, m).exists():
+            missing.append(f"iter_{i}/{O._chain_filename(m)}")
+    missing += [f for f in (os.path.join(f"iter_{n_iter - 1}", R.PRECOND_FILENAME), "time.npy",
+                            "trace.json") if not os.path.isfile(os.path.join(run_dir, f))]
+    if missing:
+        raise AssertionError(f"the driver left artifacts out: {missing}")
+    rep = des_report.report(run_dir, exact)
+    dtypes = {r.get("compute_dtype") for r in rep["iterations"]}
+    if dtypes != {"torch.bfloat16"}:
+        raise AssertionError(f"training ran in {dtypes}, not bfloat16")
+    bias = rep["bias"]
+    if not np.isfinite(bias["bias_sigma"]).all():
+        raise AssertionError("the posterior mean is not finite")
+    res = {"seconds": seconds, "cuts": cuts, "report": rep,
+           "store": O._open_backend(des_report.final_chain_path(run_dir, n_iter, "nuts"),
+                                    "nuts").path}
+    log(f"  posterior-mean offsets from the exact posterior (sigma, reported, not gated at "
+        f"this depth): max {bias['max_emulator_bias_sigma']:.3f}, median "
+        f"{bias['median_emulator_bias_sigma']:.3f}")
+    log(f"  driver: {json.dumps(res, default=float)}")
+    return res
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(prog="chip_smoke.py")
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7",
+                        help="comma-separated phases to run (default all; the result "
+                             "line needs all)")
+    phases = {int(p) for p in parser.parse_args(argv).phases.split(",")}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -934,6 +1192,8 @@ def main() -> int:
     log(f"  {name}, capability {cap}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(f"  nvidia-smi: {smi}")
     log(f"  chain store: {backends.store_kind()} (h5py importable: {backends.store_kind() == 'hdf5'})")
+    log("  bf16 products may reduce in bf16 (PyTorch's default, left as it is): "
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
     if cap != (9, 0):
         raise AssertionError(f"compute capability {cap}, the kernels are built for sm_90a")
 
@@ -947,29 +1207,69 @@ def main() -> int:
     resources = kernel_resources(report)
     log(f"  registers and spills: {resources}")
 
-    log("== 3. kernels against their plain versions")
-    rec = phase_kernels(device)
+    seconds = {}
+    if 3 in phases:
+        log("== 3. kernels against their plain versions")
+        t0 = time.perf_counter()
+        rec = phase_kernels(device)
+        seconds[3] = time.perf_counter() - t0
 
-    log("== 4. sampling slice")
-    shutil.rmtree(RUN_DIR, ignore_errors=True)
-    try:
-        res = phase_slice(device, os.path.join(RUN_DIR, "iter_0"))
-    finally:
+    if 4 in phases:
+        log("== 4. sampling slice")
+        t0 = time.perf_counter()
         shutil.rmtree(RUN_DIR, ignore_errors=True)
+        try:
+            res = phase_slice(device, os.path.join(RUN_DIR, "iter_0"))
+        finally:
+            shutil.rmtree(RUN_DIR, ignore_errors=True)
+        seconds[4] = time.perf_counter() - t0
 
-    log("== 5. training at the DES width")
-    shutil.rmtree(RUN_DIR, ignore_errors=True)
-    F.reset_counts()
-    try:
-        train = phase_train(device, RUN_DIR)
-    finally:
+    if 5 in phases:
+        log("== 5. training at the DES width")
+        t0 = time.perf_counter()
         shutil.rmtree(RUN_DIR, ignore_errors=True)
-    train_launches, train_plain = dict(F.launches), dict(F.plain_calls)
-    log(f"  training path launches {train_launches}, plain calls {train_plain}")
-    if train_launches["fused_log_prob"] == 0:
-        raise AssertionError("fused_log_prob did not launch on the training path")
+        F.reset_counts()
+        try:
+            train = phase_train(device, RUN_DIR)
+        finally:
+            shutil.rmtree(RUN_DIR, ignore_errors=True)
+        train_launches, train_plain = dict(F.launches), dict(F.plain_calls)
+        log(f"  training path launches {train_launches}, plain calls {train_plain}")
+        if train_launches["fused_log_prob"] == 0:
+            raise AssertionError("fused_log_prob did not launch on the training path")
+        seconds[5] = time.perf_counter() - t0
 
-    log("== 6. result")
+    if 6 in phases:
+        log("== 6. gradient samplers and emcee through the likelihood kernel")
+        t0 = time.perf_counter()
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
+        F.reset_counts()
+        try:
+            grad, gradient_launches = phase_gradient(device, RUN_DIR)
+        finally:
+            shutil.rmtree(RUN_DIR, ignore_errors=True)
+        emcee_launches = grad["emcee"]["fused_log_prob_launches"]
+        log(f"  gradient path launches {gradient_launches}, emcee {emcee_launches}")
+        if gradient_launches == 0 or emcee_launches == 0:
+            raise AssertionError("fused_log_prob did not launch on the gradient or emcee path")
+        seconds[6] = time.perf_counter() - t0
+        log(f"  phase 6: {seconds[6]:.1f} s")
+
+    if 7 in phases:
+        log("== 7. the driver on des_synthetic.yaml, depth cut")
+        t0 = time.perf_counter()
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
+        try:
+            phase_driver(device, RUN_DIR)
+        finally:
+            shutil.rmtree(RUN_DIR, ignore_errors=True)
+        seconds[7] = time.perf_counter() - t0
+        log(f"  phase 7: {seconds[7]:.1f} s")
+
+    log(f"== 8. result (phase seconds {json.dumps(seconds)})")
+    if phases != set(range(1, 8)):
+        log("  not every phase ran: no result line")
+        return 1
     kernels = []
     for k in REPLACES:
         r = rec[k]
@@ -980,7 +1280,12 @@ def main() -> int:
             "source": SOURCE,
             "replaces": REPLACES[k],
             "launches": res["launches"][k],
-            "launches_by_path": {"sampling": res["launches"][k], "training": train_launches[k]},
+            "launches_by_path": {
+                "sampling": res["launches"][k],
+                "training": train_launches[k],
+                "gradient": gradient_launches if k == "fused_log_prob" else 0,
+                "emcee": emcee_launches if k == "fused_log_prob" else 0,
+            },
             "max_abs_err": r["abs"],
             "max_rel_err": r["rel"],
             "tolerance": {"rtol": RTOL, "atol": ATOL},

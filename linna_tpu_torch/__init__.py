@@ -6,9 +6,14 @@ passes ``device="cpu"``; without a CUDA device they raise instead of moving
 to the CPU on their own.  The emulator likelihood's hot path runs through
 hand-written CUDA kernels (``ops/csrc/fused_mlp.cu``) when
 ``make_log_prob(..., use_fused=True)`` is asked for on a CUDA device.
+
+The command line is ``python -m linna_tpu_torch.driver <method> <gpunode>
+<yaml> [yamldir] [--device DEV]``; ``linna_tpu_torch.driver`` and
+``linna_tpu_torch.train_entry`` are entry points, imported on use.
 """
 
 from . import (  # noqa: F401
+    config,
     data,
     device,
     likelihood,

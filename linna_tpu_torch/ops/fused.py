@@ -490,4 +490,7 @@ def fused_log_prob(
 
     log_prob._pure = lp_pure
     log_prob._env = env
+    # the plain composition over the same env, for what cannot trace the
+    # kernel's autograd.Function (torch.func's Hessian of the MAP search)
+    log_prob._plain_pure = ref_pure
     return log_prob

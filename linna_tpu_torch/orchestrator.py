@@ -6,8 +6,10 @@ Counterpart of ``linna_tpu/orchestrator.py`` in one process:
 - ``ml_sampler`` carries the paper's hyperparameters (linna/main.py:47-75);
 - ``ml_sampler_core`` runs the iterations: read and cut the previous chain,
   draw training points focused on it, fan the theory out over the host
-  pool, train the emulator (:func:`train_emulator`) and sample it with zeus
-  at the iteration's temperature (squared before use, linna/main.py:153);
+  pool, train the emulator (:func:`train_emulator`, in process or in a child
+  process with ``params["train_subprocess"]``) and sample it with the
+  iteration's method (emcee, zeus, hmc or nuts) at the iteration's
+  temperature (squared before use, linna/main.py:153);
 - the retrieval helpers rebuild a trained emulator from an iteration
   directory (``transforms.npz``, ``best.ckpt.npz``, the training sample
   files, ``finish.json``), and ``read_chain_and_cut`` reads the chain.
@@ -319,13 +321,13 @@ def train_emulator(
     ``params["nensemble"] = K > 1`` trains K members seeded ``seed + 1000 k``
     as one :class:`EnsembleTrainer` (member 0 into ``outdir_in``, member k
     into ``ens_k/``), or one after another with ``params["serial_members"]``.
+    ``params["train_compute_dtype"]`` (e.g. ``"bfloat16"``) runs the training
+    forward and backward in that type (see :mod:`linna_tpu_torch.train`).
     Skipped when ``finish.json`` exists, or when every member's
     ``best.ckpt.npz`` does (then the marker is written), unless ``retrain``.
     ``trace_rec`` receives the wall-time breakdown."""
     if params.get("linearmodel"):
         raise _not_ported("params['linearmodel'] (the PCA + polynomial pre-model)")
-    if params.get("train_compute_dtype") is not None:
-        raise _not_ported(f"params['train_compute_dtype']={params['train_compute_dtype']!r}")
     device = resolve_device(device)
     finish_path = os.path.join(outdir_in, FINISH_MARKER)
     if os.path.isfile(finish_path) and not retrain:
@@ -353,6 +355,7 @@ def train_emulator(
     spec = N.make_model_spec(model_name, stack.train_x.shape[-1], stack.train_y.shape[-1])
     loss_state = L.build_loss_state(data_vec, cov, transforms)
     seeds = [seed + 1000 * k for k in range(n_ensemble)]
+    cdtype = params.get("train_compute_dtype")
     train_kwargs = dict(
         num_epochs=int(params.get("num_epochs", 4500)),
         batch_size=int(params.get("batch_size", 500)),
@@ -365,7 +368,8 @@ def train_emulator(
         from .parallel.ensemble import EnsembleTrainer
 
         t0 = time.perf_counter()
-        trainer = EnsembleTrainer(spec, transforms, loss_state, member_dirs, seeds, device=device)
+        trainer = EnsembleTrainer(spec, transforms, loss_state, member_dirs, seeds,
+                                  compute_dtype=cdtype, device=device)
         if trace_rec is not None:
             trace_rec["trainer_init_s"] = round(time.perf_counter() - t0, 3)
         trainer.train(*rows, **train_kwargs)
@@ -377,7 +381,7 @@ def train_emulator(
             os.makedirs(member_dir, exist_ok=True)
             t0 = time.perf_counter()
             trainer = Trainer(spec, transforms, loss_state, outdir=member_dir,
-                              seed=member_seed, device=device)
+                              seed=member_seed, compute_dtype=cdtype, device=device)
             if trace_rec is not None:
                 trace_rec[f"trainer_init_s_m{mi}"] = round(time.perf_counter() - t0, 3)
             trainer.train(*rows, **train_kwargs)
@@ -386,7 +390,39 @@ def train_emulator(
                     k: round(v, 3) for k, v in trainer.phase_seconds.items()
                 }
                 trace_rec[f"epochs_run_m{mi}"] = trainer.epochs_run
+    if trace_rec is not None:
+        trace_rec["compute_dtype"] = str(trainer.compute_dtype or torch.float32)
     _write_finish(finish_path)
+
+
+def _train_in_subprocess(
+    outdir_in, outdir_list, data, cov, sigma, dolog10index, ypositive, model_name, params,
+    usebest, verbose, device,
+) -> None:
+    """Write the request and run ``python -m linna_tpu_torch.train_entry``;
+    the request names ``device``, so the child trains where the parent
+    asked."""
+    import subprocess
+    import sys
+
+    from . import train_entry as TE
+
+    if os.path.isfile(os.path.join(outdir_in, FINISH_MARKER)):
+        return
+    TE.write_request(outdir_in, outdir_list, data, cov, sigma, dolog10index, ypositive,
+                     model_name, params, usebest, device=device)
+    cmd = [sys.executable, "-m", "linna_tpu_torch.train_entry", outdir_in]
+    if verbose:
+        cmd.append("--verbose")
+    # the child imports this package from where the parent found it
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p)
+    proc = subprocess.run(cmd, capture_output=not verbose, env=dict(os.environ, PYTHONPATH=path))
+    if proc.returncode != 0:
+        tail = (proc.stderr or b"").decode(errors="replace")[-2000:]
+        raise RuntimeError(f"training subprocess failed:\n{tail}")
+    if not os.path.isfile(os.path.join(outdir_in, FINISH_MARKER)):
+        raise RuntimeError("training subprocess exited without finish marker")
 
 
 # ------------------------------------------------------------------ main loop
@@ -413,11 +449,16 @@ def ml_sampler(
     """LINNA with the To et al. 2022 hyperparameters (reference
     linna/main.py:22-75): 4 iterations of 10000 training and 500 validation
     points, temperatures 4, 2, 1, 1, and a 4-member emulator ensemble.
-    ``method`` is ``"zeus"`` or a 4-entry list of it; the other samplers are
-    not ported yet."""
+    ``method`` is one sampler name or a 4-entry list, one per iteration
+    (e.g. ``["zeus", "zeus", "zeus", "nuts"]``); hmc and nuts use zeus's
+    convergence table."""
     ntrainArr = [10000] * 4
     nvalArr = [500] * 4
-    per_method = {"zeus": ([2, 2, 5, 5], [5, 5, 10, 50], [0.03, 0.03, 0.02, 0.01])}
+    per_method = {
+        "emcee": ([2, 2, 5, 4], [5, 5, 10, 15], [0.03, 0.03, 0.02, 0.01]),
+        "zeus": ([2, 2, 5, 5], [5, 5, 10, 50], [0.03, 0.03, 0.02, 0.01]),
+    }
+    per_method["hmc"] = per_method["nuts"] = per_method["zeus"]
     methods = [method] * 4 if isinstance(method, str) else [str(m) for m in method]
     if len(methods) != 4:
         raise ValueError(
@@ -425,7 +466,7 @@ def ml_sampler(
             f"{len(methods)} entries (use ml_sampler_core for other schedules)"
         )
     for m in methods:
-        _check_method(m)
+        _chain_filename(m)  # unknown names raise NotImplementedError(method)
     nkeepArr = [per_method[m][0][i] for i, m in enumerate(methods)]
     ntimesArr = [per_method[m][1][i] for i, m in enumerate(methods)]
     ntautolArr = [per_method[m][2][i] for i, m in enumerate(methods)]
@@ -444,12 +485,6 @@ def ml_sampler(
         chisqcut=chisqcut,
         loglikelihoodfunc=loglikelihoodfunc,
     )
-
-
-def _check_method(method: str) -> None:
-    _chain_filename(method)  # unknown names raise NotImplementedError(method)
-    if method != "zeus":
-        raise _not_ported(f"method={method!r} (only 'zeus' is)")
 
 
 def ml_sampler_core(
@@ -478,7 +513,7 @@ def ml_sampler_core(
     gpunode: Optional[str] = None,
     nnmodel_in: str = "chto_v2",
     params: Optional[dict] = None,
-    method: str = "zeus",
+    method: str = "emcee",
     nbest=None,
     chisqcut: Optional[float] = None,
     loglikelihoodfunc: Optional[Callable] = None,
@@ -489,17 +524,20 @@ def ml_sampler_core(
 ):
     """The iterative loop (reference linna/main.py:77-335) on ``device``.
     Returns (chain, log_prob) of the final iteration, the chain in physical
-    space.  ``docuda``, ``tsize`` and ``gpunode`` are accepted for the
-    reference's signature and unused.
+    space.  ``method`` is one of emcee (the default, as in the JAX package),
+    zeus, hmc and nuts, or a list with one per iteration.  ``docuda``,
+    ``tsize`` and ``gpunode`` are accepted for the reference's signature and
+    unused.
 
-    Not ported yet (``NotImplementedError``): samplers other than zeus,
-    ``params["train_subprocess"]``, ``params["linearmodel"]``,
-    ``params["train_compute_dtype"]`` and ``params["compute_dtype"]``."""
+    ``params["max_iterations"]`` caps each iteration's sampler steps
+    (``run_ensemble``'s ``max_iterations``, 100,000 by default): a depth cut
+    for short runs, which the JAX package does not read.
+
+    Not ported yet (``NotImplementedError``): ``params["linearmodel"]`` and
+    ``params["compute_dtype"]``."""
     D.clear_cache()  # never reuse a previous run's curated stacks
     check_map_count()
     params = dict(params or {})
-    if params.get("train_subprocess"):
-        raise _not_ported("params['train_subprocess'] (training in a child process)")
     if not isinstance(nnmodel_in, str):
         nnmodel_in = getattr(nnmodel_in, "__name__", "chto_v2")
         nnmodel_in = {
@@ -527,7 +565,7 @@ def ml_sampler_core(
                 f"method list has {len(methods)} entries for {len(ntrainArr)} iterations"
             )
     for m in methods:
-        _check_method(m)
+        _chain_filename(m)  # unknown names raise NotImplementedError(method)
     is_master = pool is None or pool.is_master()
     options = int(params.get("trainingoption", 0))
     timer = PhaseTimer(outdir if is_master else None)
@@ -572,11 +610,18 @@ def ml_sampler_core(
         outdir_list = [os.path.join(outdir, f"iter_{m}/") for m in range(i + 1)]
         with timer.phase("train_emulator", iteration=i) as trec, \
                 device_profile(f"train_iter{i}"):
-            train_emulator(
-                outdir_in, outdir_list, data, cov, sigma, dolog10index, ypositive,
-                nnmodel_in, params, usebest=nbest_in is not None, verbose=verbose,
-                trace_rec=trec, device=device,
-            )
+            if params.get("train_subprocess"):
+                # training in a child process (crash isolation, CLI parity)
+                _train_in_subprocess(
+                    outdir_in, outdir_list, data, cov, sigma, dolog10index, ypositive,
+                    nnmodel_in, params, nbest_in is not None, verbose, device,
+                )
+            else:
+                train_emulator(
+                    outdir_in, outdir_list, data, cov, sigma, dolog10index, ypositive,
+                    nnmodel_in, params, usebest=nbest_in is not None, verbose=verbose,
+                    trace_rec=trec, device=device,
+                )
 
         # sample unless this iteration's chain exists and is complete; a
         # chain whose sampler died mid-run resumes from its saved state
@@ -618,7 +663,8 @@ def ml_sampler_core(
             linearmodel=model.linearmodel,
             device=device,
         )
-        x0 = init_run + 0.001 * rng.standard_normal((nwalkers, ndim_run))
+        jitter = 0.1 if methods[i] == "emcee" else 0.001
+        x0 = init_run + jitter * rng.standard_normal((nwalkers, ndim_run))
         with timer.phase("mcmc", iteration=i, method=methods[i]) as mrec, \
                 device_profile(f"mcmc_iter{i}"):
             sampler_run.run_ensemble(
@@ -633,6 +679,7 @@ def ml_sampler_core(
                 stdshift=stdshift,
                 nk=nk,
                 seed=seed + i,
+                max_iterations=int(params.get("max_iterations", 100_000)),
                 progress=verbose,
                 trace_rec=mrec,
                 device=device,

@@ -1,1 +1,1 @@
-from . import backends, convergence, run, slicemove  # noqa: F401
+from . import backends, convergence, hmc, precondition, run, slicemove, stretch  # noqa: F401

@@ -14,7 +14,9 @@ h5py is imported at first use.  Where it cannot be imported, the same
 datasets, attributes and ``sampler_state`` group go into a directory beside
 the requested name (``<filename>.d``): each growable dataset is a raw row file
 that an append extends by one chunk, and the rest is a small ``index.npz``;
-:func:`store_kind` says which store is in use.
+:func:`store_kind` says which store is in use.  Where h5py exists and
+``<filename>`` does not, a directory store beside it is read and extended;
+:func:`export_hdf5` writes one as an HDF5 file.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
-__all__ = ["EmceeBackend", "ZeusBackend", "store_kind"]
+__all__ = ["EmceeBackend", "ZeusBackend", "export_hdf5", "store_kind"]
 
 STATE_GROUP = "sampler_state"
 
@@ -215,29 +217,49 @@ def store_kind() -> str:
     return "dir" if _h5() is _DirModule else "hdf5"
 
 
+def _dir_store_at(filename: str) -> bool:
+    return os.path.isfile(os.path.join(filename + ".d", _INDEX))
+
+
 class _Store:
+    """Where a chain's bytes live: the HDF5 file ``filename`` when h5py can
+    be imported, else the directory ``filename.d``.  A directory store
+    written where h5py was missing (the card) is read, and extended, where
+    h5py exists, as long as ``filename`` itself is not there: every read and
+    write looks the store up again, so a store copied in later is found."""
+
     def __init__(self, filename: str):
         self.filename = filename
-        self._h5 = _h5()
-        # where the bytes go: the requested file, or a directory beside it
-        self.path = filename if self._h5 is not _DirModule else filename + ".d"
+
+    def _where(self):
+        h5 = _h5()
+        if h5 is _DirModule or (not os.path.isfile(self.filename) and _dir_store_at(self.filename)):
+            return _DirModule, self.filename + ".d"
+        return h5, self.filename
+
+    @property
+    def path(self) -> str:
+        return self._where()[1]
 
     def _open(self, mode: str):
-        return self._h5.File(self.path, mode)
+        h5, path = self._where()
+        return h5.File(path, mode)
 
     def exists(self) -> bool:
-        if self._h5 is _DirModule:
-            return os.path.isfile(os.path.join(self.path, _INDEX))
-        return os.path.isfile(self.path)
+        h5, path = self._where()
+        if h5 is _DirModule:
+            return os.path.isfile(os.path.join(path, _INDEX))
+        return os.path.isfile(path)
 
     def save_state(self, blob: dict) -> None:
         """Rewrite the exact-resume ``sampler_state`` group."""
-        with self._open("a") as f:
+        h5, path = self._where()
+        with h5.File(path, "a") as f:
             g = f.require_group(STATE_GROUP)
             for k, v in blob.items():
                 v = np.asarray(v)
                 ds = g.get(k)
-                if isinstance(ds, self._h5.Dataset) and ds.shape == v.shape and ds.dtype == v.dtype:
+                if isinstance(ds, h5.Dataset) and ds.shape == v.shape and ds.dtype == v.dtype:
                     # overwrite in place: HDF5 never reclaims freed space
                     ds[...] = v
                 else:
@@ -255,6 +277,37 @@ class _Store:
             if STATE_GROUP not in f:
                 return None
             return {k: np.asarray(v[()]) for k, v in f[STATE_GROUP].items()}
+
+
+def export_hdf5(store_path: str, h5_path: str) -> None:
+    """Write a directory store (``<name>.d``, or the chain name beside it)
+    as the HDF5 file ``h5_path`` with the same groups, datasets, attributes
+    and ``sampler_state``: the layout the JAX package's backends read.
+    Growable datasets stay growable, so the file can be resumed."""
+    import h5py
+
+    if not os.path.isfile(os.path.join(store_path, _INDEX)) and _dir_store_at(store_path):
+        store_path = store_path + ".d"
+    src = _DirFile(store_path, "r")
+
+    def copy(node: _DirGroup, dst) -> None:
+        for k, v in node.attrs.items():
+            v = np.asarray(v)
+            # h5py stores no numpy unicode: a string attribute goes in as str
+            dst.attrs[k] = v.item() if v.dtype.kind == "U" and v.ndim == 0 else v
+        for name, child in node.children.items():
+            if isinstance(child, _DirGroup):
+                copy(child, dst.create_group(name))
+            elif isinstance(child, _RowDataset):
+                dst.create_dataset(name, data=child[:], maxshape=(None,) + child.row_shape,
+                                   chunks=True, compression="gzip")
+            else:
+                dst.create_dataset(name, data=child.a)
+
+    tmp = h5_path + ".tmp"
+    with h5py.File(tmp, "w") as f:
+        copy(src, f)
+    os.replace(tmp, h5_path)
 
 
 class EmceeBackend(_Store):

@@ -25,6 +25,14 @@ eps 1e-8 outside the square root, bias correction by each member's step
 count, decoupled decay ``lr * wd * p`` on every parameter, biases included,
 with lr and wd per member as runtime tensors.  A reinit or reload resets the
 member's moments and count.
+
+``compute_dtype`` (``train_compute_dtype``, e.g. ``"bfloat16"``) runs the
+training forward and backward in that type, as the JAX trainers do: the
+parameters and the standardized inputs are cast inside the loss and the
+prediction returns to float32 before it.  The master weights, the second
+moment, the validation pass and all loss and metric arithmetic stay float32;
+the first moment is stored in the compute type and updated in float32.  The
+trainer sets no process-wide precision flag.
 """
 
 from __future__ import annotations
@@ -307,6 +315,17 @@ class DispatchSchedule:
 # ------------------------------------------------------------------- AdamW
 
 
+def _compute_dtype(name) -> Optional[torch.dtype]:
+    """A training compute type by name (``"bfloat16"``), or None for float32
+    throughout."""
+    if name is None:
+        return None
+    dt = name if isinstance(name, torch.dtype) else getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+        raise ValueError(f"train_compute_dtype={name!r} is not a floating-point type")
+    return dt
+
+
 class AdamWState(NamedTuple):
     """AdamW moments of K stacked members, each (K, P), and each member's
     step count (K,)."""
@@ -316,10 +335,12 @@ class AdamWState(NamedTuple):
     nu: torch.Tensor
 
 
-def adamw_init(flat: torch.Tensor) -> AdamWState:
+def adamw_init(flat: torch.Tensor, mu_dtype: Optional[torch.dtype] = None) -> AdamWState:
+    """Zero moments for the (K, P) parameters; ``mu_dtype`` is the storage
+    type of the first moment (optax's ``mu_dtype``), float32 by default."""
     return AdamWState(
         torch.zeros(flat.shape[0], dtype=torch.int32, device=flat.device),
-        torch.zeros_like(flat),
+        torch.zeros_like(flat, dtype=mu_dtype),
         torch.zeros_like(flat),
     )
 
@@ -329,14 +350,21 @@ def adamw_step_(
     flat: torch.Tensor, grad: torch.Tensor, state: AdamWState, lr: torch.Tensor, wd: torch.Tensor
 ) -> None:
     """One AdamW update of the (K, P) parameters in place; ``lr`` and ``wd``
-    are (K, 1) tensors.  The arithmetic follows ``optax.adamw`` op for op."""
+    are (K, 1) tensors.  The arithmetic follows ``optax.adamw`` op for op.
+    A first moment stored in a narrower type is updated in float32, the
+    update uses that float32 moment, and only the stored copy is rounded
+    (optax's order under ``mu_dtype``)."""
     state.count.add_(1)
     # no fused multiply-adds: each product rounds on its own, as in optax
     one = np.float32(1.0)
-    state.mu.mul_(float(ADAM_B1)).add_(float(one - ADAM_B1) * grad)
+    if state.mu.dtype == torch.float32:
+        mu = state.mu.mul_(float(ADAM_B1)).add_(float(one - ADAM_B1) * grad)
+    else:
+        mu = state.mu.to(torch.float32) * float(ADAM_B1) + float(one - ADAM_B1) * grad
+        state.mu.copy_(mu)
     state.nu.mul_(float(ADAM_B2)).add_(float(one - ADAM_B2) * (grad * grad))
     count = state.count.to(torch.float32)[:, None]
-    mu_hat = state.mu / (1.0 - torch.pow(float(ADAM_B1), count))
+    mu_hat = mu / (1.0 - torch.pow(float(ADAM_B1), count))
     nu_hat = state.nu / (1.0 - torch.pow(float(ADAM_B2), count))
     update = mu_hat / (torch.sqrt(nu_hat) + float(ADAM_EPS)) + wd * flat
     flat.add_(update * -lr)
@@ -454,11 +482,7 @@ class _MemberStack:
         linearmodel=None,
         device: DeviceLike = None,
     ):
-        if compute_dtype is not None:
-            raise NotImplementedError(
-                f"train_compute_dtype={compute_dtype!r} (a bfloat16 forward and "
-                "first moment) is not ported to linna_tpu_torch yet; see ROADMAP.md"
-            )
+        self.compute_dtype = _compute_dtype(compute_dtype)
         if linearmodel is not None:
             raise NotImplementedError(
                 "the PCA + polynomial pre-model (linearmodel) is not ported to "
@@ -485,7 +509,7 @@ class _MemberStack:
         self._model = _nest(
             (path, leaf) for (path, *_), leaf in zip(self.layout.entries, self._leaves)
         )
-        self.opt = adamw_init(self.flat)
+        self.opt = adamw_init(self.flat, self.compute_dtype)
         self.lrs = np.full(self.n_members, 1e-4)
         self.wds = np.full(self.n_members, 1e-4)
         self.best_val_losses = np.full(self.n_members, np.inf)
@@ -518,13 +542,30 @@ class _MemberStack:
 
     def _step(self, data: _Data, idx: torch.Tensor, opt: AdamWState, lr, wd) -> torch.Tensor:
         """One minibatch AdamW step of every member on rows ``idx`` (K, bs);
-        returns each member's loss (K,)."""
-        pred = N.apply_model(self.spec, self._model, data.x[idx])
+        returns each member's loss (K,).
+
+        With a ``compute_dtype`` the forward and backward run in it: the
+        (K, P) parameters are cast in one op and the cast's views are the
+        network's weights, the inputs are cast, and the prediction returns
+        to float32 before the loss (the JAX trainers' ``_loss``).  The views
+        are the autograd leaves, so their gradients arrive without being
+        scattered into full-size tensors; concatenated and cast to float32
+        they are the gradient of the float32 parameters, as the cast's
+        backward gives it."""
+        if self.compute_dtype is None:
+            pred = N.apply_model(self.spec, self._model, data.x[idx])
+            leaves = self._leaves
+        else:
+            low = self.flat.to(self.compute_dtype)
+            leaves = [v.detach().requires_grad_(True) for v in self.layout.stacked_views(low)]
+            model = _nest((path, v) for (path, *_), v in zip(self.layout.entries, leaves))
+            pred = N.apply_model(self.spec, model, data.x[idx].to(self.compute_dtype))
+            pred = pred.to(torch.float32)
         per_row = L.chi2_ratio(self.loss_state, pred, data.t_std[idx], data.t_mask[idx],
                                data.t_denom[idx])
         loss = torch.mean(per_row, dim=-1)
-        grads = torch.autograd.grad(loss.sum(), self._leaves)
-        grad = torch.cat([g.reshape(self.n_members, -1) for g in grads], dim=1)
+        grads = torch.autograd.grad(loss.sum(), leaves)
+        grad = torch.cat([g.reshape(self.n_members, -1) for g in grads], dim=1).to(torch.float32)
         adamw_step_(self.flat, grad, opt, lr, wd)
         return loss.detach()
 
@@ -590,7 +631,7 @@ class _MemberStack:
         nb = max(len(order) // bs, 1)
         k = self.n_members
         backup = self.flat.clone()
-        opt = adamw_init(self.flat)
+        opt = adamw_init(self.flat, self.compute_dtype)
         order_t = torch.as_tensor(order, device=self.device)
         lrs_t = torch.as_tensor(np.asarray(lrs, np.float32), device=self.device)
         wd = torch.full((k, 1), 1e-4, device=self.device)
@@ -678,7 +719,10 @@ class _MemberStack:
         params_h = self.flat.detach().cpu() if force else None
         best_h = self._best_flat.cpu() if self._best_flat is not None else None
         if force:
+            # a bfloat16 first moment is saved as float32 (exact), as the JAX
+            # package's checkpoints hold it
             count_h, mu_h, nu_h = (t.cpu() for t in self.opt)
+            mu_h = mu_h.float()
         for m, d in enumerate(self.outdirs):
             if d is None:
                 continue
@@ -753,7 +797,7 @@ class _MemberStack:
         if initfrombest:
             for m in range(k_members):
                 self._load_best_member(m)
-        self.opt = adamw_init(self.flat)
+        self.opt = adamw_init(self.flat, self.compute_dtype)
         self._set_hypers()
 
         sups = [

@@ -69,3 +69,39 @@ def walkers(n, ndim, seed=1, scale=1.0):
 
 def t(a):
     return torch.as_tensor(np.asarray(a))
+
+
+def log_probs(pb, temperature=1.0, use_fused=False):
+    """The problem's batched log-posterior in both packages: (JAX, port)."""
+    from linna_tpu import likelihood as JLK
+    from linna_tpu_torch import likelihood as TLK
+
+    lp_j = JLK.make_log_prob(pb.spec, pb.params_j, pb.ts_j, pb.pack_j, pb.data, pb.inv_cov,
+                             temperature=temperature)
+    lp_t = TLK.make_log_prob(pb.tspec, pb.params_t, pb.ts_t, pb.pack_t, pb.data, pb.inv_cov,
+                             temperature=temperature, use_fused=use_fused, device=CPU)
+    return lp_j, lp_t
+
+
+# a correlated 2-D Gaussian target for the samplers (tests/test_hmc.py's)
+GAUSS_MEAN = np.array([1.0, -0.5])
+GAUSS_COV = np.array([[1.0, 0.6], [0.6, 0.8]])
+
+
+def gauss_log_probs(mean=GAUSS_MEAN, cov=GAUSS_COV):
+    """The Gaussian's log-density in both packages: (JAX, port)."""
+    import jax.numpy as jnp
+
+    ic = np.linalg.inv(cov)
+    mj, icj = jnp.asarray(mean, jnp.float32), jnp.asarray(ic, jnp.float32)
+    mt, ict = torch.as_tensor(mean, dtype=torch.float32), torch.as_tensor(ic, dtype=torch.float32)
+
+    def lp_j(x):
+        d = x - mj
+        return -0.5 * jnp.einsum("...i,ij,...j->...", d, icj, d)
+
+    def lp_t(x):
+        d = x - mt
+        return -0.5 * torch.einsum("...i,ij,...j->...", d, ict, d)
+
+    return lp_j, lp_t

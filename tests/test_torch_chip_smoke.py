@@ -149,3 +149,68 @@ def test_initial_and_best_val_losses_on_a_trained_iteration(tmp_path):
     assert len(initial) == len(best) == 2 and all(np.isfinite(initial))
     assert all(b < i for b, i in zip(best, initial))
     assert C.iteration_missing(d, 2) == []
+
+
+# ------------------------------------- phases 6 and 7, rehearsed at small size
+
+
+def test_phase_gradient_rehearsal(tmp_path):
+    """Phase 6 on the CPU at 6 -> 40 (the kernel's plain version in place of
+    the kernel): the gradient check, then the MAP search with NUTS, HMC and
+    emcee through ``run_ensemble``."""
+    res, gradient_launches = C.phase_gradient(torch.device("cpu"), str(tmp_path), nwalkers=16,
+                                              nuts_steps=10, hmc_steps=5, emcee_steps=20,
+                                              ndim=6, ndata=40)
+    assert gradient_launches == 0  # no kernel on the CPU
+    assert res["gradient_check"]["log10 lanes"]["-inf rows"] > 0
+    assert res["gradient_check"]["mixed priors"]["abs"] <= 1e-6
+    for method, steps in (("nuts", 10), ("hmc", 5), ("emcee", 20)):
+        rec = res[method]
+        assert rec["steps"] == steps and 0.0 <= rec["mean_acceptance"] <= 1.0
+        assert (rec["sampler_s"]["precond"] > 0) == (method != "emcee")
+    assert res["nuts"]["mean_acceptance"] > 0
+
+
+TINY_THEORY = """
+from examples.des_theory import SyntheticSurveyTheory
+
+_T = SyntheticSurveyTheory(3, 12, 8, seed=1)
+NDIM, NDATA = 3, 12
+data_vector, noise_sigma, fiducial = _T.data_vector, _T.noise_sigma, _T.fiducial
+cov_triplet_rows = _T.cov_triplet_rows
+
+
+def make_theory(params):
+    return _T
+"""
+
+
+def test_phase_driver_rehearsal(tmp_path, monkeypatch):
+    """Phase 7 on the CPU: des_synthetic.yaml with the phase's cuts, through
+    ``python -m linna_tpu_torch.driver ... --device cpu``, on a 3 -> 12
+    theory of the same family with one emulator (its own exact posterior
+    stands in)."""
+    import json
+
+    (tmp_path / "tiny_theory.py").write_text(TINY_THEORY)
+    monkeypatch.syspath_prepend(str(tmp_path))
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the driver's process, beside the other workers
+    exact = tmp_path / "exact.json"
+    exact.write_text(json.dumps({"exact_mean": [0.05] * 3, "exact_std": [1.0] * 3}))
+    overrides = {
+        "theory": "tiny_theory:make_theory", "nwalkers": 8, "ntrainArr": [40, 40],
+        "nvalArr": [10, 10], "batch_size": 20, "nensemble": 1,
+        "sampled_params": [{"param": f"p{i}", "dist": "flat", "arg1": -1.0, "arg2": 1.0}
+                           for i in range(3)],
+    }
+    res = C.phase_driver(torch.device("cpu"), str(tmp_path / "p7"), epochs=4, steps=20,
+                         theory_mod="tiny_theory", overrides=overrides, exact=str(exact))
+    assert set(res["cuts"]) >= {"iterations", "methodArr", "temperatureArr", "num_epochs",
+                                "max_iterations", "outdir"}
+    rows = res["report"]["iterations"]
+    assert [r["method"] for r in rows] == ["zeus", "nuts"]
+    assert all(r["compute_dtype"] == "torch.bfloat16" and r["epochs_run"] == 4 for r in rows)
+    assert rows[1]["sampler_s"]["precond"] > 0 and rows[1]["steps"] == 100
+    bias = res["report"]["bias"]
+    assert len(bias["bias_sigma"]) == 3 and np.isfinite(bias["bias_sigma"]).all()
+    assert res["store"].endswith("chemcee_256.h5")

@@ -43,7 +43,7 @@ def test_import_leaves_jax_and_the_jax_package_out():
 
 def test_sources_never_import_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(import jax|from jax)|linna_tpu\.", re.M)
-    sources = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    sources = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "des_report.py"]
     assert len(sources) > 10
     for path in sources:
         assert not pattern.search(path.read_text()), path
@@ -85,6 +85,8 @@ def test_entry_points_without_a_device_raise_off_the_card(tmp_path):
         lambda: TLK.make_log_prob(spec, params, ts, pack, np.zeros(4), np.eye(4)),
         lambda: TLK.make_log_prob(spec, params, ts, pack, np.zeros(4), np.eye(4), use_fused=True),
         lambda: TR.run_ensemble(lambda x: x.sum(-1), np.zeros((4, 3)), str(tmp_path)),
+        lambda: TR.run_ensemble(lambda x: x.sum(-1), np.zeros((4, 3)), str(tmp_path),
+                                method="nuts"),
         lambda: TO.retrieve_model(str(tmp_path), 3, 4),
     ]
     for call in calls:
@@ -101,12 +103,18 @@ def test_kernel_build_failure_raises(monkeypatch):
 
 
 def test_unported_samplers_raise(tmp_path):
-    for method in ("emcee", "hmc", "nuts"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TR.run_ensemble(lambda x: x.sum(-1), np.zeros((4, 3)), str(tmp_path),
-                            method=method, device="cpu")
+    """Every sampler of the JAX package is ported: only an unknown name
+    raises NotImplementedError, and the moves' walker-count contracts hold."""
+    with pytest.raises(NotImplementedError, match="not_a_sampler"):
+        TR.run_ensemble(lambda x: x.sum(-1), np.zeros((4, 3)), str(tmp_path),
+                        method="not_a_sampler", device="cpu")
+    with pytest.raises(NotImplementedError, match="not_a_sampler"):
+        TO._chain_filename("not_a_sampler")
     with pytest.raises(ValueError, match="nwalkers >= 4"):
         TR.run_ensemble(lambda x: x.sum(-1), np.zeros((2, 3)), str(tmp_path), device="cpu")
+    with pytest.raises(ValueError, match="nwalkers must be even"):
+        TR.run_ensemble(lambda x: -x.pow(2).sum(-1), np.zeros((5, 3)), str(tmp_path / "odd"),
+                        method="emcee", device="cpu")
 
 
 def test_linear_model_artifact_is_not_ported(tmp_path):

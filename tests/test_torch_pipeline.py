@@ -1,6 +1,7 @@
 """``ml_sampler_core`` through the port on the CPU with zeus: the artifact
 contract of tests/test_end_to_end.py, the file-gated resume, the
-paper-defaults entry, and the parameters that are not ported yet."""
+paper-defaults entry, and the two parameters that are not ported yet
+(``linearmodel`` and the bf16 inference ``compute_dtype``)."""
 
 import os
 from copy import deepcopy
@@ -93,17 +94,19 @@ def test_ml_sampler_turnkey_defaults(monkeypatch):
     assert captured["temperatureArr"] == [4.0, 2.0, 1.0, 1.0] and captured["device"] == "cpu"
     with pytest.raises(ValueError, match="4 iterations"):
         TO.ml_sampler(method=["zeus", "zeus"], **common)
-    for method in ("emcee", "nuts", ["zeus", "zeus", "zeus", "nuts"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TO.ml_sampler(method=method, **common)
+    # every sampler runs: emcee has its own convergence table, hmc and nuts
+    # zeus's (the JAX package's ml_sampler table)
+    TO.ml_sampler(method="emcee", **common)
+    assert captured["nkeepArr"] == [2, 2, 5, 4] and captured["ntimesArr"] == [5, 5, 10, 15]
+    TO.ml_sampler(method=["zeus", "zeus", "zeus", "nuts"], **common)
+    assert captured["method"] == ["zeus", "zeus", "zeus", "nuts"]
+    assert captured["ntimesArr"] == [5, 5, 10, 50] and captured["ntautolArr"][-1] == 0.01
     with pytest.raises(NotImplementedError):
         TO.ml_sampler(method="not_a_sampler", **common)
 
 
 @pytest.mark.parametrize("params", [
-    {"train_subprocess": True},
     {"linearmodel": True},
-    {"train_compute_dtype": "bfloat16"},
     {"compute_dtype": "bfloat16"},
 ])
 def test_unported_parameters_raise(params, tmp_path):

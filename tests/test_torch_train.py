@@ -249,7 +249,13 @@ def test_smooth_and_pick_lr_matches():
 
 
 def test_training_compute_dtype_and_linearmodel_are_not_ported():
+    """The training compute type is ported (tests/test_torch_bf16.py) and
+    takes floating-point types only; the linear pre-model is not ported."""
     pb = _problem()
-    for kw in (dict(compute_dtype="bfloat16"), dict(linearmodel=lambda x: x)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TTR.Trainer(pb["tspec"], pb["ts_t"], pb["ls_t"], device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TTR.Trainer(pb["tspec"], pb["ts_t"], pb["ls_t"], device="cpu", linearmodel=lambda x: x)
+    for bad in ("int8", "not_a_type"):
+        with pytest.raises(ValueError, match="floating-point"):
+            TTR.Trainer(pb["tspec"], pb["ts_t"], pb["ls_t"], device="cpu", compute_dtype=bad)
+    tr = TTR.Trainer(pb["tspec"], pb["ts_t"], pb["ls_t"], device="cpu", compute_dtype="bfloat16")
+    assert tr.compute_dtype == torch.bfloat16 and tr.opt.mu.dtype == torch.bfloat16
