@@ -63,16 +63,14 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
 7. ``python -m linna_tpu_torch.driver zeus None <yaml> examples`` as a
    subprocess on the card, the yaml being ``examples/des_synthetic.yaml``
    cut to depth (two iterations, zeus then nuts at T = 4 then 1,
-   ``DRIVER_EPOCHS`` epochs, ``DRIVER_STEPS`` sampler steps an iteration;
+   ``DRIVER_EPOCHS`` epochs, the convergence keys loosened so that each
+   iteration's sampler stops at its second convergence check, 200 steps;
    each cut printed), on inputs written with
    ``examples/des_theory.py``: every artifact, the chain stores,
    ``precond.npz``, ``time.npy``, bfloat16 training, and the posterior mean's
    offsets from ``EXACT_POSTERIOR.json`` (reported, not gated).
 8. One ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
-
-``--phases 1,2,6`` runs a subset (phases 1 and 2 always run) and prints no
-result line.
 
 Phase 4's and 6's weights are random (from a seed); phases 5 and 7 train
 their own.  Exits nonzero with no result line when no CUDA device is
@@ -116,7 +114,6 @@ ENS_STEPS = 100
 NUTS_STEPS, HMC_STEPS, EMCEE_STEPS = 100, 20, 300
 # phase 7: des_synthetic.yaml through the driver, its 1000 epochs cut
 DRIVER_EPOCHS = 100
-DRIVER_STEPS = 200
 DRIVER_TIMEOUT = 900
 
 # tests/test_ops.py's kernel tolerance; both sides accumulate in f32 and
@@ -985,7 +982,8 @@ def phase_gradient(device, outdir, nwalkers=NWALKERS, nuts_steps=NUTS_STEPS,
     gradient against the plain one, then ``run_ensemble`` with the MAP
     search and ``nuts_steps`` NUTS samples, ``hmc_steps`` HMC samples, and
     ``emcee_steps`` stretch steps after emcee's 100-step burn-in.  Returns
-    the records and the launch counts of the NUTS and HMC runs."""
+    the records and each kernel's launches on the gradient path (the NUTS
+    and HMC runs) and on the emcee run."""
     from linna_tpu_torch import likelihood as LK
     from linna_tpu_torch import orchestrator as O
     from linna_tpu_torch import priors as P
@@ -1008,19 +1006,19 @@ def phase_gradient(device, outdir, nwalkers=NWALKERS, nuts_steps=NUTS_STEPS,
     def run(method, steps):
         d = os.path.join(outdir, method)
         trace: dict = {}
-        before = dict(F.launches), dict(F.plain_calls)
+        F.reset_counts()
         t0 = time.perf_counter()
         backend = R.run_ensemble(log_prob, x0, d, method=method, transform=tfn,
                                  check_every=steps, max_iterations=steps,
                                  convergence_check=False, seed=0, device=device,
                                  trace_rec=trace)
         wall = time.perf_counter() - t0
-        launches = F.launches["fused_log_prob"] - before[0]["fused_log_prob"]
+        launches, plain = dict(F.launches), dict(F.plain_calls)
         chain, lps = backend.get_chain(), backend.get_log_prob()
         if chain.shape != (steps, nwalkers, ndim) or not (np.isfinite(chain).all()
                                                           and np.isfinite(lps).all()):
             raise AssertionError(f"{method}: chain {chain.shape} is not finite")
-        if device.type == "cuda" and any(F.plain_calls[k] - before[1][k] for k in F.plain_calls):
+        if device.type == "cuda" and any(plain.values()):
             raise AssertionError(f"{method}: a plain version ran on the gradient path")
         s = trace["sampler"]
         loop = s["device_wait"] + s["host"]
@@ -1028,8 +1026,9 @@ def phase_gradient(device, outdir, nwalkers=NWALKERS, nuts_steps=NUTS_STEPS,
             accepted = np.asarray(f["mcmc"]["accepted"][:])
         half = tfn(chain[steps // 2:].reshape(-1, ndim))
         rec = {"wall_s": wall, "sampler_s": s, "steps": steps,
-               "s_per_100_steps": loop / steps * 100, "fused_log_prob_launches": launches,
-               "launches_per_step": launches / steps,
+               "s_per_100_steps": loop / steps * 100, "launches": launches,
+               "fused_log_prob_launches": launches["fused_log_prob"],
+               "launches_per_step": launches["fused_log_prob"] / steps,
                "mean_acceptance": float(accepted.mean() / steps),
                "max_truth_offset_in_chain_std": float(np.max(
                    np.abs(half.mean(axis=0) - truth) / half.std(axis=0)))}
@@ -1039,8 +1038,12 @@ def phase_gradient(device, outdir, nwalkers=NWALKERS, nuts_steps=NUTS_STEPS,
     res = {"gradient_check": grad}
     res["nuts"], nuts_backend = run("nuts", nuts_steps)
     res["hmc"], _ = run("hmc", hmc_steps)
-    gradient_launches = res["nuts"]["fused_log_prob_launches"] + res["hmc"]["fused_log_prob_launches"]
     res["emcee"], _ = run("emcee", emcee_steps)
+    launches = {
+        "gradient": {k: res["nuts"]["launches"][k] + res["hmc"]["launches"][k]
+                     for k in F.launches},
+        "emcee": res["emcee"]["launches"],
+    }
 
     # launches per NUTS sample, and where a sample's time goes, from a
     # traced chunk of 5 samples at the chain's end in the saved space
@@ -1061,19 +1064,20 @@ def phase_gradient(device, outdir, nwalkers=NWALKERS, nuts_steps=NUTS_STEPS,
     if device.type == "cuda" and per_sample != 2**5 - 1:
         raise AssertionError(f"{per_sample} fused_log_prob launches per NUTS sample, not 31")
     log(f"  gradient: {json.dumps(res, default=float)}")
-    return res, gradient_launches
+    return res, launches
 
 
 # ------------------------------------------------------------------ driver
 
 
-def phase_driver(device, outdir, epochs=DRIVER_EPOCHS, steps=DRIVER_STEPS, timeout=DRIVER_TIMEOUT,
+def phase_driver(device, outdir, epochs=DRIVER_EPOCHS, timeout=DRIVER_TIMEOUT,
                  theory_mod="examples.des_theory", overrides=None,
                  exact=os.path.join(ROOT, "EXACT_POSTERIOR.json")) -> dict:
     """``python -m linna_tpu_torch.driver`` on ``examples/des_synthetic.yaml``
     with its depth cut: the first two iterations (methods zeus then nuts at
-    T = 4 then 1), ``epochs`` epochs, at most ``steps`` sampler steps an
-    iteration, outdir under the run directory.  The
+    T = 4 then 1), ``epochs`` epochs, convergence keys that pass at the
+    sampler's second check (200 steps: the first compares with no earlier
+    tau), outdir under the run directory.  The
     inputs are written with ``examples/des_theory.py``'s functions, as
     ``examples/make_des_inputs.py`` writes them.  Checks every iteration's
     artifacts, the chain stores, ``precond.npz``, ``time.npy`` and that
@@ -1106,16 +1110,21 @@ def phase_driver(device, outdir, epochs=DRIVER_EPOCHS, steps=DRIVER_STEPS, timeo
         "methodArr": f"{params['methodArr']} -> ['zeus', 'nuts']",
         "temperatureArr": f"{params['temperatureArr']} -> [4.0, 1.0]",
         "num_epochs": f"{params['num_epochs']} -> {epochs}",
-        "max_iterations": f"100000 (run_ensemble's default) -> {steps} sampler steps an "
-                          "iteration",
+        # the first tau check has no earlier tau to compare with, so each
+        # sampler stops at its second, after 200 steps
+        "ntimesArr": f"{params['ntimesArr']} -> [0, 0]",
+        "ntautolArr": f"{params['ntautolArr']} -> [inf, inf]",
+        "meanshiftArr": f"{params['meanshiftArr']} -> [inf, inf]",
+        "stdshiftArr": f"{params['stdshiftArr']} -> [inf, inf]",
         "outdir": f"{params['outdir']} -> {outdir}/run",
         "base_dir": f"{params['base_dir']} -> {inputs}",
     }
-    for k in ("ntrainArr", "nvalArr", "nkeepArr", "ntimesArr", "ntautolArr", "meanshiftArr",
-              "stdshiftArr"):
+    for k in ("ntrainArr", "nvalArr", "nkeepArr"):
         params[k] = params[k][:n_iter]
+    inf = float("inf")
     params.update(methodArr=["zeus", "nuts"], temperatureArr=[4.0, 1.0], num_epochs=epochs,
-                  max_iterations=steps, outdir=os.path.join(outdir, "run"), base_dir=inputs)
+                  ntimesArr=[0, 0], ntautolArr=[inf, inf], meanshiftArr=[inf, inf],
+                  stdshiftArr=[inf, inf], outdir=os.path.join(outdir, "run"), base_dir=inputs)
     params.update(overrides or {})
     log(f"  des_synthetic.yaml cut to depth: {json.dumps(cuts)}")
     cfg = os.path.join(outdir, "des_synthetic_cut.yaml")
@@ -1163,14 +1172,7 @@ def phase_driver(device, outdir, epochs=DRIVER_EPOCHS, steps=DRIVER_STEPS, timeo
     return res
 
 
-def main(argv=None) -> int:
-    import argparse
-
-    parser = argparse.ArgumentParser(prog="chip_smoke.py")
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7",
-                        help="comma-separated phases to run (default all; the result "
-                             "line needs all)")
-    phases = {int(p) for p in parser.parse_args(argv).phases.split(",")}
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1208,68 +1210,58 @@ def main(argv=None) -> int:
     log(f"  registers and spills: {resources}")
 
     seconds = {}
-    if 3 in phases:
-        log("== 3. kernels against their plain versions")
-        t0 = time.perf_counter()
-        rec = phase_kernels(device)
-        seconds[3] = time.perf_counter() - t0
+    log("== 3. kernels against their plain versions")
+    t0 = time.perf_counter()
+    rec = phase_kernels(device)
+    seconds[3] = time.perf_counter() - t0
 
-    if 4 in phases:
-        log("== 4. sampling slice")
-        t0 = time.perf_counter()
+    log("== 4. sampling slice")
+    t0 = time.perf_counter()
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    try:
+        res = phase_slice(device, os.path.join(RUN_DIR, "iter_0"))
+    finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
-        try:
-            res = phase_slice(device, os.path.join(RUN_DIR, "iter_0"))
-        finally:
-            shutil.rmtree(RUN_DIR, ignore_errors=True)
-        seconds[4] = time.perf_counter() - t0
+    seconds[4] = time.perf_counter() - t0
 
-    if 5 in phases:
-        log("== 5. training at the DES width")
-        t0 = time.perf_counter()
+    log("== 5. training at the DES width")
+    t0 = time.perf_counter()
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    F.reset_counts()
+    try:
+        phase_train(device, RUN_DIR)
+    finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
-        F.reset_counts()
-        try:
-            train = phase_train(device, RUN_DIR)
-        finally:
-            shutil.rmtree(RUN_DIR, ignore_errors=True)
-        train_launches, train_plain = dict(F.launches), dict(F.plain_calls)
-        log(f"  training path launches {train_launches}, plain calls {train_plain}")
-        if train_launches["fused_log_prob"] == 0:
-            raise AssertionError("fused_log_prob did not launch on the training path")
-        seconds[5] = time.perf_counter() - t0
+    train_launches, train_plain = dict(F.launches), dict(F.plain_calls)
+    log(f"  training path launches {train_launches}, plain calls {train_plain}")
+    if train_launches["fused_log_prob"] == 0:
+        raise AssertionError("fused_log_prob did not launch on the training path")
+    seconds[5] = time.perf_counter() - t0
 
-    if 6 in phases:
-        log("== 6. gradient samplers and emcee through the likelihood kernel")
-        t0 = time.perf_counter()
+    log("== 6. gradient samplers and emcee through the likelihood kernel")
+    t0 = time.perf_counter()
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    try:
+        _, path_launches = phase_gradient(device, RUN_DIR)
+    finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
-        F.reset_counts()
-        try:
-            grad, gradient_launches = phase_gradient(device, RUN_DIR)
-        finally:
-            shutil.rmtree(RUN_DIR, ignore_errors=True)
-        emcee_launches = grad["emcee"]["fused_log_prob_launches"]
-        log(f"  gradient path launches {gradient_launches}, emcee {emcee_launches}")
-        if gradient_launches == 0 or emcee_launches == 0:
-            raise AssertionError("fused_log_prob did not launch on the gradient or emcee path")
-        seconds[6] = time.perf_counter() - t0
-        log(f"  phase 6: {seconds[6]:.1f} s")
+    log(f"  launches by path: {path_launches}")
+    if any(path_launches[p]["fused_log_prob"] == 0 for p in ("gradient", "emcee")):
+        raise AssertionError("fused_log_prob did not launch on the gradient or emcee path")
+    seconds[6] = time.perf_counter() - t0
+    log(f"  phase 6: {seconds[6]:.1f} s")
 
-    if 7 in phases:
-        log("== 7. the driver on des_synthetic.yaml, depth cut")
-        t0 = time.perf_counter()
+    log("== 7. the driver on des_synthetic.yaml, depth cut")
+    t0 = time.perf_counter()
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    try:
+        phase_driver(device, RUN_DIR)
+    finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
-        try:
-            phase_driver(device, RUN_DIR)
-        finally:
-            shutil.rmtree(RUN_DIR, ignore_errors=True)
-        seconds[7] = time.perf_counter() - t0
-        log(f"  phase 7: {seconds[7]:.1f} s")
+    seconds[7] = time.perf_counter() - t0
+    log(f"  phase 7: {seconds[7]:.1f} s")
 
     log(f"== 8. result (phase seconds {json.dumps(seconds)})")
-    if phases != set(range(1, 8)):
-        log("  not every phase ran: no result line")
-        return 1
     kernels = []
     for k in REPLACES:
         r = rec[k]
@@ -1283,8 +1275,8 @@ def main(argv=None) -> int:
             "launches_by_path": {
                 "sampling": res["launches"][k],
                 "training": train_launches[k],
-                "gradient": gradient_launches if k == "fused_log_prob" else 0,
-                "emcee": emcee_launches if k == "fused_log_prob" else 0,
+                "gradient": path_launches["gradient"][k],
+                "emcee": path_launches["emcee"][k],
             },
             "max_abs_err": r["abs"],
             "max_rel_err": r["rel"],

@@ -529,10 +529,6 @@ def ml_sampler_core(
     ``tsize`` and ``gpunode`` are accepted for the reference's signature and
     unused.
 
-    ``params["max_iterations"]`` caps each iteration's sampler steps
-    (``run_ensemble``'s ``max_iterations``, 100,000 by default): a depth cut
-    for short runs, which the JAX package does not read.
-
     Not ported yet (``NotImplementedError``): ``params["linearmodel"]`` and
     ``params["compute_dtype"]``."""
     D.clear_cache()  # never reuse a previous run's curated stacks
@@ -679,7 +675,6 @@ def ml_sampler_core(
                 stdshift=stdshift,
                 nk=nk,
                 seed=seed + i,
-                max_iterations=int(params.get("max_iterations", 100_000)),
                 progress=verbose,
                 trace_rec=mrec,
                 device=device,

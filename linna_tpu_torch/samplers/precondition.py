@@ -52,31 +52,14 @@ class Preconditioner(NamedTuple):
 
     def wrap_log_prob(self, log_prob_fn: Callable, device: DeviceLike = None) -> Callable:
         """The batched log-prob in the preconditioned space, on the device of
-        the likelihood's env (else ``device``).  Carries the likelihood's
-        ``_pure``/``_env`` pair on, with the reparameterization in the env."""
+        the likelihood's env (else ``device``)."""
         dev = _env_device(log_prob_fn, device)
         f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
         center, basis, inv_scales = f32(self.center), f32(self.basis), f32(1.0 / self.scales)
 
-        inner_pure = getattr(log_prob_fn, "_pure", None)
-        if inner_pure is None:
-            def wrapped(y):
-                return log_prob_fn(center + (y * inv_scales) @ basis.T)
-
-            return wrapped
-
-        def _pure(y, env):
-            x = env["center"] + (y * env["inv_scales"]) @ env["basis"].T
-            return inner_pure(x, env["inner"])
-
-        env = {"center": center, "basis": basis, "inv_scales": inv_scales,
-               "inner": log_prob_fn._env}
-
         def wrapped(y):
-            return _pure(y, env)
+            return log_prob_fn(center + (y * inv_scales) @ basis.T)
 
-        wrapped._pure = _pure
-        wrapped._env = env
         return wrapped
 
     def draw_x0(self, rng: np.random.Generator, nwalkers: int) -> np.ndarray:

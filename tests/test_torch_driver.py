@@ -114,10 +114,10 @@ def test_driver_cli_end_to_end(tmp_path):
     inputs = _inputs(tmp_path)
     (tmp_path / "base.yaml").write_text(
         "nwalkers: 8\nnnmodel: chto_v2\ntrainingoption: 1\nnum_epochs: 8\nbatch_size: 16\n"
-        "ntrainArr: [40, 40]\nnvalArr: [10, 10]\nnkeepArr: [2, 2]\nntimesArr: [2, 2]\n"
-        "ntautolArr: [0.5, 0.5]\nmeanshiftArr: [100, 100]\nstdshiftArr: [100, 100]\n"
+        "ntrainArr: [40, 40]\nnvalArr: [10, 10]\nnkeepArr: [2, 2]\nntimesArr: [0, 0]\n"
+        "ntautolArr: [.inf, .inf]\nmeanshiftArr: [.inf, .inf]\nstdshiftArr: [.inf, .inf]\n"
         "temperatureArr: [2.0, 1.0]\nseed: 7\ntrain_compute_dtype: bfloat16\n"
-        "methodArr: [emcee, nuts]\nmax_iterations: 100\n"
+        "methodArr: [emcee, nuts]\n"
     )
     (tmp_path / "run.yaml").write_text(
         "include: base.yaml\n"

@@ -74,7 +74,6 @@ def test_kernel_route_takes_the_plain_hessian():
     npt.assert_allclose(a.center, b.center, atol=1e-3)
     npt.assert_allclose(_curvature(a), _curvature(b), rtol=1e-2, atol=1e-3)
     wrapped = a.wrap_log_prob(lp_fused)
-    assert wrapped._env["inner"] is lp_fused._env
     y = torch.zeros((3, 4))
     npt.assert_allclose(wrapped(y).numpy(), a.wrap_log_prob(lp_plain)(y).numpy(), rtol=1e-5)
     jw = JP.Preconditioner(a.center, a.basis, a.scales).wrap_log_prob(log_probs(pb)[0])
