@@ -69,10 +69,26 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    ``examples/des_theory.py``: every artifact, the chain stores,
    ``precond.npz``, ``time.npy``, bfloat16 training, and the posterior mean's
    offsets from ``EXACT_POSTERIOR.json`` (reported, not gated).
-8. One ``{"kernels": [...]}`` line, the card's name and power limit, and the
+8. The pre-model and bf16 inference at the DES width.  8a: one
+   ``ml_sampler_core`` iteration on phase 5's seeded theory with
+   ``linearmodel: {norder: 2}``, K=2 trained in bfloat16 for
+   ``PREMODEL_EPOCHS`` epochs with ``use_fused``, zeus at T = 1 stopped at
+   its second tau check (200 steps): ``linear_model.npz`` against a fit of
+   the same rows (its seconds and traced host memory), each member's
+   learning, ``retrieve_model_wrapper`` against the network plus the
+   pre-model at 256 rows, and 0 launches of both kernels (an ensemble with
+   a pre-model takes the composition, as in JAX).  8b: member 0 with its
+   pre-model: per-walker gradients, the MAP search and 20 NUTS samples at
+   256 walkers, and a finite, symmetric Hessian at the MAP point.  8c:
+   phase 5's trained K=4 ensemble and its member 0 in bfloat16 against
+   float32 at 256 and 4096 positions of phase 5's chain (float32 out, the
+   same -inf rows, relative error within ``BF16_RTOL``), each call's
+   device and call ms, zeus for 100 steps in each type for K=1 and K=4,
+   and ``use_fused`` refusing ``compute_dtype``.
+9. One ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 
-Phase 4's and 6's weights are random (from a seed); phases 5 and 7 train
+Phase 4's and 6's weights are random (from a seed); phases 5, 7 and 8 train
 their own.  Exits nonzero with no result line when no CUDA device is
 present.
 """
@@ -115,6 +131,17 @@ NUTS_STEPS, HMC_STEPS, EMCEE_STEPS = 100, 20, 300
 # phase 7: des_synthetic.yaml through the driver, its 1000 epochs cut
 DRIVER_EPOCHS = 100
 DRIVER_TIMEOUT = 900
+# phase 8: the pre-model pipeline (K=2, bf16 training, ml_sampler's 4500
+# epochs cut), NUTS through the pre-model, and bf16 inference on phase 5's
+# trained ensemble (kept in TRAINED_DIR until then)
+PREMODEL_EPOCHS = 300
+PREMODEL_ENSEMBLE = 2
+PREMODEL_NUTS = 20
+BF16_WALKERS = (256, 4096)
+BF16_ZEUS_STEPS = 100
+# tests/test_compute_dtype.py's tolerance: |lp_bf16 - lp_f32| / max(1, |lp_f32|)
+BF16_RTOL = 0.05
+TRAINED_DIR = os.path.join(ROOT, ".chip_smoke_trained")
 
 # tests/test_ops.py's kernel tolerance; both sides accumulate in f32 and
 # differ only in summation order
@@ -652,6 +679,26 @@ def mixed_priors(ndim: int) -> list:
     ]
 
 
+def seeded_problem(device, ndim: int, ndata: int):
+    """Phase 5's problem, from seeds: the smooth theory, the mixed priors, a
+    truth point, a data vector (the theory at the truth plus noise, sigma
+    0.1), its covariance, and the generator, which phase 5 draws on."""
+    from types import SimpleNamespace
+
+    from linna_tpu_torch import priors as P
+
+    theory = SmoothTheory(ndim, ndata)
+    priors = mixed_priors(ndim)
+    pack = P.priors_from_list(priors, device)
+    rng = np.random.default_rng(11)
+    truth = P.transform_np(pack, rng.normal(size=(1, ndim)) * 0.3)[0]
+    sigma = np.full(ndata, 0.1)
+    data = theory.batch(truth[None])[0] + sigma * rng.normal(size=ndata)
+    cov = np.diag(sigma**2)
+    return SimpleNamespace(theory=theory, priors=priors, pack=pack, rng=rng, truth=truth,
+                           sigma=sigma, data=data, cov=cov, inv_cov=np.linalg.inv(cov))
+
+
 def iteration_missing(outdir: str, nensemble: int, chain: bool = False) -> list:
     """The artifacts of a trained (and, with ``chain``, sampled) iteration
     directory that are not there: the sample files, transforms, marker, and
@@ -673,9 +720,10 @@ def member_dirs(outdir: str, nensemble: int) -> list:
     return [outdir] + [os.path.join(outdir, f"ens_{k}") for k in range(1, nensemble)]
 
 
-def initial_val_losses(outdir, spec, data, cov, seeds, device) -> list:
+def initial_val_losses(outdir, spec, data, cov, seeds, device, linearmodel=None) -> list:
     """Each member's validation loss (the median chi^2 ratio) at its initial
-    weights, which its seed fixes, under the iteration's transforms."""
+    weights, which its seed fixes, under the iteration's transforms, with
+    the iteration's pre-model added where it has one."""
     from linna_tpu_torch import data as D
     from linna_tpu_torch import losses as L
     from linna_tpu_torch import nn as N
@@ -690,7 +738,8 @@ def initial_val_losses(outdir, spec, data, cov, seeds, device) -> list:
     out = []
     with torch.no_grad():
         for s in seeds:
-            pred = N.apply_model(spec, N.init_model(spec, seed=s, device=device), ts.x_transform(vx))
+            pred = N.apply_model(spec, N.init_model(spec, seed=s, device=device), ts.x_transform(vx),
+                                 linearmodel=linearmodel)
             out.append(float(L.val_metric_fn(ls, ts, pred, vy)[0]))
     return out
 
@@ -710,7 +759,8 @@ def not_learned(best: list, initial: list, factor: float = 10.0) -> list:
             if not (np.isfinite(b) and b < i / factor)]
 
 
-def trained_ensemble_trainer(outdir, data, cov, nensemble, batch_size, device):
+def trained_ensemble_trainer(outdir, data, cov, nensemble, batch_size, device,
+                             compute_dtype=None, linearmodel=None):
     """An EnsembleTrainer holding the trained members' best weights, over
     the iteration's rows, for a timed and a traced chunk."""
     from linna_tpu_torch import data as D
@@ -727,10 +777,23 @@ def trained_ensemble_trainer(outdir, data, cov, nensemble, batch_size, device):
     params = [ckpt.load_checkpoint(os.path.join(d, O.BEST_CKPT), device="cpu")[0]
               for d in member_dirs(outdir, nensemble)]
     tr = EnsembleTrainer(spec, ts, L.build_loss_state(data, cov, ts), [None] * nensemble,
-                         list(range(nensemble)), params=params, device=device)
+                         list(range(nensemble)), params=params, compute_dtype=compute_dtype,
+                         linearmodel=linearmodel, device=device)
     tr._batch_size = batch_size
     rows = tr._prepare(stack.train_x, stack.train_y, stack.val_x, stack.val_y)
     return tr, rows, len(stack.train_x)
+
+
+def epoch_ms(tr, rows, n, device, epochs=10) -> float:
+    """ms an epoch of a chunk of ``epochs`` epochs after a warm epoch, timed
+    with a synchronize on each side."""
+    tr._epochs_tracked(tr._draw_perms(1, n), rows)
+    perms = tr._draw_perms(epochs, n)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    tr._epochs_tracked(perms, rows)
+    torch.cuda.synchronize(device)
+    return (time.perf_counter() - t0) / epochs * 1e3
 
 
 def timed_train_chunk(tr, rows, n, device, epochs=10) -> dict:
@@ -740,13 +803,7 @@ def timed_train_chunk(tr, rows, n, device, epochs=10) -> dict:
     launches per epoch, and device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    tr._epochs_tracked(tr._draw_perms(1, n), rows)  # warm
-    perms = tr._draw_perms(epochs, n)
-    torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    tr._epochs_tracked(perms, rows)
-    torch.cuda.synchronize(device)
-    wall = time.perf_counter() - t0
+    wall = epoch_ms(tr, rows, n, device, epochs) * epochs / 1e3
     perms = tr._draw_perms(epochs, n)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -829,15 +886,9 @@ def phase_train(device, outdir, ndim=NDIM, ndata=NDATA, ntrain=NTRAIN, nval=NVAL
 
     on_card = device.type == "cuda"
     it0 = os.path.join(outdir, "train", "iter_0")
-    theory = SmoothTheory(ndim, ndata)
-    priors = mixed_priors(ndim)
-    pack = P.priors_from_list(priors, device)
-    rng = np.random.default_rng(11)
-    truth = P.transform_np(pack, rng.normal(size=(1, ndim)) * 0.3)[0]
-    sigma = np.full(ndata, 0.1)
-    data = theory.batch(truth[None])[0] + sigma * rng.normal(size=ndata)
-    cov = np.diag(sigma**2)
-    inv_cov = np.linalg.inv(cov)
+    pb = seeded_problem(device, ndim, ndata)
+    theory, priors, pack, rng, truth = pb.theory, pb.priors, pb.pack, pb.rng, pb.truth
+    sigma, data, cov, inv_cov = pb.sigma, pb.data, pb.cov, pb.inv_cov
 
     t0 = time.perf_counter()
     SG.generate_training_point(theory, SG.NNSampler(it0, P.prior_range(pack)), None, it0,
@@ -1172,6 +1223,322 @@ def phase_driver(device, outdir, epochs=DRIVER_EPOCHS, timeout=DRIVER_TIMEOUT,
     return res
 
 
+# ------------------------------------------- pre-model and bf16 inference
+
+
+def _launch_counts():
+    from linna_tpu_torch.ops import fused as F
+
+    return {"launches": dict(F.launches), "plain_calls": dict(F.plain_calls)}
+
+
+def _no_kernel(counts: dict, what: str) -> None:
+    """The path must reach neither kernel nor its plain version: the
+    routing rule sends it to the composition, as in the JAX package."""
+    if any(counts["launches"].values()) or any(counts["plain_calls"].values()):
+        raise AssertionError(f"{what} reached a kernel: {counts}")
+
+
+def _sampler_rate(trace: dict, steps: int) -> dict:
+    s = trace["sampler"]
+    return {"s_per_100_steps": (s["device_wait"] + s["host"]) / steps * 100,
+            "precond_s": s["precond"], "steps": steps}
+
+
+def phase_premodel(device, outdir, ndim=NDIM, ndata=NDATA, ntrain=NTRAIN, nval=NVAL,
+                   epochs=PREMODEL_EPOCHS, nensemble=PREMODEL_ENSEMBLE, nwalkers=NWALKERS,
+                   nuts_steps=PREMODEL_NUTS, wrapper_rows=256) -> dict:
+    """8a: one ``ml_sampler_core`` iteration on phase 5's seeded theory with
+    ``linearmodel: {norder: 2}``, K members trained in bfloat16 and
+    ``use_fused`` (which an ensemble with a pre-model does not reach), zeus
+    at T = 1 stopped at its second tau check through the convergence keys;
+    then ``linear_model.npz`` against a fit of the same rows, each member's
+    learning, and ``retrieve_model_wrapper`` against the network plus the
+    pre-model.  8b: member 0 with its pre-model: per-walker gradients, the
+    MAP search and ``nuts_steps`` NUTS samples, and the Hessian at the MAP
+    point through ``torch.func``.  Neither reaches a kernel."""
+    import resource
+    import tracemalloc
+
+    import des_report
+    import linna_tpu_torch as LT
+    from linna_tpu_torch import data as D
+    from linna_tpu_torch import likelihood as LK
+    from linna_tpu_torch import linear_model as LM
+    from linna_tpu_torch import nn as N
+    from linna_tpu_torch import orchestrator as O
+    from linna_tpu_torch import priors as P
+    from linna_tpu_torch import transforms as T
+    from linna_tpu_torch.ops import fused as F
+    from linna_tpu_torch.samplers import hmc
+    from linna_tpu_torch.samplers import run as R
+
+    pb = seeded_problem(device, ndim, ndata)
+    inf = float("inf")
+    lm_cfg = {"norder": 2}
+    params = {"trainingoption": 1, "nensemble": nensemble, "batch_size": 500,
+              "num_epochs": epochs, "train_compute_dtype": "bfloat16", "linearmodel": lm_cfg,
+              "use_fused": True}
+    cuts = {"iterations": "4 -> 1 (iteration 0 at T = 1)", "nensemble": f"4 -> {nensemble}",
+            "num_epochs": f"4500 -> {epochs}",
+            "ntimesArr, ntautolArr, meanshiftArr, stdshiftArr":
+                "-> [0], [inf], [inf], [inf]: zeus stops at its second tau check, 200 steps"}
+    log(f"  8a: ml_sampler's schedule cut: {json.dumps(cuts)}")
+    run_dir = os.path.join(outdir, "run")
+    F.reset_counts()
+    t0 = time.perf_counter()
+    chain, logp = LT.ml_sampler_core(
+        ntrainArr=[ntrain], nvalArr=[nval], nkeepArr=[2], ntimesArr=[0], ntautolArr=[inf],
+        meanshiftArr=[inf], stdshiftArr=[inf], outdir=run_dir, theory=pb.theory,
+        priors=pb.priors, data=pb.data, cov=pb.cov, init=pb.truth, pool=None,
+        nwalkers=nwalkers, temperatureArr=[1.0], params=params, method="zeus", seed=3,
+        device=device)
+    pipeline_s = time.perf_counter() - t0
+    counts = _launch_counts()
+    _no_kernel(counts, "the pre-model pipeline")
+    it0 = os.path.join(run_dir, "iter_0")
+    lm_path = os.path.join(it0, O.LINEAR_MODEL_FILE)
+    missing = iteration_missing(it0, nensemble, chain=True)
+    if not os.path.isfile(lm_path):
+        missing.append(O.LINEAR_MODEL_FILE)
+    if missing:
+        raise AssertionError(f"ml_sampler_core left artifacts out: {missing}")
+    if chain.ndim != 2 or chain.shape[1] != ndim or not (np.isfinite(chain).all()
+                                                         and np.isfinite(logp).all()):
+        raise AssertionError(f"the pre-model chain {chain.shape} is not finite")
+
+    # the saved pre-model: retrieval reloads it as saved, and a fit of the
+    # same rows (timed, its numpy allocations traced) gives the same fields
+    model = O.retrieve_model(it0, ndim, ndata, device=device)
+    saved = LM.load_linear_model(lm_path, device=device).arrays()
+    if any(not np.array_equal(v, saved[k]) for k, v in model.linearmodel.arrays().items()):
+        raise AssertionError("retrieve_model's pre-model differs from linear_model.npz")
+    stack = D.load_curated_stack([it0])
+    ts = T.load_transforms(os.path.join(it0, O.TRANSFORMS_FILE), device=device)
+    refit_dir = os.path.join(outdir, "refit")
+    os.makedirs(refit_dir, exist_ok=True)
+    tracemalloc.start()
+    t0 = time.perf_counter()
+    refit = O._fit_or_load_linear_model(refit_dir, stack, ts, lm_cfg, device).arrays()
+    fit_s = time.perf_counter() - t0
+    fit_peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    off = [k for k, v in refit.items() if not np.allclose(v, saved[k], rtol=1e-6, atol=0)]
+    if off:
+        raise AssertionError(f"linear_model.npz differs from a fit of the same rows: {off}")
+    exact = all(np.array_equal(v, saved[k]) for k, v in refit.items())
+
+    spec = N.make_model_spec("chto_v2", ndim, ndata)
+    seeds = [1234 + 1000 * k for k in range(nensemble)]  # train_emulator's member seeds
+    # learned: phase 5's rule against the untrained network, and below the
+    # loss training starts from, the untrained network plus the pre-model
+    initial = initial_val_losses(it0, spec, pb.data, pb.cov, seeds, device)
+    start = initial_val_losses(it0, spec, pb.data, pb.cov, seeds, device,
+                               linearmodel=model.linearmodel)
+    best = best_val_losses(it0, nensemble)
+    log(f"  8a: val loss per member: untrained network {initial}, with the pre-model "
+        f"{start}, best {best}")
+    bad = not_learned(best, initial) + [(m, b, s0) for m, (b, s0) in enumerate(zip(best, start))
+                                        if not b < s0]
+    if bad:
+        raise AssertionError(f"members that did not learn (member, best, initial): {bad}")
+
+    x = torch.as_tensor(P.transform_np(pb.pack, pb.rng.normal(size=(wrapper_rows, ndim)) * 0.5),
+                        dtype=torch.float32, device=device)
+    with torch.no_grad():
+        got = O.retrieve_model_wrapper(it0, device=device)(x)
+        mt = model.transforms
+        x_in = mt.x_transform(x)
+        net = N.apply_model(spec, model.params, x_in)
+        manual = mt.y_data.inverse(mt.y_transform(net + model.linearmodel(x_in)))
+        bare = mt.y_data.inverse(mt.y_transform(net))
+    wrapper = compare(got, manual, f"retrieve_model_wrapper against network + pre-model, "
+                                   f"{wrapper_rows} rows")
+    if torch.allclose(got, bare):
+        raise AssertionError("the wrapper's output does not change with the pre-model")
+
+    with open(os.path.join(run_dir, "trace.json")) as f:
+        trace = json.load(f)
+    row = des_report.iterations(trace)[0]
+    lm_s = next(r["linear_model_s"] for r in trace if r["phase"] == "train_emulator")
+    rec = {
+        "cuts": cuts, "pipeline_s": pipeline_s, "train_emulator_s": row["train_emulator_s"],
+        "linear_model_s_in_train_emulator": lm_s, "fit_s": fit_s,
+        "fit_traced_peak_bytes": fit_peak, "refit_bit_identical": exact,
+        "host_peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+        "ms_per_epoch": row.get("ms_per_epoch"), "epochs_run": row.get("epochs_run"),
+        "compute_dtype": row.get("compute_dtype"), "zeus_steps": row["steps"],
+        "zeus_s_per_100_steps": row["s_per_100_steps"], "npc": int(saved["vec"].shape[0]),
+        "monomials": int(saved["powers"].shape[0]), "initial_val_loss": initial,
+        "start_val_loss_with_pre_model": start, "best_val_loss": best, "wrapper_check": wrapper, "counts": counts,
+    }
+    if device.type == "cuda":
+        # what the pre-model costs a training epoch: chunks of the trained
+        # members in bf16 with and without it, in turns, in this process
+        rec["chunk_ms_per_epoch"] = {"with": [], "without": []}
+        for tag in ("with", "without", "without", "with"):
+            tr, rows, n = trained_ensemble_trainer(
+                it0, pb.data, pb.cov, nensemble, 500, device, compute_dtype="bfloat16",
+                linearmodel=model.linearmodel if tag == "with" else None)
+            rec["chunk_ms_per_epoch"][tag].append(epoch_ms(tr, rows, n, device))
+    log(f"  8a: {json.dumps(rec, default=float)}")
+
+    # 8b: member 0 with its pre-model through the gradient path
+    lp = LK.make_log_prob(model.spec, model.params, model.transforms, pb.pack, pb.data,
+                          pb.inv_cov, temperature=1.0, linearmodel=model.linearmodel,
+                          use_fused=True, device=device)
+    last = O._open_backend(os.path.join(it0, O._chain_filename("zeus")), "zeus").get_chain()[-1]
+    F.reset_counts()
+    v, g = hmc.value_and_grad(lp, torch.as_tensor(last, dtype=torch.float32, device=device))
+    if not (torch.isfinite(v).all() and torch.isfinite(g).all()):
+        raise AssertionError("a per-walker gradient through the pre-model is not finite")
+    trace_rec: dict = {}
+    d = os.path.join(outdir, "nuts")
+    backend = R.run_ensemble(lp, last, d, method="nuts", check_every=nuts_steps,
+                             max_iterations=nuts_steps, convergence_check=False, seed=0,
+                             device=device, trace_rec=trace_rec)
+    chain = backend.get_chain()
+    if chain.shape != (nuts_steps, nwalkers, ndim) or not np.isfinite(chain).all():
+        raise AssertionError(f"NUTS through the pre-model: chain {chain.shape} is not finite")
+    pre = R._load_precond(os.path.join(d, R.PRECOND_FILENAME))
+    center = torch.as_tensor(pre.center, dtype=torch.float32, device=device)
+    hess = torch.func.hessian(lambda z: lp._pure(z[None, :], lp._env)[0])(center)
+    hess = hess.double().cpu().numpy()
+    asym = float(np.abs(hess - hess.T).max() / np.abs(hess).max())
+    if not np.isfinite(hess).all() or asym > 1e-3:
+        raise AssertionError(f"the Hessian through the pre-model: finite "
+                             f"{np.isfinite(hess).all()}, asymmetry {asym:.2e}")
+    grad_counts = _launch_counts()
+    _no_kernel(grad_counts, "NUTS through the pre-model")
+    rec["gradient"] = {**_sampler_rate(trace_rec, nuts_steps), "hessian_asymmetry": asym,
+                       "hessian_eig_min_max": [float(np.linalg.eigvalsh(-hess).min()),
+                                               float(np.linalg.eigvalsh(-hess).max())],
+                       "max_abs_grad": float(g.abs().max()), "counts": grad_counts}
+    log(f"  8b: {json.dumps(rec['gradient'], default=float)}")
+    return rec
+
+
+def phase_bf16(device, trained_dir, nensemble=NENSEMBLE, ndim=NDIM, ndata=NDATA,
+               walker_counts=BF16_WALKERS, zeus_steps=BF16_ZEUS_STEPS, nwalkers=NWALKERS) -> dict:
+    """8c: bfloat16 inference on phase 5's trained ensemble and on its
+    member 0: log-probs at T = 1 in bf16 against f32 at ``walker_counts``
+    positions from phase 5's chain (float32 out, the same -inf rows,
+    ``|dlp| / max(1, |lp_f32|) <= BF16_RTOL``), each call's device and call
+    ms on the card, zeus for ``zeus_steps`` steps at T^2 = 16 in each type
+    for K = 1 and K, and ``use_fused`` refusing ``compute_dtype``."""
+    from linna_tpu_torch import likelihood as LK
+    from linna_tpu_torch import orchestrator as O
+    from linna_tpu_torch.ops import fused as F
+    from linna_tpu_torch.samplers import run as R
+
+    on_card = device.type == "cuda"
+    pb = seeded_problem(device, ndim, ndata)
+    model = O.retrieve_model(trained_dir, ndim, ndata, device=device)
+    members = O.retrieve_ensemble_params(trained_dir, model)
+    if len(members) != nensemble:
+        raise AssertionError(f"{len(members)} trained members, not {nensemble}")
+    chain = O._open_backend(os.path.join(trained_dir, O._chain_filename("zeus")),
+                            "zeus").get_chain()
+    pos = chain.reshape(-1, ndim)[-max(walker_counts):]
+    if len(pos) < max(walker_counts):
+        raise AssertionError(f"phase 5's chain holds {len(pos)} positions")
+    configs = {f"K={nensemble}": members, "member 0": model.params}
+
+    def make(params, cd, temperature=1.0, **kw):
+        return LK.make_log_prob(model.spec, params, model.transforms, pb.pack, pb.data,
+                                pb.inv_cov, temperature=temperature, compute_dtype=cd,
+                                device=device, **kw)
+
+    try:
+        make(model.params, "bfloat16", use_fused=True)
+    except ValueError as e:
+        log(f"  8c: use_fused with compute_dtype raises ValueError: {e}")
+    else:
+        raise AssertionError("use_fused with compute_dtype did not raise")
+
+    def errors(a, b, what):
+        if b.dtype != torch.float32:
+            raise AssertionError(f"{what}: bf16 output is {b.dtype}")
+        a, b = a.double().cpu(), b.double().cpu()
+        if not torch.equal(torch.isneginf(a), torch.isneginf(b)):
+            raise AssertionError(f"{what}: the -inf rows differ")
+        fin = torch.isfinite(a)
+        if not torch.isfinite(b[fin]).all():
+            raise AssertionError(f"{what}: bf16 is not finite where f32 is")
+        rel = ((b - a).abs() / a.abs().clamp(min=1.0))[fin]
+        out = {"max": float(rel.max()), "median": float(rel.median()),
+               "-inf rows": int((~fin).sum())}
+        log(f"  8c {what}: |dlp| / max(1, |lp_f32|) max {out['max']:.3e}, median "
+            f"{out['median']:.3e} (bound {BF16_RTOL})")
+        if out["max"] > BF16_RTOL:
+            raise AssertionError(f"{what}: bf16 log-probs off by {out['max']:.3e}")
+        return out
+
+    F.reset_counts()
+    rec: dict = {"log_prob": {}, "zeus": {}}
+    with torch.no_grad():
+        for name, params in configs.items():
+            lp32, lp16 = make(params, None), make(params, "bfloat16")
+            for n in walker_counts:
+                x = torch.as_tensor(pos[-n:], dtype=torch.float32, device=device)
+                r = {"rel_err": errors(lp32(x), lp16(x), f"{name} at {n} walkers")}
+                if on_card:
+                    for tag, fn in (("f32", lp32), ("bf16", lp16)):
+                        r[f"{tag}_device_ms"], r[f"{tag}_device_timing"] = device_ms(lambda: fn(x))
+                        r[f"{tag}_call_ms"] = call_ms(lambda: fn(x))
+                    log(f"  8c {name} at {n} walkers: device ms f32 {r['f32_device_ms']:.4f} / "
+                        f"bf16 {r['bf16_device_ms']:.4f}; call ms f32 {r['f32_call_ms']:.4f} / "
+                        f"bf16 {r['bf16_call_ms']:.4f}")
+                rec["log_prob"][f"{name} @{n}"] = r
+        if on_card:
+            # what the cuBLAS bf16 reductions (PyTorch's default) cost
+            flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+            try:
+                x = torch.as_tensor(pos, dtype=torch.float32, device=device)
+                rec["rel_err_f32_reductions"] = errors(
+                    make(members, None)(x), make(members, "bfloat16")(x),
+                    f"K={nensemble} at {len(pos)} walkers, bf16 products reduced in f32")
+            finally:
+                torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+            a = torch.randn((64, 32), device=device, dtype=torch.bfloat16)
+            try:
+                out = torch.mm(a, a.T, out_dtype=torch.float32)
+                rec["mm_out_dtype_float32"] = str(out.dtype)
+            except (RuntimeError, TypeError, NotImplementedError) as e:
+                rec["mm_out_dtype_float32"] = f"{type(e).__name__}: {str(e)[:120]}"
+            log(f"  8c: torch.mm(bf16, bf16, out_dtype=torch.float32) on the card: "
+                f"{rec['mm_out_dtype_float32']}")
+
+    x0 = chain[-1]
+    order = [("member 0", None), ("member 0", "bfloat16"), (f"K={nensemble}", "bfloat16"),
+             (f"K={nensemble}", None)]
+    for name, cd in order:
+        trace: dict = {}
+        calls = {"n": 0}
+        lp = make(configs[name], cd, temperature=TEMPERATURE)
+
+        def counted(x, lp=lp):
+            calls["n"] += 1
+            return lp(x)
+
+        d = os.path.join(trained_dir, "bf16_zeus", f"{name}_{cd}".replace(" ", "_"))
+        R.run_ensemble(counted, x0, d, method="zeus", check_every=zeus_steps,
+                       max_iterations=zeus_steps, convergence_check=False, seed=0,
+                       device=device, trace_rec=trace)
+        rate = _sampler_rate(trace, zeus_steps)["s_per_100_steps"]
+        per_step = calls["n"] / zeus_steps
+        rec["zeus"][f"{name} {cd or 'float32'}"] = {
+            "s_per_100_steps": rate, "calls_per_step": per_step,
+            "ms_per_call": rate * 10 / per_step}
+        log(f"  8c zeus {name} in {cd or 'float32'}: {rate:.3f} s / 100 steps at "
+            f"{len(x0)} walkers, {per_step:.1f} likelihood calls a step")
+    rec["counts"] = _launch_counts()
+    _no_kernel(rec["counts"], "bf16 inference")
+    log(f"  8c: {json.dumps(rec, default=float)}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1227,9 +1594,12 @@ def main() -> int:
     log("== 5. training at the DES width")
     t0 = time.perf_counter()
     shutil.rmtree(RUN_DIR, ignore_errors=True)
+    shutil.rmtree(TRAINED_DIR, ignore_errors=True)
     F.reset_counts()
     try:
         phase_train(device, RUN_DIR)
+        # phase 8 runs bf16 inference on the trained ensemble
+        shutil.move(os.path.join(RUN_DIR, "train", "iter_0"), TRAINED_DIR)
     finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
     train_launches, train_plain = dict(F.launches), dict(F.plain_calls)
@@ -1261,7 +1631,19 @@ def main() -> int:
     seconds[7] = time.perf_counter() - t0
     log(f"  phase 7: {seconds[7]:.1f} s")
 
-    log(f"== 8. result (phase seconds {json.dumps(seconds)})")
+    log("== 8. the pre-model and bf16 inference at the DES width")
+    t0 = time.perf_counter()
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    try:
+        premodel = phase_premodel(device, RUN_DIR)
+        bf16 = phase_bf16(device, TRAINED_DIR)
+    finally:
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
+        shutil.rmtree(TRAINED_DIR, ignore_errors=True)
+    seconds[8] = time.perf_counter() - t0
+    log(f"  phase 8: {seconds[8]:.1f} s")
+
+    log(f"== 9. result (phase seconds {json.dumps(seconds)})")
     kernels = []
     for k in REPLACES:
         r = rec[k]
@@ -1277,6 +1659,9 @@ def main() -> int:
                 "training": train_launches[k],
                 "gradient": path_launches["gradient"][k],
                 "emcee": path_launches["emcee"][k],
+                "premodel": premodel["counts"]["launches"][k]
+                + premodel["gradient"]["counts"]["launches"][k],
+                "bf16": bf16["counts"]["launches"][k],
             },
             "max_abs_err": r["abs"],
             "max_rel_err": r["rel"],

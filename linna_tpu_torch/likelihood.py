@@ -39,10 +39,10 @@ def _f32(a, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a), dtype=torch.float32).to(device)
 
 
-def _to(tree, device):
+def _to(tree, device, dtype=None):
     if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+        return {k: _to(v, device, dtype) for k, v in tree.items()}
+    return tree.to(device=device, dtype=dtype)
 
 
 def make_log_prob(
@@ -78,19 +78,22 @@ def make_log_prob(
     ``out_cut``: compare only the first ``out_cut`` components of a wider
     checkpoint's prediction with ``data``.
 
-    ``compute_dtype`` (a reduced-precision emulator forward, such as
-    ``"bfloat16"``) is not ported: any value but ``None`` raises
-    ``NotImplementedError`` rather than running the request in float32.
+    ``compute_dtype`` (for example ``"bfloat16"``): the emulator's weights
+    are cast to it once, here, and its inputs on every call; each product
+    accumulates in float32 and rounds once to that type
+    (:func:`linna_tpu_torch.nn.apply_model`).  The prediction returns to
+    float32 before the y transforms and chi^2, so the output is float32.
+    ``use_fused=True`` with a ``compute_dtype`` raises ``ValueError``: the
+    kernel computes in float32 only.  The pre-model sees the reduced-type
+    inputs, as in the JAX package.
 
     Ensemble likelihood: ``params`` may be a list of K parameter dicts; the
     effective chi^2 is ``mean_k chi2_k + ensemble_k_std * std_k chi2_k``
     with the population std (ddof=0).  Only for the Gaussian likelihood.
     """
-    if compute_dtype is not None:
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r} is not ported to linna_tpu_torch "
-            "yet (see ROADMAP.md); pass compute_dtype=None for float32"
-        )
+    cdtype = N.compute_dtype(compute_dtype)
+    if cdtype is not None and use_fused:
+        raise ValueError("use_fused supports float32 only; drop compute_dtype")
     device = resolve_device(device)
     data_t = _f32(data, device)
     inv_cov_t = _f32(inv_cov, device)
@@ -107,6 +110,8 @@ def make_log_prob(
         params = {k: _stack([m[k] for m in members]) for k in members[0]}
     else:
         params = _to(params, device)
+    if cdtype is not None:
+        params = _to(params, device, cdtype)
 
     if out_cut is not None:
         out_cut = int(out_cut)
@@ -151,11 +156,19 @@ def make_log_prob(
         x = torch.as_tensor(x, dtype=torch.float32, device=env["data"].device)
         x_phys = P.transform(env["priors"], x)
         x_in = tset.x_transform(x_phys)
+        if cdtype is not None:
+            x_in = x_in.to(cdtype)
         if is_ensemble:
+            # the pre-model depends on x_in alone: one evaluation for all
+            # members (apply_model ignores it for a linear_bypass spec)
+            base = None
+            if linearmodel is not None and not spec.linear_bypass:
+                base = linearmodel(x_in)
             chi2 = []
             for k in range(n_members):
-                member = _index(env["params"], k)
-                pred = N.apply_model(spec, member, x_in, linearmodel=linearmodel)
+                pred = N.apply_model(spec, _index(env["params"], k), x_in).float()
+                if base is not None:
+                    pred = pred + base
                 m = tset.y_data.inverse(tset.y_transform(pred))
                 if out_cut is not None:
                     m = m[..., :out_cut]
@@ -164,7 +177,7 @@ def make_log_prob(
             eff = chi2.mean(dim=0) + env["k_std"] * chi2.std(dim=0, correction=0)
             lp = -0.5 * eff / env["temperature"] + P.lnprior(x)
         else:
-            pred = N.apply_model(spec, env["params"], x_in, linearmodel=linearmodel)
+            pred = N.apply_model(spec, env["params"], x_in, linearmodel=linearmodel).float()
             m = tset.y_data.inverse(tset.y_transform(pred))
             if out_cut is not None:
                 m = m[..., :out_cut]

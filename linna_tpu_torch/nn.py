@@ -32,6 +32,7 @@ __all__ = [
     "apply_model",
     "params_from_numpy",
     "count_params",
+    "compute_dtype",
     "MODEL_NAMES",
 ]
 
@@ -133,17 +134,50 @@ def params_from_numpy(tree: Params, device: DeviceLike = None) -> Params:
     )
 
 
+def compute_dtype(name, key: str = "compute_dtype") -> Optional[torch.dtype]:
+    """A forward's compute type by name (``"bfloat16"``) or as a torch
+    dtype; None computes in float32 throughout.  ``key`` names the setting
+    in the error."""
+    if name is None:
+        return None
+    dt = name if isinstance(name, torch.dtype) else getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+        raise ValueError(f"{key}={name!r} is not a floating-point type")
+    return dt
+
+
+def _affine(c: torch.Tensor, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``c + x @ w`` rounded once to the weights' type: the product
+    accumulates in float32 and ``c`` is added to it before the rounding,
+    the JAX package's ``dot(..., preferred_element_type=float32) + c`` then
+    ``astype(w.dtype)``.  ``w`` is (in, out) with ``x`` (..., in), or K
+    stacked members (K, in, out) with ``x`` (K, B, in) or (B, in)."""
+    if w.dim() == 3:
+        return torch.baddbmm(c, x.expand(w.shape[0], *x.shape[-2:]), w)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    c2 = c if c.dim() == 1 else c.reshape(-1, c.shape[-1])
+    return torch.addmm(c2, x2, w).reshape(*lead, w.shape[-1])
+
+
+def _scaled(t: torch.Tensor, c: float) -> torch.Tensor:
+    """``t * c`` with ``c`` rounded to ``t``'s type first, as JAX rounds a
+    Python constant multiplying a bfloat16 array (0.1 is 0.10009765625 in
+    bfloat16)."""
+    return t * float(torch.tensor(c, dtype=t.dtype))
+
+
 def _linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"]
     if "b" in p:
-        y = y + p["b"]
-    return y
+        return _affine(p["b"], x, p["w"])
+    return x @ p["w"]
 
 
 def _resblock(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """y = relu(0.1 * lin2(relu(lin1(x))) + skip(x))."""
+    """y = relu(0.1 * lin2(relu(lin1(x))) + skip(x)), the skip product added
+    before its rounding as in the JAX package."""
     h = torch.relu(_linear(p["lin1"], x))
-    return torch.relu(_linear(p["lin2"], h) * 0.1 + x @ p["skip_w"])
+    return torch.relu(_affine(_scaled(_linear(p["lin2"], h), 0.1), x, p["skip_w"]))
 
 
 def apply_model(
@@ -163,7 +197,7 @@ def apply_model(
     s = torch.relu(_linear(params["layer7"], s))
     out = _linear(params["layer8"], s)
     if spec.linear_bypass:
-        out = out + 1e-3 * _linear(params["linear_bypass"], x)
+        out = out + _scaled(_linear(params["linear_bypass"], x), 1e-3)
     elif linearmodel is not None:
         out = out + linearmodel(x)
     return out

@@ -256,17 +256,18 @@ def _recompute_grads(fn: Callable, inputs: Sequence, needs: Sequence[bool], grad
 
 
 def _trunk_plain(x: torch.Tensor, w: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The trunk on the flat weight list (the kernel's arithmetic)."""
-    s = torch.relu(x @ w[0] + w[1])
+    """The trunk on the flat weight list, with ``nn.apply_model``'s
+    arithmetic (each product's bias or skip added before its rounding)."""
+    s = torch.relu(N._affine(w[1], x, w[0]))
     i = 2
     for _ in range(3):
         l1w, l1b, l2w, l2b, skw = w[i : i + 5]
         i += 5
-        h = torch.relu(s @ l1w + l1b)
-        s = torch.relu((h @ l2w + l2b) * 0.1 + s @ skw)
-    s = torch.relu(s @ w[i] + w[i + 1])
-    s = torch.relu(s @ w[i + 2] + w[i + 3])
-    return s @ w[i + 4] + w[i + 5]
+        h = torch.relu(N._affine(l1b, s, l1w))
+        s = torch.relu(N._affine(N._scaled(N._affine(l2b, h, l2w), 0.1), s, skw))
+    s = torch.relu(N._affine(w[i + 1], s, w[i]))
+    s = torch.relu(N._affine(w[i + 3], s, w[i + 2]))
+    return N._affine(w[i + 5], s, w[i + 4])
 
 
 def fused_apply_plain(spec: N.ModelSpec, params, x: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,7 @@ import torch
 
 from . import data as D
 from . import likelihood as LK
+from . import linear_model as LM
 from . import losses as L
 from . import nn as N
 from . import priors as P
@@ -200,19 +201,21 @@ def retrieve_model(
     model_name: str = "chto_v2",
     device: DeviceLike = None,
 ) -> RetrievedModel:
-    """Rebuild a trained emulator from ``transforms.npz`` and
-    ``best.ckpt.npz`` on ``device``."""
+    """Rebuild a trained emulator from ``transforms.npz``,
+    ``best.ckpt.npz`` and, where it exists, the pre-model's
+    ``linear_model.npz`` on ``device``."""
     device = resolve_device(device)
     spec = N.make_model_spec(model_name, in_size, out_size)
-    if os.path.isfile(os.path.join(outdir, LINEAR_MODEL_FILE)) and not spec.linear_bypass:
-        raise NotImplementedError(
-            f"{LINEAR_MODEL_FILE} found in {outdir}: the PCA + polynomial "
-            "pre-model is not ported to linna_tpu_torch yet (see ROADMAP.md)"
-        )
     transforms = T.load_transforms(os.path.join(outdir, TRANSFORMS_FILE), device=device)
     template = N.init_model(spec, seed=0, device="cpu")
     params, _, _ = ckpt.load_checkpoint(os.path.join(outdir, BEST_CKPT), template, device=device)
-    return RetrievedModel(spec, params, transforms, None, outdir)
+    lm_path = os.path.join(outdir, LINEAR_MODEL_FILE)
+    linearmodel = None
+    # a linear_bypass spec never trains with a pre-model (the trainers
+    # refuse it), so a stale file from another model is not attached
+    if os.path.isfile(lm_path) and not spec.linear_bypass:
+        linearmodel = LM.load_linear_model(lm_path, device=device)
+    return RetrievedModel(spec, params, transforms, linearmodel, outdir)
 
 
 def retrieve_ensemble_params(outdir: str, model: RetrievedModel) -> list:
@@ -293,10 +296,6 @@ def _write_finish(path: str) -> None:
         json.dump({"status": "done"}, f)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to linna_tpu_torch yet; see ROADMAP.md")
-
-
 def train_emulator(
     outdir_in: str,
     outdir_list: Sequence[str],
@@ -323,11 +322,14 @@ def train_emulator(
     into ``ens_k/``), or one after another with ``params["serial_members"]``.
     ``params["train_compute_dtype"]`` (e.g. ``"bfloat16"``) runs the training
     forward and backward in that type (see :mod:`linna_tpu_torch.train`).
+    ``params["linearmodel"]``, when truthy, fits the PCA + polynomial
+    pre-model (a dict passes ``norder``/``npc``) on the x-transformed
+    inputs against the standardized targets, rows with a sentinel left
+    out, saves it as ``linear_model.npz`` (reloaded when it exists) and
+    adds it under every member.
     Skipped when ``finish.json`` exists, or when every member's
     ``best.ckpt.npz`` does (then the marker is written), unless ``retrain``.
     ``trace_rec`` receives the wall-time breakdown."""
-    if params.get("linearmodel"):
-        raise _not_ported("params['linearmodel'] (the PCA + polynomial pre-model)")
     device = resolve_device(device)
     finish_path = os.path.join(outdir_in, FINISH_MARKER)
     if os.path.isfile(finish_path) and not retrain:
@@ -353,6 +355,22 @@ def train_emulator(
         trace_rec["stack_fit_s"] = round(time.perf_counter() - t0, 3)
 
     spec = N.make_model_spec(model_name, stack.train_x.shape[-1], stack.train_y.shape[-1])
+    lm_cfg = params.get("linearmodel")
+    if lm_cfg and spec.linear_bypass:
+        # apply_model ignores the pre-model for a linear_bypass spec, so
+        # training NN + pre-model would sample NN alone
+        raise ValueError(
+            f"params['linearmodel'] cannot be combined with the "
+            f"'{model_name}' model: its built-in 1e-3 linear bypass replaces "
+            f"the external pre-model slot (reference linna/nn.py:220-232). "
+            f"Use 'chto_v2' or 'chto_simple' with linearmodel, or drop it."
+        )
+    linearmodel = None
+    if lm_cfg:
+        t0 = time.perf_counter()
+        linearmodel = _fit_or_load_linear_model(outdir_in, stack, transforms, lm_cfg, device)
+        if trace_rec is not None:
+            trace_rec["linear_model_s"] = round(time.perf_counter() - t0, 3)
     loss_state = L.build_loss_state(data_vec, cov, transforms)
     seeds = [seed + 1000 * k for k in range(n_ensemble)]
     cdtype = params.get("train_compute_dtype")
@@ -369,7 +387,8 @@ def train_emulator(
 
         t0 = time.perf_counter()
         trainer = EnsembleTrainer(spec, transforms, loss_state, member_dirs, seeds,
-                                  compute_dtype=cdtype, device=device)
+                                  compute_dtype=cdtype, linearmodel=linearmodel,
+                                  device=device)
         if trace_rec is not None:
             trace_rec["trainer_init_s"] = round(time.perf_counter() - t0, 3)
         trainer.train(*rows, **train_kwargs)
@@ -381,7 +400,8 @@ def train_emulator(
             os.makedirs(member_dir, exist_ok=True)
             t0 = time.perf_counter()
             trainer = Trainer(spec, transforms, loss_state, outdir=member_dir,
-                              seed=member_seed, compute_dtype=cdtype, device=device)
+                              seed=member_seed, compute_dtype=cdtype,
+                              linearmodel=linearmodel, device=device)
             if trace_rec is not None:
                 trace_rec[f"trainer_init_s_m{mi}"] = round(time.perf_counter() - t0, 3)
             trainer.train(*rows, **train_kwargs)
@@ -393,6 +413,26 @@ def train_emulator(
     if trace_rec is not None:
         trace_rec["compute_dtype"] = str(trainer.compute_dtype or torch.float32)
     _write_finish(finish_path)
+
+
+def _fit_or_load_linear_model(outdir_in, stack, transforms, lm_cfg, device):
+    """The iteration's pre-model: ``linear_model.npz`` when it exists, else
+    fitted on the network's own input and output spaces (x-transformed
+    inputs -> standardized targets), rows carrying a sentinel left out, and
+    saved."""
+    lm_path = os.path.join(outdir_in, LINEAR_MODEL_FILE)
+    if os.path.isfile(lm_path):
+        return LM.load_linear_model(lm_path, device=device)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    y_raw = np.asarray(stack.train_y, np.float64)
+    good = ~np.any((y_raw == L.SENTINEL_LOW) | (y_raw == L.SENTINEL_HIGH), axis=1)
+    with torch.no_grad():
+        x_in = transforms.x_transform(f32(stack.train_x)).cpu().numpy()
+        y_std = transforms.y_transform.inverse(transforms.y_data(f32(y_raw[good]))).cpu().numpy()
+    kwargs = dict(lm_cfg) if isinstance(lm_cfg, dict) else {}
+    model = LM.fit_linear_model(x_in[good], y_std, device=device, **kwargs)
+    LM.save_linear_model(lm_path, model)
+    return model
 
 
 def _train_in_subprocess(
@@ -529,8 +569,11 @@ def ml_sampler_core(
     ``tsize`` and ``gpunode`` are accepted for the reference's signature and
     unused.
 
-    Not ported yet (``NotImplementedError``): ``params["linearmodel"]`` and
-    ``params["compute_dtype"]``."""
+    ``params["linearmodel"]`` adds the PCA + polynomial pre-model under the
+    emulator in training and sampling (see :func:`train_emulator`), and
+    ``params["compute_dtype"]`` (e.g. ``"bfloat16"``) runs the sampling
+    likelihood's emulator in that type (see
+    :func:`linna_tpu_torch.likelihood.make_log_prob`)."""
     D.clear_cache()  # never reuse a previous run's curated stacks
     check_map_count()
     params = dict(params or {})

@@ -24,7 +24,8 @@ __all__ = ["EnsembleTrainer"]
 class EnsembleTrainer(_MemberStack):
     """Train K ensemble members together on one device:
     ``EnsembleTrainer(spec, transforms, loss_state, outdirs, seeds,
-    device=...)``, one output directory and seed per member."""
+    device=...)``, one output directory and seed per member; a
+    ``linearmodel`` is one frozen pre-model shared by every member."""
 
     _plot_first_chunk = True
 

@@ -33,6 +33,13 @@ prediction returns to float32 before it.  The master weights, the second
 moment, the validation pass and all loss and metric arithmetic stay float32;
 the first moment is stored in the compute type and updated in float32.  The
 trainer sets no process-wide precision flag.
+
+``linearmodel`` (a fitted :class:`linna_tpu_torch.linear_model.LinearModel`,
+or any callable on the standardized inputs) is a frozen pre-model shared by
+every member: its float32 output on the float32 inputs is subtracted from
+the training targets once per training call and added to the prediction in
+validation, so the network trains on the residual.  A ``linear_bypass``
+spec refuses it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -315,17 +322,6 @@ class DispatchSchedule:
 # ------------------------------------------------------------------- AdamW
 
 
-def _compute_dtype(name) -> Optional[torch.dtype]:
-    """A training compute type by name (``"bfloat16"``), or None for float32
-    throughout."""
-    if name is None:
-        return None
-    dt = name if isinstance(name, torch.dtype) else getattr(torch, str(name), None)
-    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
-        raise ValueError(f"train_compute_dtype={name!r} is not a floating-point type")
-    return dt
-
-
 class AdamWState(NamedTuple):
     """AdamW moments of K stacked members, each (K, P), and each member's
     step count (K,)."""
@@ -445,7 +441,11 @@ class Layout:
 class _Data(NamedTuple):
     """One training call's rows on the device: inputs already x-transformed
     and each target's loss terms (standardized target, sentinel mask,
-    floored chi^2(target, data)) computed once."""
+    floored chi^2(target, data)) computed once.  With a pre-model the
+    training target is the residual, the standardized target less the
+    pre-model's float32 output on the row (the loss compares it with the
+    network's output: target - (network + pre-model)), and ``val_lm`` holds
+    the pre-model's output on the validation rows (else None)."""
 
     x: torch.Tensor
     t_std: torch.Tensor
@@ -455,6 +455,7 @@ class _Data(NamedTuple):
     val_std: Optional[torch.Tensor]
     val_mask: Optional[torch.Tensor]
     val_denom: Optional[torch.Tensor]
+    val_lm: Optional[torch.Tensor]
 
 
 class _MemberStack:
@@ -482,12 +483,17 @@ class _MemberStack:
         linearmodel=None,
         device: DeviceLike = None,
     ):
-        self.compute_dtype = _compute_dtype(compute_dtype)
-        if linearmodel is not None:
-            raise NotImplementedError(
-                "the PCA + polynomial pre-model (linearmodel) is not ported to "
-                "linna_tpu_torch yet; see ROADMAP.md"
+        self.compute_dtype = N.compute_dtype(compute_dtype, "train_compute_dtype")
+        if linearmodel is not None and spec.linear_bypass:
+            # apply_model ignores the pre-model for a linear_bypass spec:
+            # training NN + pre-model would sample NN alone
+            raise ValueError(
+                "linearmodel cannot be combined with a linear_bypass model "
+                "spec (the built-in 1e-3 bypass replaces the pre-model slot)"
             )
+        # a frozen additive pre-model (the reference's ``linearmodel``
+        # slot): the network trains on the residual
+        self.linearmodel = linearmodel
         if len(outdirs) != len(seeds):
             raise ValueError("one output directory per seed")
         self.device = resolve_device(device)
@@ -532,13 +538,17 @@ class _MemberStack:
     def _prepare(self, train_x, train_y, val_x=None, val_y=None) -> _Data:
         f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=self.device)
         ts, ls = self.transforms, self.loss_state
+        lm = self.linearmodel
         with torch.no_grad():
             x = ts.x_transform(f32(train_x))
             t_std, t_mask, t_denom = L.target_terms(ls, ts, f32(train_y))
+            if lm is not None:
+                t_std = t_std - lm(x)
             if val_x is None:
-                return _Data(x, t_std, t_mask, t_denom, None, None, None, None)
+                return _Data(x, t_std, t_mask, t_denom, None, None, None, None, None)
             vx = ts.x_transform(f32(val_x))
-            return _Data(x, t_std, t_mask, t_denom, vx, *L.target_terms(ls, ts, f32(val_y)))
+            return _Data(x, t_std, t_mask, t_denom, vx, *L.target_terms(ls, ts, f32(val_y)),
+                         None if lm is None else lm(vx))
 
     def _step(self, data: _Data, idx: torch.Tensor, opt: AdamWState, lr, wd) -> torch.Tensor:
         """One minibatch AdamW step of every member on rows ``idx`` (K, bs);
@@ -547,7 +557,9 @@ class _MemberStack:
         With a ``compute_dtype`` the forward and backward run in it: the
         (K, P) parameters are cast in one op and the cast's views are the
         network's weights, the inputs are cast, and the prediction returns
-        to float32 before the loss (the JAX trainers' ``_loss``).  The views
+        to float32 before the loss (the JAX trainers' ``_loss``).  A
+        pre-model's float32 output on the float32 inputs is already in the
+        residual target, in either type.  The views
         are the autograd leaves, so their gradients arrive without being
         scattered into full-size tensors; concatenated and cast to float32
         they are the gradient of the float32 parameters, as the cast's
@@ -597,6 +609,8 @@ class _MemberStack:
                 losses[e, :, b] = self._step(data, order[:, b], self.opt, self._lr_t, self._wd_t)
             with torch.no_grad():
                 pred = N.apply_model(self.spec, self._model, data.val_x)  # (K, nval, out)
+                if data.val_lm is not None:
+                    pred = pred + data.val_lm
                 loss_v = L.chi2_ratio(ls, pred, data.val_std, data.val_mask, data.val_denom)
                 chisq_nn_d = L._masked_chi2(pred - ls.data_std, data.val_mask,
                                             ls.inv_transformed_cov)
@@ -931,6 +945,18 @@ class Trainer(_MemberStack):
         arguments); returns (per-batch train losses, per-epoch val metrics)."""
         losses, vms = self._train(train_x, train_y, val_x, val_y, num_epochs, batch_size, **kwargs)
         return np.array(losses[0]), np.array(vms[0])
+
+    def predict(self, x: torch.Tensor) -> torch.Tensor:
+        """Physical parameters (B, D) or (D,) -> the emulated data vector in
+        sigma-scaled space: x transform -> network + pre-model -> y
+        transform."""
+        one = x.dim() == 1
+        if one:
+            x = x[None, :]
+        pred = N.apply_model(self.spec, self.params, self.transforms.x_transform(x),
+                             linearmodel=self.linearmodel)
+        out = self.transforms.y_transform(pred)
+        return out[0] if one else out
 
 
 def lr_range_test(

@@ -44,10 +44,13 @@ def write_request(
 ) -> None:
     os.makedirs(outdir_in, exist_ok=True)
     np.savez(os.path.join(outdir_in, REQUEST_NPZ), data=data, cov=cov, sigma=sigma)
+    # JSON values only; a dict such as ``linearmodel: {norder: 2}`` is kept
+    # (the JAX package's request drops it, and its child then trains
+    # without the pre-model)
     clean = {
         k: v
         for k, v in params.items()
-        if isinstance(v, (int, float, str, bool, list, type(None)))
+        if isinstance(v, (int, float, str, bool, list, dict, type(None)))
     }
     request = {
         "outdir_list": list(outdir_list),

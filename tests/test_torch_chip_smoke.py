@@ -215,3 +215,27 @@ def test_phase_driver_rehearsal(tmp_path, monkeypatch):
     bias = res["report"]["bias"]
     assert len(bias["bias_sigma"]) == 3 and np.isfinite(bias["bias_sigma"]).all()
     assert res["store"].endswith("chemcee_256.h5")
+
+
+def test_phase_premodel_and_bf16_rehearsal(tmp_path):
+    """Phase 8 on the CPU at 6 -> 8 (hidden 256): the pre-model pipeline
+    (K=2, bf16 training, zeus at T = 1 to its second tau check), NUTS
+    through member 0 and its pre-model with the Hessian at the MAP point,
+    then bf16 inference on the trained iteration; no path reaches a kernel
+    or its plain version."""
+    dev = torch.device("cpu")
+    rec = C.phase_premodel(dev, str(tmp_path), ndim=6, ndata=8, ntrain=600, nval=60,
+                           epochs=100, nensemble=2, nwalkers=16, nuts_steps=4, wrapper_rows=32)
+    assert rec["compute_dtype"] == "torch.bfloat16" and rec["epochs_run"] == 100
+    assert rec["zeus_steps"] == 200 and rec["npc"] >= 1 and rec["monomials"] == 28
+    assert rec["wrapper_check"]["abs"] <= 1e-6 and rec["fit_traced_peak_bytes"] > 0
+    assert rec["gradient"]["steps"] == 4 and rec["gradient"]["precond_s"] > 0
+    assert rec["gradient"]["hessian_asymmetry"] <= 1e-3
+    none = {"fused_apply": 0, "fused_log_prob": 0}
+    assert rec["counts"]["launches"] == none and rec["gradient"]["counts"]["launches"] == none
+    bf16 = C.phase_bf16(dev, str(tmp_path / "run" / "iter_0"), nensemble=2, ndim=6, ndata=8,
+                        walker_counts=(16, 64), zeus_steps=10, nwalkers=16)
+    assert set(bf16["log_prob"]) == {"K=2 @16", "K=2 @64", "member 0 @16", "member 0 @64"}
+    assert all(0 < r["rel_err"]["max"] <= C.BF16_RTOL for r in bf16["log_prob"].values())
+    assert len(bf16["zeus"]) == 4 and bf16["counts"]["launches"] == none
+    assert all(r["calls_per_step"] >= 2 for r in bf16["zeus"].values())

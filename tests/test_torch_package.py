@@ -88,6 +88,7 @@ def test_entry_points_without_a_device_raise_off_the_card(tmp_path):
         lambda: TR.run_ensemble(lambda x: x.sum(-1), np.zeros((4, 3)), str(tmp_path),
                                 method="nuts"),
         lambda: TO.retrieve_model(str(tmp_path), 3, 4),
+        lambda: linna_tpu_torch.linear_model.fit_linear_model(np.ones((4, 3)), np.ones((4, 2))),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="pass device='cpu'"):
@@ -118,9 +119,30 @@ def test_unported_samplers_raise(tmp_path):
 
 
 def test_linear_model_artifact_is_not_ported(tmp_path):
-    (tmp_path / TO.LINEAR_MODEL_FILE).write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="pre-model"):
-        TO.retrieve_model(str(tmp_path), 3, 4, device="cpu")
+    """The pre-model is ported: ``retrieve_model`` attaches the iteration's
+    ``linear_model.npz`` on the device it is asked for, except for a
+    linear_bypass model, which never trains with one."""
+    from linna_tpu_torch import linear_model as TLM
+    from linna_tpu_torch.utils import checkpoint as ckpt
+
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-1, 1, (30, 3))
+    lm = TLM.fit_linear_model(x, np.stack([x[:, 0] * x[:, 1], x[:, 2], x[:, 0], x[:, 1]], 1),
+                              device="cpu")
+    TLM.save_linear_model(str(tmp_path / TO.LINEAR_MODEL_FILE), lm)
+    TT.save_transforms(str(tmp_path / TO.TRANSFORMS_FILE), TT.TransformSet(
+        TT.XTransform(torch.zeros(3), torch.ones(3), torch.zeros(3, dtype=torch.bool)),
+        TT.YTransform(torch.zeros(4), torch.ones(4), False), TT.YTransformData(torch.ones(4))))
+    for name in ("chto_v2", "chto_v2_linear"):
+        spec = TN.make_model_spec(name, 3, 4)
+        ckpt.save_checkpoint(str(tmp_path / TO.BEST_CKPT), TN.init_model(spec, device="cpu"))
+        got = TO.retrieve_model(str(tmp_path), 3, 4, name, device="cpu").linearmodel
+        if spec.linear_bypass:
+            assert got is None
+        else:
+            assert isinstance(got, TLM.LinearModel) and got.coef.device.type == "cpu"
+            assert torch.equal(got(torch.as_tensor(x[:4], dtype=torch.float32)),
+                               lm(torch.as_tensor(x[:4], dtype=torch.float32)))
 
 
 def test_npz_store_keeps_the_zeus_layout(tmp_path, monkeypatch):

@@ -1,7 +1,7 @@
 """``ml_sampler_core`` through the port on the CPU with zeus: the artifact
 contract of tests/test_end_to_end.py, the file-gated resume, the
-paper-defaults entry, and the two parameters that are not ported yet
-(``linearmodel`` and the bf16 inference ``compute_dtype``)."""
+paper-defaults entry, and the pre-model (``linearmodel``) and bf16
+inference (``compute_dtype``) parameters."""
 
 import os
 from copy import deepcopy
@@ -110,12 +110,22 @@ def test_ml_sampler_turnkey_defaults(monkeypatch):
     {"compute_dtype": "bfloat16"},
 ])
 def test_unported_parameters_raise(params, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run(str(tmp_path / "out"), params={"trainingoption": 1, "num_epochs": 2,
-                                           "batch_size": 5, **params})
+    """Both parameters are ported: the pipeline runs with each, the
+    pre-model is fitted, saved and retrieved, and a rerun resumes."""
+    outdir = str(tmp_path / "out")
+    kw = dict(params={"trainingoption": 1, "num_epochs": 2, "batch_size": 5, **params})
+    chain, logprob = run(outdir, **kw)
+    assert np.all(np.isfinite(chain)) and np.all(np.isfinite(logprob))
+    it0 = os.path.join(outdir, "iter_0")
+    has_lm = os.path.isfile(os.path.join(it0, TO.LINEAR_MODEL_FILE))
+    assert has_lm == ("linearmodel" in params)
+    assert (TO.retrieve_model(it0, NDIM, NDIM, device="cpu").linearmodel is not None) == has_lm
+    npt.assert_array_equal(run(outdir, **kw)[0], chain)
 
 
 def test_make_log_prob_refuses_compute_dtype():
+    """bf16 inference runs on the composition and returns float32 near the
+    float32 result; the float32-only kernel refuses it."""
     from linna_tpu_torch import nn as TN, priors as TP, transforms as TT
 
     spec = TN.make_model_spec("chto_v2", 3, 4)
@@ -125,10 +135,14 @@ def test_make_log_prob_refuses_compute_dtype():
     )
     pack = TP.priors_from_list([{"dist": "flat", "arg1": -1, "arg2": 1}] * 3, "cpu")
     args = (spec, TN.init_model(spec, device="cpu"), ts, pack, np.zeros(4), np.eye(4))
-    for fused in (False, True):
-        with pytest.raises(NotImplementedError, match="compute_dtype='bfloat16'"):
-            TLK.make_log_prob(*args, use_fused=fused, compute_dtype="bfloat16", device="cpu")
-    assert TLK.make_log_prob(*args, compute_dtype=None, device="cpu")(torch.zeros(2, 3)).shape == (2,)
+    with pytest.raises(ValueError, match="use_fused supports float32 only"):
+        TLK.make_log_prob(*args, use_fused=True, compute_dtype="bfloat16", device="cpu")
+    x = torch.randn((6, 3), generator=torch.Generator().manual_seed(0)) * 0.3
+    lp16 = TLK.make_log_prob(*args, compute_dtype="bfloat16", device="cpu")(x)
+    lp32 = TLK.make_log_prob(*args, compute_dtype=None, device="cpu")(x)
+    assert lp16.dtype == lp32.dtype == torch.float32 and lp16.shape == (6,)
+    assert not torch.equal(lp16, lp32)
+    npt.assert_allclose(lp16.numpy(), lp32.numpy(), rtol=0.05, atol=0.05)
 
 
 def test_entry_points_without_a_card_raise(tmp_path):

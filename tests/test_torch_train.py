@@ -249,11 +249,23 @@ def test_smooth_and_pick_lr_matches():
 
 
 def test_training_compute_dtype_and_linearmodel_are_not_ported():
-    """The training compute type is ported (tests/test_torch_bf16.py) and
-    takes floating-point types only; the linear pre-model is not ported."""
+    """Both are ported (tests/test_torch_bf16.py, test_torch_linear_model.py):
+    the training compute type takes floating-point types only, and a
+    pre-model, any callable on the standardized inputs, is taken off the
+    training targets once (the network trains on the residual), added to
+    the validation prediction and to ``predict``."""
     pb = _problem()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TTR.Trainer(pb["tspec"], pb["ts_t"], pb["ls_t"], device="cpu", linearmodel=lambda x: x)
+    shift = lambda x: torch.ones(x.shape[0], 3) * 0.25  # noqa: E731
+    tr = TTR.Trainer(pb["tspec"], pb["ts_t"], pb["ls_t"], device="cpu", linearmodel=shift)
+    bare = TTR.Trainer(pb["tspec"], pb["ts_t"], pb["ls_t"], device="cpu")
+    data, plain = tr._prepare(*pb["rows"]), bare._prepare(*pb["rows"])
+    assert torch.equal(data.t_std, plain.t_std - 0.25) and data.val_lm.shape == (16, 3)
+    assert plain.val_lm is None and torch.equal(data.val_std, plain.val_std)
+    x = torch.as_tensor(pb["rows"][0][:4], dtype=torch.float32)
+    with torch.no_grad():
+        ts = pb["ts_t"]
+        want = ts.y_transform(TN.apply_model(pb["tspec"], tr.params, ts.x_transform(x)) + 0.25)
+        npt.assert_allclose(tr.predict(x).numpy(), want.numpy(), rtol=1e-6)
     for bad in ("int8", "not_a_type"):
         with pytest.raises(ValueError, match="floating-point"):
             TTR.Trainer(pb["tspec"], pb["ts_t"], pb["ls_t"], device="cpu", compute_dtype=bad)
