@@ -85,7 +85,25 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    same -inf rows, relative error within ``BF16_RTOL``), each call's
    device and call ms, zeus for 100 steps in each type for K=1 and K=4,
    and ``use_fused`` refusing ``compute_dtype``.
-9. One ``{"kernels": [...]}`` line, the card's name and power limit, and the
+9. The multi-process layer on the one card.  9a: a one-rank nccl group:
+   ``all_reduce``, ``all_gather``, ``broadcast`` and ``barrier`` of CUDA
+   tensors, and emcee for ``MP_EMCEE_STEPS`` steps through
+   ``fused_log_prob`` bit for bit the run without a group.  9b: ``python -m
+   linna_tpu_torch.launch`` as two ranks sharing the card through gloo (nccl
+   refuses two ranks on one device) on ``des_synthetic.yaml`` cut to one
+   iteration at K = ``MP_ENSEMBLE`` (ens 2 x data 1), ``MP_EPOCHS``
+   epochs, zeus to its second tau check: rank 1 writes nothing under the
+   run directory (Python audit hooks), and the stored log-probs equal the
+   one-process likelihood's.  9c: two ranks (``chip_smoke.py
+   --data-parallel-rank``) against one rank in this process: K=1 training
+   on phase 5's rows over two data ranks (one step's gradient, the best
+   checkpoint after one epoch, and the best val loss after the deepest of
+   ``DP_DEPTHS``), emcee and ``DP_NUTS`` NUTS samples sharded over the
+   walkers through ``fused_log_prob`` (one rank's chain bit for bit where a
+   row's result does not depend on the rows beside it; else emcee within
+   ``RTOL``/``ATOL`` at every sample, and NUTS's first sample and
+   moments), launches per rank, and the census.
+10. One ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 
 Phase 4's and 6's weights are random (from a seed); phases 5, 7 and 8 train
@@ -141,6 +159,32 @@ BF16_WALKERS = (256, 4096)
 BF16_ZEUS_STEPS = 100
 # tests/test_compute_dtype.py's tolerance: |lp_bf16 - lp_f32| / max(1, |lp_f32|)
 BF16_RTOL = 0.05
+# phase 9: the multi-process layer on one card (9a emcee at world size 1,
+# 9b the launcher on des_synthetic.yaml at K=4, 9c the data-parallel path)
+MP_EMCEE_STEPS = 100
+MP_EPOCHS = 50
+MP_ENSEMBLE = 4
+# 9c trains K=1 to each of these depths (epochs), on one rank and on two
+DP_DEPTHS = (1, 5, 20)
+DP_NUTS = 20
+MP_TIMEOUT = 600
+# 9c: two data ranks against one rank: one step's gradient (its largest
+# difference over its largest element: float32 sums of other lengths); the
+# best checkpoint after one epoch (its predictions' largest and median
+# difference over their std: AdamW's normalized steps grow the rounding,
+# to 0.017 and 0.0018 on an H100, where rank 1 drawing other permutations
+# reads 0.56 and 0.11 at the CPU rehearsal's size); the best val loss after
+# the last depth (relative)
+DP_GRAD_RTOL = 1e-5
+DP_EPOCH1_MAX, DP_EPOCH1_MEDIAN = 0.05, 0.01
+DP_TRAIN_RTOL = 1e-2
+# 9c: sharded NUTS, whose trajectories part where a row's log-prob and
+# gradient depend on the rows beside it: the share of the first sample's
+# walkers not within RTOL/ATOL of one rank's (a block taken wrong puts
+# every walker apart), and the second half's means over the one-rank
+# chain's std (two independent 256-walker chains differ by ~0.1 at 3 sigma)
+DP_NUTS_FIRST_APART = 0.1
+DP_MEAN_SIGMA = 0.25
 TRAINED_DIR = os.path.join(ROOT, ".chip_smoke_trained")
 
 # tests/test_ops.py's kernel tolerance; both sides accumulate in f32 and
@@ -768,7 +812,7 @@ def trained_ensemble_trainer(outdir, data, cov, nensemble, batch_size, device,
     from linna_tpu_torch import nn as N
     from linna_tpu_torch import orchestrator as O
     from linna_tpu_torch import transforms as T
-    from linna_tpu_torch.parallel import EnsembleTrainer
+    from linna_tpu_torch.parallel.ensemble import EnsembleTrainer
     from linna_tpu_torch.utils import checkpoint as ckpt
 
     stack = D.load_curated_stack([outdir])
@@ -1121,6 +1165,49 @@ def phase_gradient(device, outdir, nwalkers=NWALKERS, nuts_steps=NUTS_STEPS,
 # ------------------------------------------------------------------ driver
 
 
+def des_config(outdir, theory_mod, methods, temperatures, epochs, overrides=None):
+    """``examples/des_synthetic.yaml`` cut to depth under ``outdir``: its
+    first ``len(methods)`` iterations with these methods and temperatures,
+    ``epochs`` epochs, convergence keys that pass at each sampler's second
+    check (200 steps: the first compares with no earlier tau), outdir
+    ``outdir/run``, and inputs written with ``theory_mod``'s functions, as
+    ``examples/make_des_inputs.py`` writes them; ``overrides`` applied
+    last.  Returns (params, the cut YAML's path, the cuts)."""
+    import importlib
+
+    import yaml
+
+    from linna_tpu_torch.config import yaml_load
+
+    T = importlib.import_module(theory_mod)
+    inputs = os.path.join(outdir, "des_inputs")
+    os.makedirs(inputs, exist_ok=True)
+    truth = T.data_vector(T.fiducial() + 0.05)
+    np.savetxt(os.path.join(inputs, "data.txt"), np.stack([np.arange(T.NDATA), truth], 1))
+    np.savetxt(os.path.join(inputs, "cov_triplet.txt"), T.cov_triplet_rows(T.noise_sigma(truth)))
+
+    params = yaml_load(os.path.join(ROOT, "examples", "des_synthetic.yaml"),
+                       parent_dir=os.path.join(ROOT, "examples"))
+    n_iter = len(methods)
+    inf = [float("inf")] * n_iter
+    cut = dict(methodArr=list(methods), temperatureArr=list(temperatures), num_epochs=epochs,
+               ntimesArr=[0] * n_iter, ntautolArr=inf, meanshiftArr=inf, stdshiftArr=inf,
+               outdir=os.path.join(outdir, "run"), base_dir=inputs)
+    cuts = {"iterations": f"{len(params['ntrainArr'])} -> {n_iter} (the first {n_iter} of "
+                          "every per-iteration list)"}
+    cuts.update({k: f"{params[k]} -> {v}" for k, v in cut.items()})
+    for k in ("ntrainArr", "nvalArr", "nkeepArr"):
+        params[k] = params[k][:n_iter]
+    params.update(cut)
+    params.update(overrides or {})
+    cuts.update({k: f"-> {v}" for k, v in (overrides or {}).items() if k not in cuts})
+    log(f"  des_synthetic.yaml cut to depth: {json.dumps(cuts)}")
+    cfg = os.path.join(outdir, "des_synthetic_cut.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump(params, f)
+    return params, cfg, cuts
+
+
 def phase_driver(device, outdir, epochs=DRIVER_EPOCHS, timeout=DRIVER_TIMEOUT,
                  theory_mod="examples.des_theory", overrides=None,
                  exact=os.path.join(ROOT, "EXACT_POSTERIOR.json")) -> dict:
@@ -1136,52 +1223,13 @@ def phase_driver(device, outdir, epochs=DRIVER_EPOCHS, timeout=DRIVER_TIMEOUT,
     the exact posterior (``EXACT_POSTERIOR.json``), not gated at this
     depth.  ``theory_mod``, ``overrides`` (applied after the cuts) and
     ``exact`` let a CPU rehearsal run the same phase at a small size."""
-    import importlib
-
-    import yaml
-
     import des_report
     from linna_tpu_torch import orchestrator as O
-    from linna_tpu_torch.config import yaml_load
     from linna_tpu_torch.samplers import run as R
 
-    T = importlib.import_module(theory_mod)
-    inputs = os.path.join(outdir, "des_inputs")
-    os.makedirs(inputs, exist_ok=True)
-    truth = T.data_vector(T.fiducial() + 0.05)
-    np.savetxt(os.path.join(inputs, "data.txt"), np.stack([np.arange(T.NDATA), truth], 1))
-    np.savetxt(os.path.join(inputs, "cov_triplet.txt"), T.cov_triplet_rows(T.noise_sigma(truth)))
-
-    params = yaml_load(os.path.join(ROOT, "examples", "des_synthetic.yaml"),
-                       parent_dir=os.path.join(ROOT, "examples"))
+    params, cfg, cuts = des_config(outdir, theory_mod, ["zeus", "nuts"], [4.0, 1.0], epochs,
+                                   overrides)
     n_iter = 2
-    cuts = {
-        "iterations": f"{len(params['ntrainArr'])} -> {n_iter} (the first two of every "
-                      "per-iteration list)",
-        "methodArr": f"{params['methodArr']} -> ['zeus', 'nuts']",
-        "temperatureArr": f"{params['temperatureArr']} -> [4.0, 1.0]",
-        "num_epochs": f"{params['num_epochs']} -> {epochs}",
-        # the first tau check has no earlier tau to compare with, so each
-        # sampler stops at its second, after 200 steps
-        "ntimesArr": f"{params['ntimesArr']} -> [0, 0]",
-        "ntautolArr": f"{params['ntautolArr']} -> [inf, inf]",
-        "meanshiftArr": f"{params['meanshiftArr']} -> [inf, inf]",
-        "stdshiftArr": f"{params['stdshiftArr']} -> [inf, inf]",
-        "outdir": f"{params['outdir']} -> {outdir}/run",
-        "base_dir": f"{params['base_dir']} -> {inputs}",
-    }
-    for k in ("ntrainArr", "nvalArr", "nkeepArr"):
-        params[k] = params[k][:n_iter]
-    inf = float("inf")
-    params.update(methodArr=["zeus", "nuts"], temperatureArr=[4.0, 1.0], num_epochs=epochs,
-                  ntimesArr=[0, 0], ntautolArr=[inf, inf], meanshiftArr=[inf, inf],
-                  stdshiftArr=[inf, inf], outdir=os.path.join(outdir, "run"), base_dir=inputs)
-    params.update(overrides or {})
-    log(f"  des_synthetic.yaml cut to depth: {json.dumps(cuts)}")
-    cfg = os.path.join(outdir, "des_synthetic_cut.yaml")
-    with open(cfg, "w") as f:
-        yaml.safe_dump(params, f)
-
     cmd = [sys.executable, "-m", "linna_tpu_torch.driver", "zeus", "None", cfg, "examples"]
     if device.type != "cuda":
         cmd += ["--device", str(device)]
@@ -1539,7 +1587,538 @@ def phase_bf16(device, trained_dir, nensemble=NENSEMBLE, ndim=NDIM, ndata=NDATA,
     return rec
 
 
+# ------------------------------------------------ the multi-process layer
+
+
+class WriteAudit:
+    """Every write-mode open, mkdir, rename and removal under ``root`` in
+    this process, from Python's audit events (``sys.addaudithook``)."""
+
+    def __init__(self, root: str):
+        self.root = os.path.realpath(root)
+        self.seen: list = []
+        sys.addaudithook(self)
+
+    def __call__(self, event, args):
+        if event == "open" and args and isinstance(args[0], (str, bytes, os.PathLike)):
+            mode, flags = args[1], args[2] if len(args) > 2 else 0
+            if (mode is not None and any(c in str(mode) for c in "wax+")) or (
+                    isinstance(flags, int) and flags & (os.O_WRONLY | os.O_RDWR | os.O_CREAT)):
+                self._note(event, args[0])
+        elif event in ("os.mkdir", "os.rename", "os.remove", "os.rmdir", "shutil.rmtree"):
+            self._note(event, args[0])
+
+    def _note(self, event, path) -> None:
+        path = os.fsdecode(path) if isinstance(path, (str, bytes)) else os.fspath(path)
+        if os.path.realpath(path).startswith(self.root):
+            self.seen.append(f"{event} {path}")
+
+
+# one rank of ``python -m linna_tpu_torch.launch``, with its writes under the
+# run directory and its counters dumped at exit (argv: report, run dir, the
+# launch module's arguments)
+AUDITED_LAUNCH = """
+import atexit, json, runpy, sys
+sys.path.insert(0, {root!r})
+from chip_smoke import WriteAudit
+report, audit = sys.argv[1], WriteAudit(sys.argv[2])
+
+def dump():
+    from linna_tpu_torch.ops import fused as F
+    from linna_tpu_torch.parallel import multihost as MH
+    with open(report, "w") as f:
+        json.dump({{"writes": audit.seen, "launches": dict(F.launches),
+                   "collectives": MH.collective_counts()}}, f)
+
+atexit.register(dump)
+sys.argv = ["linna_tpu_torch.launch"] + sys.argv[3:]
+runpy.run_module("linna_tpu_torch.launch", run_name="__main__", alter_sys=True)
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(cmds, logdir: str, timeout: float) -> list:
+    """Start one process per command as the ranks of one cluster (the
+    ``LINNA_*`` variables, a free localhost port), wait for all of them, and
+    return their output; any rank that fails or outlives ``timeout`` fails
+    the phase, and no rank is left running."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([ROOT] + [p for p in sys.path if p]),
+               LINNA_COORDINATOR_ADDRESS=f"localhost:{_free_port()}",
+               LINNA_NUM_PROCESSES=str(len(cmds)), OMP_NUM_THREADS="1")
+    os.makedirs(logdir, exist_ok=True)
+    logs = [open(os.path.join(logdir, f"rank_{k}.log"), "w+") for k in range(len(cmds))]
+    procs = []
+    try:
+        for k, cmd in enumerate(cmds):
+            procs.append(subprocess.Popen(cmd, cwd=ROOT, env=dict(env, LINNA_PROCESS_ID=str(k)),
+                                          stdout=logs[k], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout
+        for k, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"rank {k} outlived {timeout} s (a collective another "
+                                     "rank skipped?)") from None
+        outs = []
+        for f in logs:
+            f.seek(0)
+            outs.append(f.read())
+        for k, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                log(out[-6000:])
+                raise AssertionError(f"rank {k} exited with {p.returncode}")
+        return outs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+
+
+def fused_problem(device, ndim=NDIM, ndata=NDATA, nwalkers=NWALKERS, temperature=TEMPERATURE):
+    """Phase 3's random-weight DES-width problem through ``fused_log_prob``
+    (``use_fused=True``) and seeded walkers around the origin."""
+    from linna_tpu_torch import likelihood as LK
+
+    spec, params, ts, pack, data, inv_cov = make_problem(device, ndim, ndata)
+    lp = LK.make_log_prob(spec, params, ts, pack, data, inv_cov, temperature=temperature,
+                          use_fused=True, device=device)
+    x0 = 0.1 * np.random.default_rng(4).standard_normal((nwalkers, ndim))
+    return lp, x0
+
+
+def sample(log_prob, x0, outdir, method, steps, device) -> dict:
+    """``run_ensemble`` for ``steps`` steps with no convergence test; the
+    stored chain and log-probs, this process's launches and collectives,
+    and s / 100 steps."""
+    from linna_tpu_torch.ops import fused as F
+    from linna_tpu_torch.parallel import multihost as MH
+    from linna_tpu_torch.samplers import run as R
+
+    F.reset_counts()
+    MH.reset_collective_counts()
+    trace: dict = {}
+    backend = R.run_ensemble(log_prob, x0, outdir, method=method, check_every=steps,
+                             max_iterations=steps, convergence_check=False, seed=0,
+                             device=device, trace_rec=trace)
+    MH.barrier("sampled")
+    rec = {"launches": dict(F.launches), "plain_calls": dict(F.plain_calls),
+           "collectives": MH.collective_counts(), "steps": steps,
+           "s_per_100_steps": _sampler_rate(trace, steps)["s_per_100_steps"],
+           "sampler_s": trace["sampler"]}
+    return rec, backend
+
+
+def phase_nccl(device, outdir, steps=MP_EMCEE_STEPS, ndim=NDIM, ndata=NDATA,
+               nwalkers=NWALKERS) -> dict:
+    """9a: a process group of one rank (nccl on a card, gloo on the CPU):
+    ``all_reduce``, ``all_gather``, ``broadcast`` and ``barrier`` of device
+    tensors and float64 through the byte broadcast, then emcee through
+    ``fused_log_prob`` for ``steps`` steps, bit for bit the chain of the same
+    run without a process group."""
+    from linna_tpu_torch.parallel import mesh as ME
+    from linna_tpu_torch.parallel import multihost as MH
+
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    lp, x0 = fused_problem(device, ndim, ndata, nwalkers)
+    alone, b0 = sample(lp, x0, os.path.join(outdir, "alone"), "emcee", steps, device)
+    if MH.initialize(f"localhost:{_free_port()}", 1, 0, backend=backend, device=device):
+        raise AssertionError("one rank expected")
+    try:
+        if MH.backend() != backend or MH.process_count() != 1:
+            raise AssertionError(f"backend {MH.backend()}, world {MH.process_count()}")
+        MH.reset_collective_counts()
+        t = torch.arange(6.0, device=device)
+        checks = {
+            "all_reduce": torch.equal(MH.all_reduce(t.clone()), t),
+            "all_gather": torch.equal(MH.all_gather(t)[0], t),
+            "broadcast": bool(np.array_equal(MH.broadcast(np.array([1.0 + 2.0**-52])),
+                                             [1.0 + 2.0**-52])),
+            "broadcast_from_primary": MH.broadcast_from_primary(
+                lambda: {"v": np.array([1.0 + 2.0**-52])})["v"][0] == 1.0 + 2.0**-52,
+            "fetch": bool(np.array_equal(MH.fetch(t.reshape(6, 1), ME.walker_shard(6), 0),
+                                         t.reshape(6, 1).cpu().numpy())),
+        }
+        MH.barrier("9a")
+        checks["barrier"] = True
+        tensors_on = str(t.device)
+        counts = MH.collective_counts()
+        if not all(checks.values()) or not all(counts.get(f"{k}@world") for k in (
+                "all_reduce", "all_gather", "broadcast", "barrier")):
+            raise AssertionError(f"collectives on one rank: {checks}, {counts}")
+        grouped, b1 = sample(lp, x0, os.path.join(outdir, "grouped"), "emcee", steps, device)
+    finally:
+        MH.shutdown()
+    equal = all(np.array_equal(a, b) for a, b in (
+        (b0.get_chain(), b1.get_chain()), (b0.get_log_prob(), b1.get_log_prob())))
+    if not equal:
+        raise AssertionError("emcee under a one-rank process group differs from the run without")
+    if device.type == "cuda" and grouped["launches"]["fused_log_prob"] == 0:
+        raise AssertionError("fused_log_prob did not launch under the process group")
+    res = {"backend": backend, "tensors_on": tensors_on, "checks": checks,
+           "collectives": counts, "emcee_equal_bit_for_bit": equal, "alone": alone,
+           "grouped": grouped}
+    log(f"  9a: {json.dumps(res, default=float)}")
+    return res
+
+
+def phase_launch(device, outdir, epochs=MP_EPOCHS, nensemble=MP_ENSEMBLE,
+                 theory_mod="examples.des_theory", overrides=None, timeout=MP_TIMEOUT) -> dict:
+    """9b: ``python -m linna_tpu_torch.launch`` as two ranks sharing the
+    device through gloo, on ``des_synthetic.yaml`` cut to one iteration
+    (zeus at T = 4 to its second tau check, K = ``nensemble`` trained for
+    ``epochs`` epochs: ens 2 x data 1).  Rank 1 must write nothing under the
+    run directory; the directory then loads in this process and its stored
+    log-probs are the one-process likelihood's."""
+    from linna_tpu_torch import likelihood as LK
+    from linna_tpu_torch import orchestrator as O
+    from linna_tpu_torch import priors as P
+    from linna_tpu_torch.driver import _load_data_cov, priors_and_init_from_config
+
+    params, cfg, cuts = des_config(outdir, theory_mod, ["zeus"], [4.0], epochs,
+                                   {"nensemble": nensemble, **(overrides or {})})
+    run_dir = params["outdir"]
+    os.makedirs(run_dir, exist_ok=True)
+    script = AUDITED_LAUNCH.format(root=ROOT)
+    reports = [os.path.join(outdir, f"audit_{k}.json") for k in range(2)]
+    cmds = [[sys.executable, "-c", script, reports[k], run_dir, "zeus", cfg, "examples",
+             "--device", str(device), "--backend", "gloo"] for k in range(2)]
+    t0 = time.perf_counter()
+    outs = run_ranks(cmds, os.path.join(outdir, "logs"), timeout)
+    seconds = time.perf_counter() - t0
+    for k, out in enumerate(outs):
+        for want in (f"process {k}/2: device {device}, backend gloo",
+                     f"process {k} driver finished rc=0"):
+            if want not in out:
+                raise AssertionError(f"rank {k} did not print {want!r}")
+    audits = []
+    for path in reports:
+        with open(path) as f:
+            audits.append(json.load(f))
+    if audits[1]["writes"]:
+        raise AssertionError(f"rank 1 wrote under the run directory: {audits[1]['writes'][:10]}")
+    if not audits[0]["writes"]:
+        raise AssertionError("rank 0 wrote nothing")
+    it0 = os.path.join(run_dir, "iter_0")
+    missing = iteration_missing(it0, nensemble, chain=True)
+    missing += [f for f in ("time.npy", "trace.json")
+                if not os.path.isfile(os.path.join(run_dir, f))]
+    if missing:
+        raise AssertionError(f"the two-rank run left artifacts out: {missing}")
+
+    # the directory in one process: the stored log-probs at the stored
+    # points against the retrieved ensemble's likelihood
+    data, cov, _, _ = _load_data_cov(params)
+    priors, _ = priors_and_init_from_config(params)
+    pack = P.priors_from_list(priors, device)
+    ndim, ndata = len(priors), len(data)
+    model = O.retrieve_model(it0, ndim, ndata, device=device)
+    members = O.retrieve_ensemble_params(it0, model)
+    if len(members) != nensemble:
+        raise AssertionError(f"{len(members)} members retrieved, not {nensemble}")
+    lp = LK.make_log_prob(model.spec, members, model.transforms, pack, data, np.linalg.inv(cov),
+                          temperature=16.0, device=device)
+    store = O._open_backend(os.path.join(it0, O._chain_filename("zeus")), "zeus")
+    samples, lps = store.get_chain(), store.get_log_prob()
+    if samples.shape[1:] != (params["nwalkers"], ndim) or not np.isfinite(samples).all():
+        raise AssertionError(f"chain {samples.shape} is not finite")
+    with torch.no_grad():
+        check = compare(torch.as_tensor(lps[-1]),
+                        lp(torch.as_tensor(samples[-1], dtype=torch.float32, device=device)),
+                        "9b stored log-probs vs one-process make_log_prob")
+    with open(os.path.join(run_dir, "trace.json")) as f:
+        trace = json.load(f)
+    res = {"seconds": seconds, "cuts": cuts, "steps": int(samples.shape[0]),
+           "writes_rank0": len(audits[0]["writes"]), "writes_rank1": 0,
+           "launches": [a["launches"] for a in audits],
+           "collectives": [a["collectives"] for a in audits], "log_prob_check": check,
+           "phases": {r["phase"]: r["seconds"] for r in trace}}
+    log(f"  9b: {json.dumps(res, default=float)}")
+    return res
+
+
+def first_step_moment(device, one: str, pb, mesh=None) -> np.ndarray:
+    """The first moment after one AdamW step at lr 0 from zero moments:
+    0.1 x the gradient of the iteration's first 500 rows (a minibatch),
+    member seed 1234
+    (one rank without ``mesh``; the ranks of a K=1 mesh sum their halves)."""
+    from linna_tpu_torch import data as D
+    from linna_tpu_torch import losses as L
+    from linna_tpu_torch import nn as N
+    from linna_tpu_torch import orchestrator as O
+    from linna_tpu_torch import transforms as T
+    from linna_tpu_torch.parallel.ensemble import EnsembleTrainer
+
+    stack = D.load_curated_stack([one])
+    ts = T.load_transforms(os.path.join(one, O.TRANSFORMS_FILE), device=device)
+    spec = N.make_model_spec("chto_v2", stack.train_x.shape[1], stack.train_y.shape[1])
+    tr = EnsembleTrainer(spec, ts, L.build_loss_state(pb.data, pb.cov, ts), [None], [1234],
+                         mesh=mesh, device=device)
+    data = tr._prepare(stack.train_x, stack.train_y)
+    zero = torch.zeros((1, 1), device=device)
+    rows = min(500, len(stack.train_x))
+    tr._step(data, torch.arange(rows, device=device)[None], tr.opt, zero, zero)
+    return tr._gather([tr.opt.mu], [0])[0]
+
+
+def dp_rank(outdir: str, device_name: str) -> int:
+    """One rank of 9c (``chip_smoke.py --data-parallel-rank OUTDIR DEVICE``):
+    K=1 training over the two data ranks to each depth, sharded emcee and
+    NUTS through ``fused_log_prob``, and the census; its record to
+    ``OUTDIR/rank_<k>.json``."""
+    from linna_tpu_torch import orchestrator as O
+    from linna_tpu_torch.ops import fused as F
+    from linna_tpu_torch.parallel import census as CE
+    from linna_tpu_torch.parallel import multihost as MH
+
+    device = torch.device(device_name)
+    MH.initialize(backend="gloo", device=device)
+    rank = MH.process_index()
+    with open(os.path.join(outdir, "config.json")) as f:
+        cfg = json.load(f)
+    pb = seeded_problem(device, cfg["ndim"], cfg["ndata"])
+    rec: dict = {"rank": rank, "world": MH.process_count(), "backend": MH.backend()}
+    # gloo's collectives of device tensors (the sharded samplers' and the
+    # trainer's), checked for their values
+    t = torch.full((4,), float(rank + 1), device=device)
+    rec["gloo_device_collectives"] = {
+        "all_gather": [float(x[0]) for x in MH.all_gather(t)],
+        "all_reduce": float(MH.all_reduce(t.clone())[0]),
+        "on": str(t.device),
+    }
+    if rec["gloo_device_collectives"]["all_gather"] != [1.0, 2.0] or \
+            rec["gloo_device_collectives"]["all_reduce"] != 3.0:
+        raise AssertionError(f"gloo collectives: {rec['gloo_device_collectives']}")
+    from linna_tpu_torch.parallel.mesh import make_ensemble_mesh
+
+    mu = first_step_moment(device, dp_dir(outdir, "one", cfg["depths"][-1]), pb,
+                           make_ensemble_mesh(1))
+    if rank == 0:
+        np.save(os.path.join(outdir, "first_moment_two.npy"), mu)
+    for epochs in cfg["depths"]:
+        F.reset_counts()
+        MH.reset_collective_counts()
+        t0 = time.perf_counter()
+        it0 = dp_dir(outdir, "two", epochs)
+        O.train_emulator(it0, [it0], pb.data, pb.cov, pb.sigma, None, False, "chto_v2",
+                         {"nensemble": 1, "num_epochs": epochs, "batch_size": 500},
+                         device=device)
+        rec["train"] = {"epochs": epochs, "seconds": time.perf_counter() - t0,
+                        "collectives": MH.collective_counts(), "launches": dict(F.launches)}
+    lp, x0 = fused_problem(device, cfg["ndim"], cfg["ndata"], cfg["nwalkers"])
+    for method, steps in (("emcee", cfg["steps"]), ("nuts", cfg["nuts_steps"])):
+        rec[method], _ = sample(lp, x0, os.path.join(outdir, "two", method), method, steps,
+                                device)
+    rec["census"] = {
+        "sampler": CE.sampler_collective_census(log_prob_fn=lp, ndim=cfg["ndim"],
+                                                walkers=cfg["nwalkers"], device=device),
+        "trainer_k1": CE.trainer_collective_census(k=1, device=device),
+        "trainer_k2": CE.trainer_collective_census(k=2, device=device),
+    }
+    with open(os.path.join(outdir, f"rank_{rank}.json"), "w") as f:
+        json.dump(rec, f, default=float)
+    MH.barrier("9c")
+    MH.shutdown()
+    return 0
+
+
+def _predict(it0: str, x: np.ndarray, device) -> np.ndarray:
+    from linna_tpu_torch import orchestrator as O
+
+    with torch.no_grad():
+        return O.retrieve_model_wrapper(it0, device=device)(x).cpu().numpy().astype(np.float64)
+
+
+def dp_dir(outdir: str, who: str, epochs: int) -> str:
+    """9c's iteration directory of ``who`` (one, again, two) trained for
+    ``epochs`` epochs."""
+    return os.path.join(outdir, f"{who}_{epochs}", "iter_0")
+
+
+def phase_data_parallel(device, outdir, ndim=NDIM, ndata=NDATA, ntrain=NTRAIN, nval=NVAL,
+                        depths=DP_DEPTHS, nwalkers=NWALKERS, steps=EMCEE_STEPS,
+                        nuts_steps=DP_NUTS, timeout=MP_TIMEOUT) -> dict:
+    """9c: two ranks sharing the device through gloo, against one rank in
+    this process: K=1 training on phase 5's rows to each of ``depths``
+    epochs (ens 1 x data 2, the learning rate of the deepest one-rank run's
+    range test; one rank trains the deepest run twice, to show how far one
+    rank repeats itself), emcee and NUTS sharded over the walkers through
+    ``fused_log_prob``, and the census."""
+    from linna_tpu_torch import orchestrator as O
+    from linna_tpu_torch import priors as P
+    from linna_tpu_torch import sample_gen as SG
+
+    pb = seeded_problem(device, ndim, ndata)
+    rows = os.path.join(outdir, "rows")
+    SG.generate_training_point(pb.theory, SG.NNSampler(rows, P.prior_range(pb.pack)), None,
+                               rows, ntrain, nval, pb.data, pb.inv_cov)
+    last = depths[-1]
+    runs = [("one", last), ("again", last)] + [("one", e) for e in depths[:-1]] \
+        + [("two", e) for e in depths]
+    for who, e in runs:
+        shutil.copytree(rows, dp_dir(outdir, who, e))
+    train_one_s = {}
+    for who, e in runs:
+        if who == "two":
+            continue
+        if (who, e) != ("one", last):
+            shutil.copy(os.path.join(dp_dir(outdir, "one", last), "lr.npy"),
+                        dp_dir(outdir, who, e))
+        t0 = time.perf_counter()
+        it0 = dp_dir(outdir, who, e)
+        O.train_emulator(it0, [it0], pb.data, pb.cov, pb.sigma, None, False, "chto_v2",
+                         {"nensemble": 1, "num_epochs": e, "batch_size": 500}, device=device)
+        train_one_s[f"{who}_{e}"] = time.perf_counter() - t0
+    for e in depths:
+        shutil.copy(os.path.join(dp_dir(outdir, "one", last), "lr.npy"),
+                    dp_dir(outdir, "two", e))
+    lp, x0 = fused_problem(device, ndim, ndata, nwalkers)
+    ref = {m: sample(lp, x0, os.path.join(outdir, "one", m), m, n, device)
+           for m, n in (("emcee", steps), ("nuts", nuts_steps))}
+    # does a row's result depend on the rows launched beside it, in blocks
+    # of the sharded half-updates' size?  emcee reads the log-prob, NUTS the
+    # log-prob and its gradient in the preconditioned space
+    from linna_tpu_torch.samplers import hmc
+    from linna_tpu_torch.samplers import run as R
+
+    pre = R._load_precond(os.path.join(outdir, "one", "nuts", R.PRECOND_FILENAME))
+    x = torch.as_tensor(x0, dtype=torch.float32, device=device)
+    block = nwalkers // 4
+    whole = [hmc.value_and_grad(lp, x)[0], *hmc.value_and_grad(pre.wrap_log_prob(lp), x)]
+    parts = [hmc.value_and_grad(lp, x[i:i + block])[0] for i in range(0, nwalkers, block)]
+    wparts = [hmc.value_and_grad(pre.wrap_log_prob(lp), x[i:i + block])
+              for i in range(0, nwalkers, block)]
+    row_independent = {
+        "emcee": bool(torch.equal(whole[0], torch.cat(parts))),
+        "nuts": bool(torch.equal(whole[1], torch.cat([v for v, _ in wparts]))
+                     and torch.equal(whole[2], torch.cat([g for _, g in wparts]))),
+    }
+    with open(os.path.join(outdir, "config.json"), "w") as f:
+        json.dump({"ndim": ndim, "ndata": ndata, "nwalkers": nwalkers, "steps": steps,
+                   "nuts_steps": nuts_steps, "depths": list(depths)}, f)
+    cmd = [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--data-parallel-rank", outdir,
+           str(device)]
+    t0 = time.perf_counter()
+    run_ranks([cmd, cmd], os.path.join(outdir, "logs"), timeout)
+    ranks_s = time.perf_counter() - t0
+    ranks = []
+    for k in range(2):
+        with open(os.path.join(outdir, f"rank_{k}.json")) as f:
+            ranks.append(json.load(f))
+
+    # training: one step's gradient (f32), then the best checkpoints at
+    # each depth, whose trajectories part as the steps' rounding grows; one
+    # rank against itself at the last depth
+    mu1 = first_step_moment(device, dp_dir(outdir, "one", last), pb)
+    mu2 = np.load(os.path.join(outdir, "first_moment_two.npy"))
+    vx = np.loadtxt(os.path.join(rows, "val_samples_x.txt"))
+
+    def apart(a, b) -> dict:
+        ia, ib = dp_dir(outdir, *a), dp_dir(outdir, *b)
+        pa, pb_ = _predict(ia, vx, device), _predict(ib, vx, device)
+        la, lb = best_val_losses(ia, 1)[0], best_val_losses(ib, 1)[0]
+        d = np.abs(pb_ - pa) / pa.std(axis=0)
+        return {"pred_diff_over_pred_std": {"max": float(d.max()), "median": float(np.median(d))},
+                "best_val_loss": [la, lb], "best_val_rel_diff": abs(lb / la - 1)}
+
+    train = {"first_step_grad_max_diff_over_max": float(np.max(np.abs(mu2 - mu1))
+                                                        / np.max(np.abs(mu1))),
+             "two_vs_one": {e: apart(("one", e), ("two", e)) for e in depths},
+             "one_vs_one_again": apart(("one", last), ("again", last)),
+             "one_rank_s": train_one_s,
+             "tolerance": {"first_step": DP_GRAD_RTOL,
+                           "epoch_1_pred": [DP_EPOCH1_MAX, DP_EPOCH1_MEDIAN],
+                           "best_val": DP_TRAIN_RTOL}}
+    failures = []
+    first = train["two_vs_one"][depths[0]]["pred_diff_over_pred_std"]
+    if depths[0] != 1 or first["max"] > DP_EPOCH1_MAX or first["median"] > DP_EPOCH1_MEDIAN:
+        failures.append("two data ranks' best checkpoint after one epoch is apart from one "
+                        "rank's")
+    if not (train["first_step_grad_max_diff_over_max"] <= DP_GRAD_RTOL
+            and train["two_vs_one"][last]["best_val_rel_diff"] <= DP_TRAIN_RTOL):
+        failures.append("two data ranks trained apart from one rank")
+
+    # the samplers against one rank: bit for bit where a row's result does
+    # not depend on the rows beside it.  Else emcee, whose accept tests
+    # part only where a log-prob's last bits cross the uniform, stays
+    # within RTOL/ATOL at every sample; NUTS parts, so its first sample
+    # holds most walkers and its second half the same moments
+    chains = {}
+    for m, (one_rec, one_store) in ref.items():
+        two_store = O._open_backend(os.path.join(outdir, "two", m, O._chain_filename(m)), m)
+        c1, c2 = one_store.get_chain(), two_store.get_chain()
+        l1, l2 = one_store.get_log_prob(), two_store.get_log_prob()
+        same = bool(np.array_equal(c1, c2) and np.array_equal(l1, l2))
+        t1, t2 = (c[len(c) // 2:].reshape(-1, ndim) for c in (c1, c2))
+        moved = np.abs(t2.mean(axis=0) - t1.mean(axis=0)) / t1.std(axis=0)
+        close = np.isclose(c2, c1, rtol=RTOL, atol=ATOL).all(axis=2) & \
+            np.isclose(l2, l1, rtol=RTOL, atol=ATOL)
+        by_sample = (~close).sum(axis=1)
+        chains[m] = {"bit_for_bit": same, "max_abs_chain_diff": float(np.max(np.abs(c1 - c2))),
+                     "max_abs_log_prob_diff": float(np.max(np.abs(l1 - l2))),
+                     "walkers_apart_by_sample": [int(n) for n in by_sample],
+                     "max_mean_diff_over_std": float(moved.max()),
+                     "one_rank_s_per_100_steps": one_rec["s_per_100_steps"],
+                     "two_rank_s_per_100_steps": [r[m]["s_per_100_steps"] for r in ranks],
+                     "launches": {"one": one_rec["launches"],
+                                  "ranks": [r[m]["launches"] for r in ranks]},
+                     "collectives_rank0": ranks[0][m]["collectives"]}
+        if not np.isfinite(c2).all() or c2.shape != c1.shape:
+            failures.append(f"{m}: the two-rank chain {c2.shape} is not finite")
+        if row_independent[m] and not same:
+            failures.append(f"{m}: rows are independent, but two ranks' chain differs")
+        if m == "emcee" and by_sample.max():
+            failures.append(f"emcee: walkers apart from one rank's by sample {by_sample}")
+        if m == "nuts" and (by_sample[0] > DP_NUTS_FIRST_APART * nwalkers
+                            or chains[m]["max_mean_diff_over_std"] > DP_MEAN_SIGMA):
+            failures.append(f"nuts: {by_sample[0]} walkers apart at the first sample, the "
+                            f"means {chains[m]['max_mean_diff_over_std']} std apart")
+        if device.type == "cuda" and not all(r[m]["launches"]["fused_log_prob"] for r in ranks):
+            failures.append(f"{m}: fused_log_prob did not launch on every rank")
+
+    census = {k: ranks[0]["census"][k] for k in ranks[0]["census"]}
+    s = census["sampler"]
+    for m, want in (("emcee", 2), ("zeus", 2), ("hmc", 0), ("nuts", 0)):
+        if sum(s[m]["per_step"].values()) > want:
+            failures.append(f"census: {m} makes {s[m]['per_step']} collectives a step")
+    k1, k2 = census["trainer_k1"], census["trainer_k2"]
+    if (k1["per_step"] != {"all_reduce@data[0,1]": 1.0} or k2["per_step"]
+            or k1["cross_member_collectives"] or k2["cross_member_collectives"]):
+        failures.append("census of the trainer")
+    res = {"gloo_device_collectives": ranks[0]["gloo_device_collectives"],
+           "row_independent": row_independent, "train": train, "chains": chains,
+           "census": census, "ranks_s": ranks_s,
+           "train_collectives_rank0": ranks[0]["train"]["collectives"],
+           "train_s": [r["train"]["seconds"] for r in ranks]}
+    log(f"  9c: {json.dumps(res, default=float)}")
+    if failures:
+        raise AssertionError(f"9c: {failures}")
+    return res
+
+
+def phase_multiprocess(device, outdir) -> dict:
+    """Phase 9: 9a, 9b and 9c."""
+    res = {}
+    for key, fn in (("9a", phase_nccl), ("9b", phase_launch), ("9c", phase_data_parallel)):
+        t0 = time.perf_counter()
+        res[key] = fn(device, os.path.join(outdir, key))
+        res[key + "_s"] = time.perf_counter() - t0
+        log(f"  {key}: {res[key + '_s']:.1f} s")
+    return res
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--data-parallel-rank"]:
+        return dp_rank(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1643,7 +2222,20 @@ def main() -> int:
     seconds[8] = time.perf_counter() - t0
     log(f"  phase 8: {seconds[8]:.1f} s")
 
-    log(f"== 9. result (phase seconds {json.dumps(seconds)})")
+    log("== 9. the multi-process layer: nccl at one rank, two gloo ranks on the card")
+    log("  two ranks on one card use gloo (nccl refuses two ranks on one device); gloo "
+        "takes the CUDA tensors of all_reduce and all_gather and copies them through the host")
+    t0 = time.perf_counter()
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    try:
+        mp = phase_multiprocess(device, RUN_DIR)
+    finally:
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
+    seconds[9] = time.perf_counter() - t0
+    log(f"  phase 9: {seconds[9]:.1f} s")
+    sharded = {m: mp["9c"]["chains"][m]["launches"]["ranks"] for m in ("emcee", "nuts")}
+
+    log(f"== 10. result (phase seconds {json.dumps(seconds)})")
     kernels = []
     for k in REPLACES:
         r = rec[k]
@@ -1662,6 +2254,10 @@ def main() -> int:
                 "premodel": premodel["counts"]["launches"][k]
                 + premodel["gradient"]["counts"]["launches"][k],
                 "bf16": bf16["counts"]["launches"][k],
+                "nccl_one_rank_emcee": mp["9a"]["grouped"]["launches"][k],
+                "launcher_two_ranks_K4": [a[k] for a in mp["9b"]["launches"]],
+                "sharded_emcee_per_rank": [r[k] for r in sharded["emcee"]],
+                "sharded_nuts_per_rank": [r[k] for r in sharded["nuts"]],
             },
             "max_abs_err": r["abs"],
             "max_rel_err": r["rel"],

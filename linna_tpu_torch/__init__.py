@@ -40,7 +40,7 @@ from .orchestrator import (  # noqa: F401
     retrieve_model_wrapper,
     train_emulator,
 )
-from .parallel import EnsembleTrainer  # noqa: F401
+from .parallel.ensemble import EnsembleTrainer  # noqa: F401
 from .train import Trainer  # noqa: F401
 
 __version__ = "0.1.0"

@@ -21,6 +21,9 @@ Counterpart of ``linna_tpu/driver.py``:
 - MPI and multiprocess pools (``pool: mpi | multiprocess``): non-master
   ranks wait on the pool, then exit;
 - the wall-clock seconds saved to ``time.npy``.
+
+Over several ranks (``python -m linna_tpu_torch.launch``) every rank runs
+the driver and rank 0 alone writes the run directory.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import numpy as np
 from .config import yaml_load
 from .device import DeviceLike
 from .orchestrator import ml_sampler_core
+from .parallel import multihost as MH
 
 __all__ = [
     "ExternalLogLike",
@@ -229,7 +233,8 @@ def run_from_config(
     """Run the full pipeline from a loaded config dict on ``device``
     (``cuda:0`` by default); returns (chain, log_prob)."""
     outdir = params["outdir"]
-    os.makedirs(outdir, exist_ok=True)
+    if MH.is_primary():
+        os.makedirs(outdir, exist_ok=True)
 
     start = time.time()
     data, cov, mask, tmat = _load_data_cov(params)
@@ -283,7 +288,8 @@ def run_from_config(
         seed=int(params.get("seed", 0)),
         verbose=verbose,
     )
-    np.save(os.path.join(outdir, "time.npy"), time.time() - start)
+    if MH.is_primary():
+        np.save(os.path.join(outdir, "time.npy"), time.time() - start)
     return chain, log_prob
 
 

@@ -1,7 +1,7 @@
 """The LINNA outer loop (PyTorch): sample -> evaluate theory -> train
 emulator -> MCMC.
 
-Counterpart of ``linna_tpu/orchestrator.py`` in one process:
+Counterpart of ``linna_tpu/orchestrator.py``:
 
 - ``ml_sampler`` carries the paper's hyperparameters (linna/main.py:47-75);
 - ``ml_sampler_core`` runs the iterations: read and cut the previous chain,
@@ -19,6 +19,14 @@ crash.  Artifacts have the JAX package's names and layouts: an iteration
 directory written by either package is read by the other.  Training and
 sampling run on ``device`` (``cuda:0`` unless the caller passes another);
 the theory and the files stay on the host.
+
+Over several ranks (:mod:`linna_tpu_torch.parallel.multihost`) every rank
+runs this loop.  Rank 0 alone writes: the training points, transforms, the
+pre-model, ``finish.json``, the chains and the final results; every file
+gate is rank 0's view, broadcast (``primary_flag``); a barrier follows each
+phase that writes what the next one reads.  Training over the ranks is the
+ensemble trainer on the (ens, data) grid, sampling the walker-sharded
+``run_ensemble``.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from . import priors as P
 from . import sample_gen as SG
 from . import transforms as T
 from .device import DeviceLike, resolve_device
+from .parallel import multihost as MH
 from .samplers import backends, convergence
 from .samplers import run as sampler_run
 from .train import Trainer
@@ -329,17 +338,24 @@ def train_emulator(
     adds it under every member.
     Skipped when ``finish.json`` exists, or when every member's
     ``best.ckpt.npz`` does (then the marker is written), unless ``retrain``.
-    ``trace_rec`` receives the wall-time breakdown."""
+    ``trace_rec`` receives the wall-time breakdown.
+
+    Over several ranks every rank calls this: the members train on the
+    (ens, data) grid (one member over its data ranks when K = 1), unless
+    ``params["serial_members"]``, when rank 0 trains them one after
+    another; rank 0 writes, and every rank leaves through a barrier."""
     device = resolve_device(device)
     finish_path = os.path.join(outdir_in, FINISH_MARKER)
-    if os.path.isfile(finish_path) and not retrain:
+    if MH.primary_flag(os.path.isfile(finish_path)) and not retrain:
         return
     n_ensemble = int(params.get("nensemble", 1))
     member_dirs = [outdir_in] + [
         os.path.join(outdir_in, f"ens_{k}/") for k in range(1, n_ensemble)
     ]
-    if all(os.path.isfile(os.path.join(d, BEST_CKPT)) for d in member_dirs) and not retrain:
-        _write_finish(finish_path)
+    if MH.primary_flag(all(os.path.isfile(os.path.join(d, BEST_CKPT)) for d in member_dirs)
+                       ) and not retrain:
+        if MH.is_primary():
+            _write_finish(finish_path)
         return
 
     t0 = time.perf_counter()
@@ -350,7 +366,8 @@ def train_emulator(
                           device=device),
         T.YTransformData(torch.as_tensor(np.asarray(sigma, np.float32), device=device)),
     )
-    T.save_transforms(os.path.join(outdir_in, TRANSFORMS_FILE), transforms)
+    if MH.is_primary():
+        T.save_transforms(os.path.join(outdir_in, TRANSFORMS_FILE), transforms)
     if trace_rec is not None:
         trace_rec["stack_fit_s"] = round(time.perf_counter() - t0, 3)
 
@@ -382,7 +399,9 @@ def train_emulator(
         verbose=verbose,
     )
     rows = (stack.train_x, stack.train_y, stack.val_x, stack.val_y)
-    if n_ensemble > 1 and not params.get("serial_members"):
+    trainer = None
+    use_mesh = (n_ensemble > 1 or MH.process_count() > 1) and not params.get("serial_members")
+    if use_mesh:
         from .parallel.ensemble import EnsembleTrainer
 
         t0 = time.perf_counter()
@@ -395,7 +414,8 @@ def train_emulator(
         if trace_rec is not None:
             trace_rec["trainer"] = {k: round(v, 3) for k, v in trainer.phase_seconds.items()}
             trace_rec["epochs_run"] = trainer.epochs_run
-    else:
+    elif MH.is_primary():
+        # the one-rank trainer makes no collective: rank 0 alone runs it
         for mi, (member_dir, member_seed) in enumerate(zip(member_dirs, seeds)):
             os.makedirs(member_dir, exist_ok=True)
             t0 = time.perf_counter()
@@ -410,18 +430,22 @@ def train_emulator(
                     k: round(v, 3) for k, v in trainer.phase_seconds.items()
                 }
                 trace_rec[f"epochs_run_m{mi}"] = trainer.epochs_run
-    if trace_rec is not None:
+    if trace_rec is not None and trainer is not None:
         trace_rec["compute_dtype"] = str(trainer.compute_dtype or torch.float32)
-    _write_finish(finish_path)
+    if MH.is_primary():
+        _write_finish(finish_path)
+    # the other ranks read the checkpoints and transforms next
+    MH.barrier("train-emulator")
 
 
 def _fit_or_load_linear_model(outdir_in, stack, transforms, lm_cfg, device):
     """The iteration's pre-model: ``linear_model.npz`` when it exists, else
     fitted on the network's own input and output spaces (x-transformed
     inputs -> standardized targets), rows carrying a sentinel left out, and
-    saved."""
+    saved (by rank 0; every rank fits the same model from the same
+    rows)."""
     lm_path = os.path.join(outdir_in, LINEAR_MODEL_FILE)
-    if os.path.isfile(lm_path):
+    if MH.primary_flag(os.path.isfile(lm_path)):
         return LM.load_linear_model(lm_path, device=device)
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
     y_raw = np.asarray(stack.train_y, np.float64)
@@ -431,7 +455,8 @@ def _fit_or_load_linear_model(outdir_in, stack, transforms, lm_cfg, device):
         y_std = transforms.y_transform.inverse(transforms.y_data(f32(y_raw[good]))).cpu().numpy()
     kwargs = dict(lm_cfg) if isinstance(lm_cfg, dict) else {}
     model = LM.fit_linear_model(x_in[good], y_std, device=device, **kwargs)
-    LM.save_linear_model(lm_path, model)
+    if MH.is_primary():
+        LM.save_linear_model(lm_path, model)
     return model
 
 
@@ -607,7 +632,7 @@ def ml_sampler_core(
         _chain_filename(m)  # unknown names raise NotImplementedError(method)
     is_master = pool is None or pool.is_master()
     options = int(params.get("trainingoption", 0))
-    timer = PhaseTimer(outdir if is_master else None)
+    timer = PhaseTimer(outdir if is_master and MH.is_primary() else None)
     rng = np.random.default_rng(seed)
 
     chain = None
@@ -630,18 +655,22 @@ def ml_sampler_core(
 
         temperature = float(temperature) ** 2  # linna/main.py:153
         outdir_in = os.path.join(outdir, f"iter_{i}/")
-        if i > 0:
+        # the previous chain feeds only the training points, which rank 0
+        # draws and writes; the others wait at the barrier, then read them
+        if i > 0 and MH.is_primary():
             prev = os.path.join(outdir, f"iter_{i-1}/", _chain_filename(methods[i - 1]))
             with timer.phase("read_chain_and_cut", iteration=i - 1):
                 chain, _, _ = read_chain_and_cut(prev, nk, ntimes, method=methods[i - 1])
 
         nnsampler = SG.NNSampler(outdir_in, prior_range)
         with timer.phase("generate_training_point", iteration=i, n=nt + nv):
-            SG.generate_training_point(
-                theory, nnsampler, pool, outdir_in, nt, nv, data, inv_cov, chain,
-                nsigma=nsigma, omegab2cut=omegab2cut, options=options,
-                negloglike=negloglike, nbest_in=nbest_in, chisqcut=chisqcut,
-            )
+            if MH.is_primary():
+                SG.generate_training_point(
+                    theory, nnsampler, pool, outdir_in, nt, nv, data, inv_cov, chain,
+                    nsigma=nsigma, omegab2cut=omegab2cut, options=options,
+                    negloglike=negloglike, nbest_in=nbest_in, chisqcut=chisqcut,
+                )
+            MH.barrier(f"training-points-{i}")
         chain = None
 
         if not is_master:
@@ -650,11 +679,14 @@ def ml_sampler_core(
         with timer.phase("train_emulator", iteration=i) as trec, \
                 device_profile(f"train_iter{i}"):
             if params.get("train_subprocess"):
-                # training in a child process (crash isolation, CLI parity)
-                _train_in_subprocess(
-                    outdir_in, outdir_list, data, cov, sigma, dolog10index, ypositive,
-                    nnmodel_in, params, nbest_in is not None, verbose, device,
-                )
+                # training in a child process (crash isolation, CLI parity);
+                # rank 0 alone starts it, the child runs on one rank
+                if MH.is_primary():
+                    _train_in_subprocess(
+                        outdir_in, outdir_list, data, cov, sigma, dolog10index, ypositive,
+                        nnmodel_in, params, nbest_in is not None, verbose, device,
+                    )
+                MH.barrier(f"train-subprocess-{i}")
             else:
                 train_emulator(
                     outdir_in, outdir_list, data, cov, sigma, dolog10index, ypositive,
@@ -665,8 +697,8 @@ def ml_sampler_core(
         # sample unless this iteration's chain exists and is complete; a
         # chain whose sampler died mid-run resumes from its saved state
         chain_path = os.path.join(outdir_in, _chain_filename(methods[i]))
-        if (_open_backend(chain_path, methods[i]).exists()
-                and not _chain_incomplete(chain_path, methods[i])):
+        if MH.primary_flag(MH.is_primary() and _open_backend(chain_path, methods[i]).exists()
+                           and not _chain_incomplete(chain_path, methods[i])):
             continue
         in_saved, out_saved = _saved_shapes(outdir_in)
         out_cut = len(data) if out_saved != len(data) else None
@@ -722,6 +754,8 @@ def ml_sampler_core(
                 trace_rec=mrec,
                 device=device,
             )
+        # the next iteration and the final read take this chain on every rank
+        MH.barrier(f"mcmc-{i}")
 
     last = os.path.join(outdir, f"iter_{len(ntrainArr)-1}/", _chain_filename(methods[-1]))
     # the returned log-probs are the same cut rows as the chain
@@ -730,11 +764,15 @@ def ml_sampler_core(
             last, nkeepArr[-1], ntimesArr[-1], method=methods[-1], flat=True
         )
     if "nimp" in params and is_master:
-        with timer.phase("importance_sampling", n=int(params["nimp"])):
-            chain, log_prob_samples = _importance_sampling(
-                outdir, last, params, nkeepArr[-1], ntimesArr[-1], methods[-1], theory,
-                pool, pack, data, inv_cov, prior_range, rng,
-            )
+        imp_args = (outdir, last, params, nkeepArr[-1], ntimesArr[-1], methods[-1], theory,
+                    pool, pack, data, inv_cov, prior_range, rng)
+        if MH.is_primary():
+            with timer.phase("importance_sampling", n=int(params["nimp"])):
+                chain, log_prob_samples = _importance_sampling(*imp_args)
+        # the other ranks then take the file-gated reads of the same function
+        MH.barrier("importance")
+        if not MH.is_primary():
+            chain, log_prob_samples = _importance_sampling(*imp_args)
     return chain, log_prob_samples
 
 
@@ -792,5 +830,6 @@ def _importance_sampling(
     w = np.zeros_like(logw)
     w[keep] = np.exp(logw[keep] - np.max(logw[keep]))
     w = w / np.sum(w)
-    np.save(os.path.join(outdir, "weight_im.npy"), [log_prob_samples, logp, w])
+    if MH.is_primary():
+        np.save(os.path.join(outdir, "weight_im.npy"), [log_prob_samples, logp, w])
     return chain, log_prob_samples

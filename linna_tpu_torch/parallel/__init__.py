@@ -1,3 +1,2 @@
-"""Ensemble training: K emulator members stacked on one device."""
-
-from .ensemble import EnsembleTrainer  # noqa: F401
+"""Ensemble training over the ranks' (ens, data) grid (``ensemble``), and
+the multi-process layer (``multihost``, ``mesh``, ``census``)."""

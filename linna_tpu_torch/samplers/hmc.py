@@ -20,6 +20,16 @@ The carried ``grad`` saves one forward and backward per sample.  The draws
 come from one ``torch.Generator`` on the sampling device; they are not JAX's
 bits.  Functions that the tests feed JAX's draws take them as arguments
 (``find_reasonable_epsilon(r0=...)``).
+
+Walker-sharded over ranks (``shard``), each rank advances its block of
+walkers with no collective: every move is walker-local.  Every draw has a
+fixed size, one value per walker of the ensemble: HMC's momenta and accept
+uniforms, and NUTS's too, since its doubling loop runs all ``max_depth``
+levels with stopped lanes masked rather than ending when every lane has
+stopped.  So each draw is taken for the whole ensemble from the same
+generator on every rank and cut to the block, and the sharded HMC and NUTS
+chains are the one-rank chains, bit for bit wherever the likelihood's value
+and gradient for a row do not depend on the rows beside it.
 """
 
 from __future__ import annotations
@@ -87,6 +97,24 @@ def value_and_grad(log_prob_fn: Callable, x: torch.Tensor):
     return lp, torch.where(torch.isfinite(lp)[:, None], g, torch.zeros_like(g))
 
 
+class _Draws:
+    """Per-walker draws from the ensemble's generator ``g``: taken for the
+    whole ensemble and cut to this rank's walkers under ``shard``."""
+
+    def __init__(self, g: torch.Generator, w: int, shard=None):
+        self.g, self.shard = g, shard
+        self.w = w if shard is None else shard.nwalkers
+
+    def _cut(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.shard is None else self.shard.take(t)
+
+    def normal(self, d: int) -> torch.Tensor:
+        return self._cut(torch.randn((self.w, d), generator=self.g, device=self.g.device))
+
+    def uniform(self) -> torch.Tensor:
+        return self._cut(torch.rand(self.w, generator=self.g, device=self.g.device))
+
+
 def _mass(mass, d: int, device):
     m = torch.as_tensor(mass, dtype=torch.float32, device=device).expand(d)
     return 1.0 / m, torch.sqrt(m)
@@ -116,6 +144,7 @@ def find_reasonable_epsilon(
     log_prob_fn: Callable,
     mass=1.0,
     r0: Optional[torch.Tensor] = None,
+    shard=None,
 ) -> torch.Tensor:
     """Per-walker initial step size (H&G Alg. 4): double or halve eps until
     the one-step acceptance crosses 0.5, at most 100 times.  ``r0``: the
@@ -125,7 +154,7 @@ def find_reasonable_epsilon(
     inv_mass, sqrt_mass = _mass(mass, d, x0.device)
     lp0, grad0 = value_and_grad(log_prob_fn, x0)
     if r0 is None:
-        r0 = torch.randn((w, d), generator=rng, device=x0.device) * sqrt_mass
+        r0 = _Draws(rng, w, shard).normal(d) * sqrt_mass
     r0 = torch.as_tensor(r0, dtype=torch.float32, device=x0.device)
     joint0 = lp0 - _kinetic(r0, inv_mass)
 
@@ -159,6 +188,7 @@ def init_hmc_state(
     log_prob_fn: Callable,
     epsilon: Optional[float] = None,
     mass=1.0,
+    shard=None,
 ) -> HMCState:
     """``epsilon=None`` (the default) runs the per-walker reasonable-epsilon
     search with the ``mass`` that the chunks will integrate with."""
@@ -166,7 +196,7 @@ def init_hmc_state(
     lp, grad = value_and_grad(log_prob_fn, x0)
     w = x0.shape[0]
     if epsilon is None:
-        eps = find_reasonable_epsilon(rng, x0, log_prob_fn, mass)
+        eps = find_reasonable_epsilon(rng, x0, log_prob_fn, mass, shard=shard)
     else:
         eps = torch.full((w,), float(epsilon), dtype=torch.float32, device=x0.device)
     return HMCState(x0, lp, grad, rng, eps, torch.zeros(w, dtype=torch.int32, device=x0.device))
@@ -179,22 +209,25 @@ def hmc_chunk(
     nsteps: int,
     n_leapfrog: int = 10,
     mass=1.0,
+    shard=None,
 ):
     """Advance ``nsteps`` HMC samples, each ``n_leapfrog`` leapfrog steps and
     a Metropolis test with the kinetic energy; returns (state, chain
-    f32[nsteps, W, D], log_probs f32[nsteps, W])."""
+    f32[nsteps, W, D], log_probs f32[nsteps, W]), W this rank's walkers
+    under ``shard``."""
     coords, lp0, grad0, g, eps, accepted = state
     w, d = coords.shape
+    draws = _Draws(g, w, shard)
     inv_mass, sqrt_mass = _mass(mass, d, coords.device)
     chain = torch.empty((nsteps, w, d), dtype=torch.float32, device=coords.device)
     lps = torch.empty((nsteps, w), dtype=torch.float32, device=coords.device)
     for s in range(nsteps):
-        r0 = torch.randn((w, d), generator=g, device=coords.device) * sqrt_mass
+        r0 = draws.normal(d) * sqrt_mass
         x, r, lp, grad = coords, r0, lp0, grad0
         for _ in range(n_leapfrog):
             x, r, lp, grad = _leapfrog(log_prob_fn, x, r, grad, eps, inv_mass)
         log_accept = (lp - _kinetic(r, inv_mass)) - (lp0 - _kinetic(r0, inv_mass))
-        accept = torch.log(torch.rand(w, generator=g, device=coords.device)) < log_accept
+        accept = torch.log(draws.uniform()) < log_accept
         coords = torch.where(accept[:, None], x, coords)
         lp0 = torch.where(accept, lp, lp0)
         grad0 = torch.where(accept[:, None], grad, grad0)
@@ -234,7 +267,8 @@ def _no_uturn(zm, zp, rm, rp, inv_mass):
     )
 
 
-def _build_tree(log_prob_fn, z, r, grad, v, depth, eps, joint0, log_slice, g, inv_mass) -> _Tree:
+def _build_tree(log_prob_fn, z, r, grad, v, depth, eps, joint0, log_slice, draws, inv_mass
+                ) -> _Tree:
     """H&G Alg. 3 ``BuildTree`` for every walker at once, the recursion
     unrolled over the Python int ``depth``; ``v`` (W,) is each walker's
     direction, +1 or -1."""
@@ -255,19 +289,20 @@ def _build_tree(log_prob_fn, z, r, grad, v, depth, eps, joint0, log_slice, g, in
             torch.ones_like(lp_new),
         )
 
-    t1 = _build_tree(log_prob_fn, z, r, grad, v, depth - 1, eps, joint0, log_slice, g, inv_mass)
+    t1 = _build_tree(log_prob_fn, z, r, grad, v, depth - 1, eps, joint0, log_slice, draws,
+                     inv_mass)
     # the second half starts from the edge in direction v; it is computed for
     # every lane and masked by s1 (stopped lanes keep the first half)
     fwd = v > 0
     t2 = _build_tree(
         log_prob_fn, _where(fwd, t1.zp, t1.zm), _where(fwd, t1.rp, t1.rm),
-        _where(fwd, t1.gp, t1.gm), v, depth - 1, eps, joint0, log_slice, g, inv_mass,
+        _where(fwd, t1.gp, t1.gm), v, depth - 1, eps, joint0, log_slice, draws, inv_mass,
     )
     back, ahead = t1.s & (v < 0), t1.s & fwd
     zm, rm, gm = (_where(back, a, b) for a, b in ((t2.zm, t1.zm), (t2.rm, t1.rm), (t2.gm, t1.gm)))
     zp, rp, gp = (_where(ahead, a, b) for a, b in ((t2.zp, t1.zp), (t2.rp, t1.rp), (t2.gp, t1.gp)))
     n2 = torch.where(t1.s, t2.n, 0.0)
-    u = torch.rand(v.shape[0], generator=g, device=v.device)
+    u = draws.uniform()
     take2 = t1.s & (u < n2 / torch.clamp(t1.n + n2, min=1e-30))
     zprop = _where(take2, t2.zprop, t1.zprop)
     lpprop = torch.where(take2, t2.lpprop, t1.lpprop)
@@ -279,16 +314,17 @@ def _build_tree(log_prob_fn, z, r, grad, v, depth, eps, joint0, log_slice, g, in
     )
 
 
-def _nuts_sample(log_prob_fn, max_depth: int, g, x, lp, grad, eps, inv_mass, sqrt_mass):
-    """One NUTS sample of every walker (H&G Alg. 3's doubling loop).
-    ``grad`` is the carried gradient at ``x``.  Returns (x', lp', grad',
-    alpha, n_alpha)."""
+def _nuts_sample(log_prob_fn, max_depth: int, draws, x, lp, grad, eps, inv_mass, sqrt_mass):
+    """One NUTS sample of every walker (H&G Alg. 3's doubling loop, all
+    ``max_depth`` levels).  ``grad`` is the carried gradient at ``x``;
+    ``draws`` a :class:`_Draws`.  Returns (x', lp', grad', alpha,
+    n_alpha)."""
     w, d = x.shape
     dev = x.device
-    r0 = torch.randn((w, d), generator=g, device=dev) * sqrt_mass
+    r0 = draws.normal(d) * sqrt_mass
     joint0 = lp - _kinetic(r0, inv_mass)
     # log of the slice variable u ~ U(0, exp(joint0))
-    log_slice = joint0 + torch.log(torch.rand(w, generator=g, device=dev))
+    log_slice = joint0 + torch.log(draws.uniform())
     zm = zp = zprop = x
     rm = rp = r0
     gm = gp = gprop = grad
@@ -298,18 +334,18 @@ def _nuts_sample(log_prob_fn, max_depth: int, g, x, lp, grad, eps, inv_mass, sqr
     alpha_sum = torch.zeros(w, device=dev)
     n_alpha = torch.zeros(w, device=dev)
     for depth in range(max_depth):
-        v = torch.where(torch.rand(w, generator=g, device=dev) < 0.5, 1.0, -1.0)
+        v = torch.where(draws.uniform() < 0.5, 1.0, -1.0)
         fwd = v > 0
         t = _build_tree(
             log_prob_fn, _where(fwd, zp, zm), _where(fwd, rp, rm), _where(fwd, gp, gm),
-            v, depth, eps, joint0, log_slice, g, inv_mass,
+            v, depth, eps, joint0, log_slice, draws, inv_mass,
         )
         upd = s  # only lanes still running may extend the trajectory
         back, ahead = upd & (v < 0), upd & fwd
         zm, rm, gm = _where(back, t.zm, zm), _where(back, t.rm, rm), _where(back, t.gm, gm)
         zp, rp, gp = _where(ahead, t.zp, zp), _where(ahead, t.rp, rp), _where(ahead, t.gp, gp)
         accept_prob = torch.clamp(t.n / torch.clamp(n_total, min=1e-30), max=1.0)
-        take = upd & t.s & (torch.rand(w, generator=g, device=dev) < accept_prob)
+        take = upd & t.s & (draws.uniform() < accept_prob)
         zprop, gprop = _where(take, t.zprop, zprop), _where(take, t.gprop, gprop)
         lpprop = torch.where(take, t.lpprop, lpprop)
         alpha_sum = alpha_sum + torch.where(upd, t.a, 0.0)
@@ -326,11 +362,12 @@ def init_nuts_state(
     log_prob_fn: Callable,
     m_adapt: int = 100,
     mass=1.0,
+    shard=None,
 ) -> NUTSState:
     """Initialize, including the per-walker reasonable-epsilon search."""
     x0 = torch.as_tensor(x0, dtype=torch.float32, device=rng.device)
     lp, grad = value_and_grad(log_prob_fn, x0)
-    eps = find_reasonable_epsilon(rng, x0, log_prob_fn, mass)
+    eps = find_reasonable_epsilon(rng, x0, log_prob_fn, mass, shard=shard)
     w = x0.shape[0]
     zeros = torch.zeros(w, dtype=torch.float32, device=x0.device)
     return NUTSState(
@@ -347,18 +384,21 @@ def nuts_chunk(
     nsteps: int,
     max_depth: int = 5,
     mass=1.0,
+    shard=None,
 ):
-    """Advance ``nsteps`` NUTS samples of the whole ensemble; dual averaging
-    adapts the step sizes during the first ``state.m_adapt`` samples.
-    Returns (state, chain f32[nsteps, W, D], log_probs f32[nsteps, W])."""
+    """Advance ``nsteps`` NUTS samples of the whole ensemble (this rank's
+    walkers under ``shard``); dual averaging adapts the step sizes during
+    the first ``state.m_adapt`` samples.  Returns (state, chain f32[nsteps,
+    W, D], log_probs f32[nsteps, W])."""
     coords = state.coords
     w, d = coords.shape
+    draws = _Draws(state.rng, w, shard)
     inv_mass, sqrt_mass = _mass(mass, d, coords.device)
     chain = torch.empty((nsteps, w, d), dtype=torch.float32, device=coords.device)
     lps = torch.empty((nsteps, w), dtype=torch.float32, device=coords.device)
     for s in range(nsteps):
         x_new, lp_new, grad_new, alpha, _ = _nuts_sample(
-            log_prob_fn, max_depth, state.rng, state.coords, state.log_prob, state.grad,
+            log_prob_fn, max_depth, draws, state.coords, state.log_prob, state.grad,
             state.epsilon, inv_mass, sqrt_mass,
         )
         # dual averaging (H&G Alg. 6)

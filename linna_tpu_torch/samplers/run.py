@@ -27,6 +27,19 @@ markers; the gradient samplers' preconditioner goes to ``precond.npz``.  The
 JAX package stores its RNG under ``key`` instead, so each package's field
 check resumes the other's chain statistically from its last positions, with
 a warning, and never restores a foreign RNG state.
+
+Over several ranks every rank runs this same loop.  With ``shard_walkers``
+and a walker count that divides into two blocks per rank, each rank
+advances its block of the ensemble (the moves' ``shard`` argument); else
+every rank advances the whole ensemble.  The host decisions come from
+values identical on every rank: the resume flag, the state blob, the
+chain's last positions and the preconditioner are read (or computed) by
+rank 0 and broadcast, the tau verdict is rank 0's and broadcast, and each
+chunk is gathered whole (:func:`linna_tpu_torch.parallel.multihost.fetch`)
+before the host appends it and tests convergence.  Only rank 0 writes the
+chain store, the state blob and ``precond.npz``.  The saved ``rng_state``
+is the generator every rank shares, so a resumed sharded run restores the
+same stream on every rank.
 """
 
 from __future__ import annotations
@@ -41,6 +54,8 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..parallel import mesh as ME
+from ..parallel import multihost as MH
 from . import backends, convergence, hmc, precondition, slicemove, stretch
 
 __all__ = ["run_ensemble", "EMCEE_FILENAME", "ZEUS_FILENAME", "GRADIENT_METHODS"]
@@ -78,16 +93,18 @@ def _np_transform(transform):
     return apply
 
 
-def _state_to_blob(state) -> dict:
-    return {
-        ("rng_state" if name == "rng" else name): (
-            v.get_state().numpy() if name == "rng" else v.cpu().numpy()
-        )
-        for name, v in zip(state._fields, state)
-    }
+def _state_to_blob(state, shard=None) -> dict:
+    """The state's fields as host numpy, the whole ensemble's (one gather
+    of the per-walker fields when they are sharded)."""
+    names = [n for n in state._fields if n != "rng"]
+    blob = dict(zip(names, MH.fetch([getattr(state, n) for n in names], shard)))
+    blob["rng_state"] = state.rng.get_state().numpy()
+    return blob
 
 
-def _blob_to_state(cls, blob: dict, device: torch.device):
+def _blob_to_state(cls, blob: dict, device: torch.device, shard=None):
+    """The state from a blob; per-walker fields cut to this rank's block
+    under ``shard``."""
     kwargs = {}
     for name in cls._fields:
         if name == "rng":
@@ -95,7 +112,8 @@ def _blob_to_state(cls, blob: dict, device: torch.device):
             rng.set_state(torch.as_tensor(np.asarray(blob["rng_state"], dtype=np.uint8)))
             kwargs[name] = rng
         else:
-            kwargs[name] = torch.as_tensor(np.asarray(blob[name])).to(device)
+            v = torch.as_tensor(np.asarray(blob[name])).to(device)
+            kwargs[name] = v if shard is None or v.dim() == 0 else shard.take(v)
     return cls(**kwargs)
 
 
@@ -142,6 +160,7 @@ def run_ensemble(
     progress: bool = False,
     trace_rec: Optional[dict] = None,
     device: DeviceLike = None,
+    shard_walkers: bool = True,
 ):
     """Sample until converged (or ``max_iterations`` steps); returns the
     backend holding the chain.
@@ -155,7 +174,8 @@ def run_ensemble(
     ``convergence_check=False`` runs exactly ``max_iterations`` steps with
     no tau/stationarity evaluation.  ``trace_rec``: optional dict receiving
     this call's wall-time breakdown (the MAP search under ``precond``) and
-    step count.
+    step count.  ``shard_walkers``: over several ranks, each advances its
+    block of walkers when ``nwalkers`` divides into two blocks per rank.
     """
     if method not in _STATE_CLS:
         raise NotImplementedError(method)
@@ -165,7 +185,9 @@ def run_ensemble(
     t_setup0 = time.perf_counter()
     if not tau_walkers or tau_walkers <= 0:
         tau_walkers = None
-    os.makedirs(outdir, exist_ok=True)
+    primary = MH.is_primary()
+    if primary:
+        os.makedirs(outdir, exist_ok=True)
     x0 = np.asarray(x0, dtype=np.float32)
     nwalkers, ndim = x0.shape
     if method == "zeus" and nwalkers < 4:
@@ -180,6 +202,20 @@ def run_ensemble(
     else:
         backend = backends.EmceeBackend(os.path.join(outdir, EMCEE_FILENAME))
     rng = torch.Generator(device=device).manual_seed(int(seed))
+    world = MH.process_count()
+    shard = None
+    if shard_walkers and world > 1:
+        if nwalkers % (2 * world) == 0:
+            shard = ME.walker_shard(nwalkers)
+        else:
+            warnings.warn(
+                f"walker sharding skipped: nwalkers={nwalkers} is not a multiple of "
+                f"2*process_count={2 * world}; every rank advances the whole ensemble; "
+                f"round nwalkers up to {-(-nwalkers // (2 * world)) * 2 * world} to use all "
+                f"{world} ranks",
+                stacklevel=2,
+            )
+    take = (lambda a: a) if shard is None else shard.take
 
     # in-memory window of the most recent ~tau_window steps (the file keeps
     # the whole chain); tau and the stationarity test read trailing windows
@@ -194,8 +230,10 @@ def run_ensemble(
             rolling_len -= len(rolling[0])
             rolling.pop(0)
 
-    resume = backend.initialized
-    state_blob = backend.load_state() if resume else None
+    # rank 0's view of the store, broadcast: another rank may see the file
+    # mid-reset and would take another branch
+    resume = MH.primary_flag(backend.initialized if primary else False)
+    state_blob = MH.broadcast_from_primary(backend.load_state) if resume else None
     if state_blob is not None:
         # emcee, hmc and nuts share one chain file, so the blob may be
         # another method's
@@ -224,8 +262,8 @@ def run_ensemble(
         # sample in the MAP Hessian's eigenbasis with unit mass; the
         # preconditioner persists so a resume continues in the same space
         pfile = os.path.join(outdir, PRECOND_FILENAME)
-        if resume and os.path.isfile(pfile):
-            precond = _load_precond(pfile)
+        if resume and MH.primary_flag(primary and os.path.isfile(pfile)):
+            precond = MH.broadcast_from_primary(lambda: _load_precond(pfile))
             if precond is None:
                 # the saved state lives in the old space: never restore it
                 # against a new basis
@@ -237,18 +275,24 @@ def run_ensemble(
                     stacklevel=2,
                 )
         if precond is None:
+            # rank 0 searches; every rank samples in its space, bit for bit
             t0 = time.perf_counter()
-            precond = precondition.calc_hess_mass_mat(log_prob_fn, np.mean(x0, axis=0),
-                                                      device=device)
+            precond = MH.broadcast_from_primary(
+                lambda: precondition.calc_hess_mass_mat(log_prob_fn, np.mean(x0, axis=0),
+                                                        device=device)
+            )
             ps["precond"] += time.perf_counter() - t0
-            _save_precond(pfile, precond)
+            if primary:
+                _save_precond(pfile, precond)
         log_prob_fn = precond.wrap_log_prob(log_prob_fn, device=device)
 
     iteration = 0
     hist_pending = 0  # persisted steps not yet read into the window
     if resume:
-        x0 = np.asarray(backend.get_last_sample(), dtype=np.float32)
-        iteration = int(backend.iteration)
+        x0, iteration = MH.broadcast_from_primary(
+            lambda: (np.asarray(backend.get_last_sample(), dtype=np.float32),
+                     int(backend.iteration))
+        )
         if (
             state_blob is not None
             and "_iteration" in state_blob
@@ -266,12 +310,14 @@ def run_ensemble(
             state_blob = None
         hist_pending = iteration
     elif method == "emcee":
-        backend.reset(nwalkers, ndim)
+        if primary:
+            backend.reset(nwalkers, ndim)
         # burn-in, then a restart from the high-probability set
-        bstate = stretch.init_state(rng, x0, log_prob_fn)
-        _, bchain, blps = stretch.stretch_chunk(log_prob_fn, bstate, 100, a)
-        flat = bchain.reshape(-1, ndim).cpu().numpy()
-        flat_lp = blps.reshape(-1).cpu().numpy()
+        bstate = stretch.init_state(rng, take(torch.as_tensor(x0)), log_prob_fn)
+        _, bchain, blps = stretch.stretch_chunk(log_prob_fn, bstate, 100, a, shard=shard)
+        bchain, blps = MH.fetch((bchain, blps), shard, dim=1)
+        flat = bchain.reshape(-1, ndim)
+        flat_lp = blps.reshape(-1)
         top = flat[np.argsort(flat_lp)[::-1][: int(50 * nwalkers)]]
         pick = torch.randint(0, len(top), (nwalkers,), generator=rng, device=device)
         x0 = top[pick.cpu().numpy()]
@@ -280,7 +326,8 @@ def run_ensemble(
         if resume:
             x0 = np.asarray(precond.to_sampling(x0), dtype=np.float32)
         else:
-            backend.reset(nwalkers, ndim)
+            if primary:
+                backend.reset(nwalkers, ndim)
             x0 = precond.draw_x0(np.random.default_rng(seed), nwalkers)
 
     def _hydrate() -> None:
@@ -299,7 +346,7 @@ def run_ensemble(
     if state_blob is not None:
         # exact resume: the generator state, step sizes, dual averaging,
         # slice mu and counters, and the convergence bookkeeping
-        state = _blob_to_state(_STATE_CLS[method], state_blob, device)
+        state = _blob_to_state(_STATE_CLS[method], state_blob, device, shard)
         if "accepted" in state_blob:
             prev_accepted = np.asarray(state_blob["accepted"], np.float64)
         old_tau = np.asarray(state_blob["_old_tau"], np.float64)
@@ -308,13 +355,13 @@ def run_ensemble(
         n_chunks_done = int(state_blob["_n_chunks_done"])
     else:
         t0 = time.perf_counter()
-        x0_dev = torch.as_tensor(x0, device=device)
+        x0_dev = take(torch.as_tensor(x0, device=device))
         if method == "emcee":
             state = stretch.init_state(rng, x0_dev, log_prob_fn)
         elif method == "hmc":
-            state = hmc.init_hmc_state(rng, x0_dev, log_prob_fn)
+            state = hmc.init_hmc_state(rng, x0_dev, log_prob_fn, shard=shard)
         elif method == "nuts":
-            state = hmc.init_nuts_state(rng, x0_dev, log_prob_fn, m_adapt=m_adapt)
+            state = hmc.init_nuts_state(rng, x0_dev, log_prob_fn, m_adapt=m_adapt, shard=shard)
         else:
             state = slicemove.init_slice_state(rng, x0_dev, log_prob_fn)
         if device.type == "cuda":
@@ -330,7 +377,10 @@ def run_ensemble(
     finished_flag = False
 
     def _save_state() -> None:
-        blob = _state_to_blob(state)
+        # every rank joins the gather; rank 0 writes
+        blob = _state_to_blob(state, shard)
+        if not primary:
+            return
         blob["_method"] = np.bytes_(method)
         blob["_iteration"] = np.asarray(int(iteration))
         blob["_old_tau"] = np.atleast_1d(np.asarray(old_tau, np.float64))
@@ -345,21 +395,32 @@ def run_ensemble(
 
     def _tau_check():
         """The three-part convergence test on the trailing window; advances
-        the tau bookkeeping.  Returns (converged, nan_stop)."""
+        the tau bookkeeping.  Returns (converged, nan_stop).  Rank 0 tests
+        (its window may read the store) and every rank takes its verdict
+        and tau."""
         nonlocal old_tau, last_tau_iter, next_tau_iter
         steps_since_tau = iteration - last_tau_iter
         last_tau_iter = iteration
         next_tau_iter = iteration * tau_check_growth
-        # |tau_new - tau_old| / tau per check_every steps, whatever the
-        # geometric cadence put between the two estimates
-        dtau_scale = check_every / max(steps_since_tau, check_every)
+        converged, nan_stop, tau = MH.broadcast_from_primary(
+            lambda: _estimate(check_every / max(steps_since_tau, check_every))
+        )
+        if nan_stop:
+            return False, True
+        old_tau = tau
+        return converged, False
+
+    def _estimate(dtau_scale):
+        """(converged, nan_stop, tau); ``dtau_scale`` normalizes
+        |tau_new - tau_old| / tau to one ``check_every`` interval, whatever
+        the geometric cadence put between the two estimates."""
         _hydrate()
         recent = np.concatenate(rolling) if len(rolling) > 1 else rolling[0]
         if method != "zeus":
             # per-parameter tau over the window, as emcee does
             tau = convergence.integrated_time(recent[-tau_window:], max_walkers=tau_walkers)
             if np.isnan(np.sum(tau)) and iteration > 10:
-                return False, True
+                return False, True, None
             converged = bool(np.all(tau * ntimes < iteration))
             converged &= bool(np.all(np.abs(old_tau - tau) / tau * dtau_scale < tautol))
             window = max(int(nk * np.mean(tau)), 2)
@@ -380,8 +441,7 @@ def run_ensemble(
         converged &= convergence.check_mean_std(recent[-window:], meanshift, stdshift)
         if progress:
             print(f"iter {iteration}: tau={np.mean(tau):.2f} converged={converged}", flush=True)
-        old_tau = tau
-        return bool(converged), False
+        return bool(converged), False, tau
 
     def _finish_trace() -> None:
         if trace_rec is not None:
@@ -408,33 +468,39 @@ def run_ensemble(
 
     def _advance(st):
         if method == "emcee":
-            return stretch.stretch_chunk(log_prob_fn, st, check_every, a)
+            return stretch.stretch_chunk(log_prob_fn, st, check_every, a, shard=shard)
         if method == "hmc":
-            return hmc.hmc_chunk(log_prob_fn, st, check_every, n_leapfrog)
+            return hmc.hmc_chunk(log_prob_fn, st, check_every, n_leapfrog, shard=shard)
         if method == "nuts":
-            return hmc.nuts_chunk(log_prob_fn, st, check_every, max_depth)
-        return slicemove.slice_chunk(log_prob_fn, st, check_every, slice_max_steps)
+            return hmc.nuts_chunk(log_prob_fn, st, check_every, max_depth, shard=shard)
+        return slicemove.slice_chunk(log_prob_fn, st, check_every, slice_max_steps, shard=shard)
 
     while iteration < max_iterations:
         t0 = time.perf_counter()
         state, chain, lps = _advance(state)
         if method == "zeus" and n_chunks_done < tune_chunks:
             state = slicemove.tune_mu(state)
-        chain = chain.cpu().numpy()
-        lps = lps.cpu().numpy().astype(np.float64)
+        # the whole chunk on every rank (one gather when sharded): the host
+        # work below sees the same values everywhere; rank 0 appends
+        parts = (chain, lps) if method == "zeus" else (chain, lps, state.accepted)
+        chain, lps, *acc = MH.fetch(parts, shard, dim=(1, 1, 0)[:len(parts)])
+        lps = lps.astype(np.float64)
         t1 = time.perf_counter()
         ps["device_wait"] += t1 - t0
         if method == "zeus":
-            backend.append(chain.astype(np.float64), lps, transform=tfn)
+            if primary:
+                backend.append(chain.astype(np.float64), lps, transform=tfn)
         else:
             # cumulative acceptances (counts; the mean alpha for hmc/nuts):
             # the file takes each chunk's delta
-            acc = state.accepted.cpu().numpy().astype(np.float64)
+            acc = acc[0].astype(np.float64)
             if method in GRADIENT_METHODS:
                 # stored in the original (whitened-prior) space
                 chain = precond.to_original(chain.astype(np.float64).reshape(-1, ndim))
                 chain = chain.reshape(-1, nwalkers, ndim)
-            backend.append(chain.astype(np.float64), lps, acc - prev_accepted, transform=tfn)
+            if primary:
+                backend.append(chain.astype(np.float64), lps, acc - prev_accepted,
+                               transform=tfn)
             prev_accepted = acc
         _push(chain)
         iteration += check_every

@@ -20,6 +20,17 @@ As in the JAX package:
 The JAX ``while_loop``s are Python loops here, with one host
 synchronisation per iteration for the loop condition.  The draws come from
 one ``torch.Generator`` on the sampling device; they are not JAX's bits.
+
+Walker-sharded over ranks (``shard``), a chunk advances this rank's block
+of each half-ensemble and gathers the complementary half whole once per
+half-update (two all-gathers a step); the step-fixed draws are the whole
+ensemble's, cut to the block.  The stepping-out and shrink loops run on the
+block alone, so they end per rank, and the shrink loop's draws come from a
+stream of this rank's own (seeded from the shared generator, which every
+rank advances alike), as JAX folds the device index into them: sharded and
+one-rank zeus chains agree in distribution, not draw for draw.  The
+expansion and contraction counters count the chunk from zero on each rank
+and are summed over the ranks once per chunk (one all-reduce).
 """
 
 from __future__ import annotations
@@ -28,11 +39,13 @@ from typing import Callable, NamedTuple, Union
 
 import torch
 
+from ..parallel import multihost as MH
+
 __all__ = ["SliceState", "init_slice_state", "slice_chunk", "tune_mu"]
 
 
 class SliceState(NamedTuple):
-    coords: torch.Tensor  # f32[W, D]
+    coords: torch.Tensor  # f32[W, D] (this rank's walkers when sharded)
     log_prob: torch.Tensor  # f32[W]
     rng: torch.Generator
     mu: torch.Tensor  # f32[] tunable scale
@@ -129,15 +142,20 @@ def slice_chunk(
     state: SliceState,
     nsteps: int,
     max_steps: int = 100,
+    shard=None,
 ):
     """Advance ``nsteps`` ensemble-slice steps; returns
-    (state, chain f32[nsteps, W, D], log_probs f32[nsteps, W])."""
+    (state, chain f32[nsteps, W, D], log_probs f32[nsteps, W]), W this
+    rank's walkers when ``shard`` is given."""
     coords, lp, g, mu, n_expand, n_contract = state
     w, ndim = coords.shape
-    half = w // 2
+    hl = w // 2
+    half = hl if shard is None else shard.half
+    if shard is not None and w != shard.local:
+        raise ValueError(f"{w} walkers on this rank; the walker shard holds {shard.local}")
     dev = coords.device
-    c2 = coords.reshape(2, half, ndim)
-    lp2 = lp.reshape(2, half)
+    c2 = coords.reshape(2, hl, ndim)
+    lp2 = lp.reshape(2, hl)
 
     shape = (nsteps, 2, half)
     ls = torch.randint(0, half, shape, generator=g, device=dev)
@@ -145,19 +163,29 @@ def slice_chunk(
     ms = (ls + offs) % half
     expos = torch.empty(shape, device=dev).exponential_(generator=g)
     u0s = torch.rand(shape, generator=g, device=dev)
+    sg = g
+    gather = lambda x: x  # noqa: E731
+    if shard is not None:
+        ls, ms, expos, u0s = (t[..., shard.block] for t in (ls, ms, expos, u0s))
+        gather = shard.gather_half
+        seed = int(torch.randint(0, 2**62, (1,), generator=g, device=dev))
+        sg = torch.Generator(device=dev).manual_seed(seed + shard.rank)
+        # this chunk's counts from zero: their sum over the ranks is added
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        totals, n_expand, n_contract = (n_expand, n_contract), zero, zero.clone()
 
     def shrink_u(it: int) -> torch.Tensor:
-        return torch.rand(half, generator=g, device=dev)
+        return torch.rand(hl, generator=sg, device=dev)
 
     chain = torch.empty((nsteps, w, ndim), dtype=torch.float32, device=dev)
     lps = torch.empty((nsteps, w), dtype=torch.float32, device=dev)
     for s in range(nsteps):
         nx0, nlp0, ne0, nc0 = _slice_half(
-            log_prob_fn, max_steps, c2[0], lp2[0], c2[1], mu,
+            log_prob_fn, max_steps, c2[0], lp2[0], gather(c2[1]), mu,
             ls[s, 0], ms[s, 0], expos[s, 0], u0s[s, 0], shrink_u,
         )
         nx1, nlp1, ne1, nc1 = _slice_half(
-            log_prob_fn, max_steps, c2[1], lp2[1], nx0, mu,
+            log_prob_fn, max_steps, c2[1], lp2[1], gather(nx0), mu,
             ls[s, 1], ms[s, 1], expos[s, 1], u0s[s, 1], shrink_u,
         )
         c2 = torch.stack([nx0, nx1])
@@ -166,6 +194,9 @@ def slice_chunk(
         lps[s] = lp2.reshape(w)
         n_expand = n_expand + ne0 + ne1
         n_contract = n_contract + nc0 + nc1
+    if shard is not None:
+        counts = MH.all_reduce(torch.stack([n_expand, n_contract]))
+        n_expand, n_contract = totals[0] + counts[0], totals[1] + counts[1]
     new_state = SliceState(c2.reshape(w, ndim), lp2.reshape(w), g, mu, n_expand, n_contract)
     return new_state, chain, lps
 

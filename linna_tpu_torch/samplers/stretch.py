@@ -16,11 +16,20 @@ ensemble is carried as ``(2, W/2, D)``.  :func:`stretch_steps` takes those
 draws as arguments, so the same draws can be fed to both packages.  The
 draws come from one ``torch.Generator`` on the sampling device; they are not
 JAX's bits.
+
+Walker-sharded over ranks (``shard``, a
+:class:`linna_tpu_torch.parallel.mesh.WalkerShard`), a chunk advances this
+rank's block of each half-ensemble; the complementary half is gathered
+whole once per half-update (two all-gathers a step, the chunk's only
+collectives, as ``shard_over_walkers`` gives the JAX package).  The draws
+are taken for the whole ensemble from the same generator on every rank and
+cut to the block, so the chain is one rank's chain, bit for bit wherever
+the likelihood's value for a row does not depend on the rows beside it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -28,7 +37,7 @@ __all__ = ["EnsembleState", "init_state", "stretch_chunk", "stretch_steps"]
 
 
 class EnsembleState(NamedTuple):
-    coords: torch.Tensor  # f32[W, D]
+    coords: torch.Tensor  # f32[W, D] (this rank's walkers when sharded)
     log_prob: torch.Tensor  # f32[W]
     rng: torch.Generator
     accepted: torch.Tensor  # i32[W] cumulative acceptance counts
@@ -64,12 +73,15 @@ def _half_update(
 
 
 @torch.no_grad()
-def stretch_steps(log_prob_fn, a: float, carry, xs):
+def stretch_steps(log_prob_fn, a: float, carry, xs, gather: Optional[Callable] = None):
     """The chunk's steps on the ``(2, W/2, ...)`` carry ``(coords, log_prob,
     accepted)`` with the draws ``xs = (partners, us, ln_u_acc)``, each
     ``(nsteps, 2, W/2)``.  Returns ``(carry, (chain, log_probs))`` with the
-    chain ``(nsteps, 2, W/2, D)``: the JAX package's ``_stretch_scan`` on
-    one device."""
+    chain ``(nsteps, 2, W/2, D)``: the JAX package's ``_stretch_scan``.
+    With ``gather`` (walker-sharded: W/2 is this rank's block, the partner
+    indices index the whole half) the complementary half is gathered whole
+    before each half-update."""
+    gather = (lambda x: x) if gather is None else gather
     c2, lp2, acc2 = carry
     partners, us, ln_u_acc = xs
     nsteps, ndim = partners.shape[0], c2.shape[-1]
@@ -77,8 +89,10 @@ def stretch_steps(log_prob_fn, a: float, carry, xs):
     lps = torch.empty((nsteps,) + tuple(lp2.shape), dtype=lp2.dtype, device=lp2.device)
     for s in range(nsteps):
         prt, u, ua = partners[s], us[s], ln_u_acc[s]
-        nx0, nlp0, a0 = _half_update(log_prob_fn, a, ndim, c2[0], lp2[0], c2[1], prt[0], u[0], ua[0])
-        nx1, nlp1, a1 = _half_update(log_prob_fn, a, ndim, c2[1], lp2[1], nx0, prt[1], u[1], ua[1])
+        nx0, nlp0, a0 = _half_update(log_prob_fn, a, ndim, c2[0], lp2[0], gather(c2[1]), prt[0],
+                                     u[0], ua[0])
+        nx1, nlp1, a1 = _half_update(log_prob_fn, a, ndim, c2[1], lp2[1], gather(nx0), prt[1],
+                                     u[1], ua[1])
         c2 = torch.stack([nx0, nx1])
         lp2 = torch.stack([nlp0, nlp1])
         acc2 = acc2 + torch.stack([a0, a1]).to(torch.int32)
@@ -93,19 +107,30 @@ def stretch_chunk(
     state: EnsembleState,
     nsteps: int,
     a: float = 2.0,
+    shard=None,
 ):
     """Advance ``nsteps`` stretch-move steps; returns (state, chain
-    f32[nsteps, W, D], log_probs f32[nsteps, W])."""
+    f32[nsteps, W, D], log_probs f32[nsteps, W]), W this rank's walkers
+    when ``shard`` is given."""
     coords, lp, g, accepted = state
     w, ndim = coords.shape
-    half = w // 2
+    half = w // 2 if shard is None else shard.half
+    if shard is not None and w != shard.local:
+        raise ValueError(f"{w} walkers on this rank; the walker shard holds {shard.local}")
     dev = coords.device
     shape = (nsteps, 2, half)
-    # one batched draw per random stream for the whole chunk
+    # one batched draw per random stream for the whole chunk (the whole
+    # ensemble's, cut to this rank's block when sharded)
     partners = torch.randint(0, half, shape, generator=g, device=dev)
     us = torch.rand(shape, generator=g, device=dev)
     ln_u_acc = torch.log(torch.rand(shape, generator=g, device=dev))
-    carry = (coords.reshape(2, half, ndim), lp.reshape(2, half), accepted.reshape(2, half))
-    (c2, lp2, acc2), (chain2, lps2) = stretch_steps(log_prob_fn, a, carry, (partners, us, ln_u_acc))
+    xs = (partners, us, ln_u_acc)
+    gather = None
+    if shard is not None:
+        xs = tuple(t[..., shard.block] for t in xs)
+        gather = shard.gather_half
+    hl = w // 2
+    carry = (coords.reshape(2, hl, ndim), lp.reshape(2, hl), accepted.reshape(2, hl))
+    (c2, lp2, acc2), (chain2, lps2) = stretch_steps(log_prob_fn, a, carry, xs, gather)
     new_state = EnsembleState(c2.reshape(w, ndim), lp2.reshape(w), g, acc2.reshape(w))
     return new_state, chain2.reshape(nsteps, w, ndim), lps2.reshape(nsteps, w)

@@ -34,6 +34,15 @@ moment, the validation pass and all loss and metric arithmetic stay float32;
 the first moment is stored in the compute type and updated in float32.  The
 trainer sets no process-wide precision flag.
 
+Over several ranks (``mesh``, an
+:class:`linna_tpu_torch.parallel.mesh.EnsembleMesh`) each rank holds the rows
+of its block of members, each minibatch is split over the ranks that share
+a member, and those ranks sum their gradients (and losses) in one
+``all_reduce`` a step in their own group; nothing else crosses ranks inside
+the epochs.  The supervisors, the range test and best tracking decide from
+every member's metrics, gathered after each chunk, so every rank decides
+the same; files are read by rank 0 and broadcast, and written by rank 0.
+
 ``linearmodel`` (a fitted :class:`linna_tpu_torch.linear_model.LinearModel`,
 or any callable on the standardized inputs) is a frozen pre-model shared by
 every member: its float32 output on the float32 inputs is subtracted from
@@ -54,6 +63,7 @@ import torch
 from . import losses as L
 from . import nn as N
 from .device import DeviceLike, resolve_device
+from .parallel import multihost as MH
 from .transforms import TransformSet
 from .utils import checkpoint as ckpt
 from .utils import plots
@@ -482,6 +492,7 @@ class _MemberStack:
         compute_dtype: Optional[str] = None,
         linearmodel=None,
         device: DeviceLike = None,
+        mesh=None,
     ):
         self.compute_dtype = N.compute_dtype(compute_dtype, "train_compute_dtype")
         if linearmodel is not None and spec.linear_bypass:
@@ -503,12 +514,29 @@ class _MemberStack:
         self.outdirs = [None if d is None else str(d) for d in outdirs]
         self.n_members = len(seeds)
         seeds = [int(s) for s in seeds]
+        # which members this rank holds, and the ranks it shares them with
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        if self.mesh is not None:
+            if self.mesh.n_members != self.n_members or self.mesh.world != MH.process_count():
+                raise ValueError(
+                    f"a mesh of {mesh.n_members} members over {mesh.world} ranks for "
+                    f"{self.n_members} members over {MH.process_count()} ranks"
+                )
+            self._rank = MH.process_index()
+            self.local = self.mesh.members(self._rank)
+            self._group = self.mesh.data_group(self._rank)
+        else:
+            self.local = range(self.n_members)
+            self._group = None
+        # rank 0 alone writes; a trainer without a mesh runs on one rank
+        self._writes = self.mesh is None or MH.is_primary()
         # each member's host stream: its epoch permutations and reinit seeds
         self.gens = [torch.Generator().manual_seed(s) for s in seeds]
         self.layout = Layout(spec)
         if params is None:
-            params = [N.init_model(spec, seed=s, device="cpu") for s in seeds]
-        self.flat = torch.stack([self.layout.flatten(p) for p in params]).to(self.device)
+            params = {m: N.init_model(spec, seed=seeds[m], device="cpu") for m in self.local}
+        self.flat = torch.stack([self.layout.flatten(params[m]) for m in self.local]
+                                ).to(self.device)
         self._leaves = [
             v.detach().requires_grad_(True) for v in self.layout.stacked_views(self.flat)
         ]
@@ -527,12 +555,29 @@ class _MemberStack:
 
     # ----------------------------------------------------------- device work
 
+    def _row(self, m: int) -> Optional[int]:
+        """Member ``m``'s row in this rank's tensors, None when another
+        rank holds it."""
+        return m - self.local.start if m in self.local else None
+
     def member_params(self, m: int) -> Dict[str, Any]:
-        """Member ``m``'s parameters as a dict of views into its row."""
-        return self.layout.tree(self.flat[m])
+        """Member ``m``'s parameters as a dict of views into its row (a
+        member this rank holds)."""
+        if self._row(m) is None:
+            raise ValueError(f"member {m} is held by another rank")
+        return self.layout.tree(self.flat[self._row(m)])
+
+    def _gather(self, tensors, axes) -> List[np.ndarray]:
+        """Host numpy of every member from this rank's rows of each tensor
+        (members on ``axes[i]``): one all-gather over the ranks, or a copy
+        to the host (one copy) without a mesh."""
+        if self.mesh is None:
+            return MH.to_host(tensors)
+        return self.mesh.gather_members(tensors, axes)
 
     def _set_hypers(self) -> None:
-        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32)[:, None], device=self.device)
+        rows = slice(self.local.start, self.local.stop)
+        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32)[rows, None], device=self.device)
         self._lr_t, self._wd_t = f32(self.lrs), f32(self.wds)
 
     def _prepare(self, train_x, train_y, val_x=None, val_y=None) -> _Data:
@@ -563,7 +608,15 @@ class _MemberStack:
         are the autograd leaves, so their gradients arrive without being
         scattered into full-size tensors; concatenated and cast to float32
         they are the gradient of the float32 parameters, as the cast's
-        backward gives it."""
+        backward gives it.
+
+        With a data group this rank takes its share of each minibatch; the
+        ranks' sums of their rows' losses over the whole minibatch size add
+        up, in one ``all_reduce`` of the gradient with the loss beside it,
+        to the minibatch's mean loss and its gradient."""
+        bs = idx.shape[1]
+        if self._group is not None:
+            idx = idx[:, self.mesh.batch_slice(self._rank, bs)]
         if self.compute_dtype is None:
             pred = N.apply_model(self.spec, self._model, data.x[idx])
             leaves = self._leaves
@@ -575,11 +628,19 @@ class _MemberStack:
             pred = pred.to(torch.float32)
         per_row = L.chi2_ratio(self.loss_state, pred, data.t_std[idx], data.t_mask[idx],
                                data.t_denom[idx])
-        loss = torch.mean(per_row, dim=-1)
+        k = self.flat.shape[0]
+        if self._group is None:
+            loss = torch.mean(per_row, dim=-1)
+        else:
+            loss = per_row.sum(dim=-1) / bs
         grads = torch.autograd.grad(loss.sum(), leaves)
-        grad = torch.cat([g.reshape(self.n_members, -1) for g in grads], dim=1).to(torch.float32)
+        grad = torch.cat([g.reshape(k, -1) for g in grads], dim=1).to(torch.float32)
+        loss = loss.detach()
+        if self._group is not None:
+            both = MH.all_reduce(torch.cat([grad, loss[:, None]], dim=1), group=self._group)
+            grad, loss = both[:, :-1], both[:, -1]
         adamw_step_(self.flat, grad, opt, lr, wd)
-        return loss.detach()
+        return loss
 
     def _epochs_tracked(self, perms: torch.Tensor, data: _Data):
         """``perms.shape[0]`` epochs of every member with no host sync.
@@ -591,8 +652,9 @@ class _MemberStack:
         output has at most 16 components), and the best params so far.
         Returns (losses (e, K, nb), val metrics (e, K, 3), correlations
         (e, K, out, out) or None, best val (K,), best params (K, P)), all on
-        the device; the parameters and optimizer state advance in place."""
-        n_ep, k = perms.shape[0], self.n_members
+        the device; the parameters and optimizer state advance in place.
+        K counts this rank's members."""
+        n_ep, k = perms.shape[0], self.flat.shape[0]
         bs = self._batch_size
         nb = perms.shape[-1] // bs
         dev = self.device
@@ -626,12 +688,13 @@ class _MemberStack:
         return losses, vms, corrs, best_val, best_flat
 
     def _draw_perms(self, n_epochs: int, n: int) -> torch.Tensor:
-        """Each member's epoch permutations from its own stream, cut to
-        ``nb * bs`` rows (the remainder rows drop that epoch)."""
+        """Each of this rank's members' epoch permutations from its own
+        stream, cut to ``nb * bs`` rows (the remainder rows drop that
+        epoch)."""
         bs = self._batch_size
         keep = max(n // bs, 1) * bs
         perms = [
-            torch.stack([torch.randperm(n, generator=g)[:keep] for g in self.gens])
+            torch.stack([torch.randperm(n, generator=self.gens[m])[:keep] for m in self.local])
             for _ in range(n_epochs)
         ]
         return torch.stack(perms).to(self.device)
@@ -640,10 +703,11 @@ class _MemberStack:
         """The range test's raw loss traces f32[K, num_iter] (as float64):
         every member from its current params with a fresh optimizer, batch
         ``it % nb`` of ``order`` at step ``it``, weight decay 1e-4.  The
-        params are restored afterwards."""
+        params are restored afterwards.  Every member's traces, on every
+        rank."""
         bs = self._batch_size
         nb = max(len(order) // bs, 1)
-        k = self.n_members
+        k = self.flat.shape[0]
         backup = self.flat.clone()
         opt = adamw_init(self.flat, self.compute_dtype)
         order_t = torch.as_tensor(order, device=self.device)
@@ -656,7 +720,7 @@ class _MemberStack:
             raw[:, it] = self._step(data, idx, opt, lrs_t[it].expand(k, 1), wd)
         with torch.no_grad():
             self.flat.copy_(backup)
-        return raw.cpu().double().numpy()
+        return self._gather([raw], [0])[0].astype(np.float64)
 
     # ------------------------------------------------------------------ host
 
@@ -672,12 +736,18 @@ class _MemberStack:
     ) -> np.ndarray:
         """Per-member learning rates from each ``lr.npy``, or from one range
         test of all members that lack it (persisted to ``lr.npy`` with the
-        ``lr_tunning.png`` plot)."""
+        ``lr_tunning.png`` plot).  Rank 0 reads the files and every rank
+        gets its values, so all of them take the same branch."""
         outdirs = self.outdirs if outdirs is None else list(outdirs)
-        vals = np.full(self.n_members, np.nan)
-        for m, d in enumerate(outdirs):
-            if d is not None and os.path.isfile(os.path.join(d, "lr.npy")):
-                vals[m] = float(np.load(os.path.join(d, "lr.npy")))
+
+        def load():
+            vals = np.full(self.n_members, np.nan)
+            for m, d in enumerate(outdirs):
+                if d is not None and os.path.isfile(os.path.join(d, "lr.npy")):
+                    vals[m] = float(np.load(os.path.join(d, "lr.npy")))
+            return vals
+
+        vals = self._from_primary(load)
         missing = [m for m in range(self.n_members) if not np.isfinite(vals[m])]
         if not missing:
             return vals
@@ -688,39 +758,65 @@ class _MemberStack:
             lr, losses, lrs_used = smooth_and_pick_lr(lrs, raw[m], smooth_f, diverge_th)
             vals[m] = lr
             d = outdirs[m]
-            if d is not None:
+            if d is not None and self._writes:
                 os.makedirs(d, exist_ok=True)
                 np.save(os.path.join(d, "lr.npy"), lr)
                 plots.plot_lr_range(lrs_used, losses, os.path.join(d, "lr_tunning.png"))
         return vals
 
+    def _from_primary(self, load_fn):
+        """``load_fn()`` on rank 0, its result on every rank of the mesh."""
+        return load_fn() if self.mesh is None else MH.broadcast_from_primary(load_fn)
+
     def _write_row(self, m: int, row: torch.Tensor) -> None:
-        with torch.no_grad():
-            self.flat[m].copy_(row)
+        """Member ``m``'s parameters, where this rank holds it."""
+        if self._row(m) is not None:
+            with torch.no_grad():
+                self.flat[self._row(m)].copy_(torch.as_tensor(row))
+
+    def _reset_optimizer(self, m: int) -> None:
+        if self._row(m) is not None:
+            adamw_reset_(self.opt, self._row(m))
 
     def _reinit_member(self, m: int) -> None:
+        """New weights for member ``m`` from its stream, on its ranks."""
+        if self._row(m) is None:
+            return
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=self.gens[m]))
         self._write_row(m, self.layout.flatten(N.init_model(self.spec, seed=seed, device="cpu")))
-        adamw_reset_(self.opt, m)
+        self._reset_optimizer(m)
 
     def _load_best_member(self, m: int) -> bool:
         """Member ``m``'s best params: the in-memory best of this run first,
-        then its ``best.ckpt.npz``; False when there is neither."""
+        then its ``best.ckpt.npz`` (read by rank 0, its row shipped to every
+        rank); False when there is neither.  Every rank calls this for every
+        member at the same point."""
         if self._best_flat is not None and np.isfinite(self.best_val_losses[m]):
-            self._write_row(m, self._best_flat[m])
+            if self._row(m) is not None:
+                self._write_row(m, self._best_flat[self._row(m)])
             return True
         d = self.outdirs[m]
         path = None if d is None else os.path.join(d, BEST_CKPT)
-        if path is None or not os.path.isfile(path):
+
+        def read():
+            if path is None or not os.path.isfile(path):
+                return None
+            params, _, meta = ckpt.load_checkpoint(path, device="cpu")
+            return self.layout.flatten(params).numpy(), meta
+
+        payload = self._from_primary(read)
+        if payload is None:
             return False
-        params, _, meta = ckpt.load_checkpoint(path, device="cpu")
-        self._write_row(m, self.layout.flatten(params))
+        row, meta = payload
+        self._write_row(m, row)
         self.best_val_losses[m] = float(meta.get("best_val_loss", self.best_val_losses[m]))
         return True
 
     def _save(self, epoch: int, force: bool = False) -> None:
         """Periodic saves write only dirty best checkpoints; the forced final
-        save adds ``last.ckpt.npz`` with the optimizer state."""
+        save adds ``last.ckpt.npz`` with the optimizer state.  Every rank
+        takes the same branches (the gates are the same everywhere) and joins
+        the gather of the members' rows; rank 0 writes."""
         if all(d is None for d in self.outdirs):
             return
         if not force and epoch - self._last_disk_save < self.save_every:
@@ -730,13 +826,16 @@ class _MemberStack:
         self._last_disk_save = epoch
         dirty = self._best_dirty.copy()
         self._best_dirty[:] = False
-        params_h = self.flat.detach().cpu() if force else None
-        best_h = self._best_flat.cpu() if self._best_flat is not None else None
+        # a bfloat16 first moment is saved as float32 (exact), as the JAX
+        # package's checkpoints hold it
+        rows = ([self.flat, self.opt.count, self.opt.mu.float(), self.opt.nu] if force else [])
+        rows += [self._best_flat] if self._best_flat is not None else []
+        host = [torch.as_tensor(a) for a in self._gather(rows, [0] * len(rows))]
         if force:
-            # a bfloat16 first moment is saved as float32 (exact), as the JAX
-            # package's checkpoints hold it
-            count_h, mu_h, nu_h = (t.cpu() for t in self.opt)
-            mu_h = mu_h.float()
+            params_h, count_h, mu_h, nu_h = host[:4]
+        best_h = host[-1] if self._best_flat is not None else None
+        if not self._writes:
+            return
         for m, d in enumerate(self.outdirs):
             if d is None:
                 continue
@@ -765,6 +864,8 @@ class _MemberStack:
                 )
 
     def _plot(self, name: str, train_losses, val_metrics, nb: int) -> None:
+        if not self._writes:
+            return
         for m, d in enumerate(self.outdirs):
             if d is not None:
                 plots.plot_training_progress(
@@ -794,7 +895,7 @@ class _MemberStack:
         if epochs_per_dispatch is not None:
             self.epochs_per_dispatch = max(int(epochs_per_dispatch), 1)
         for d in self.outdirs:
-            if d is not None:
+            if d is not None and self._writes:
                 os.makedirs(d, exist_ok=True)
         data = self._prepare(train_x, train_y, val_x, val_y)
         k_members = self.n_members
@@ -834,25 +935,24 @@ class _MemberStack:
             )
             t1 = time.perf_counter()
             ps["dispatch"] += t1 - t0
-            # one fetch of the chunk's metrics (the only host sync of a chunk)
+            # one fetch of every member's chunk metrics (the only host sync
+            # of a chunk; a gather over the ranks with a mesh)
             parts = [losses_k, vms_k, best_val] + ([corrs_k] if corrs_k is not None else [])
-            host = torch.cat([p.reshape(-1) for p in parts]).cpu().numpy()
+            pieces = self._gather(parts, [1, 1, 0, 1][:len(parts)])
             ps["wait_fetch"] += time.perf_counter() - t1
-            sizes = np.cumsum([p.numel() for p in parts])[:-1]
-            pieces = np.split(host, sizes)
-            losses_k = pieces[0].reshape(k, k_members, nb)
-            vms_k = pieces[1].reshape(k, k_members, 3).astype(np.float64)
+            losses_k = pieces[0]
+            vms_k = pieces[1].astype(np.float64)
             cbv = pieces[2].astype(np.float64)
             if corrs_k is not None:
-                out = self.spec.out_size
-                eigs_k = np.linalg.eigvalsh(pieces[3].reshape(k, k_members, out, out))[..., 0]
+                eigs_k = np.linalg.eigvalsh(pieces[3])[..., 0]
             else:
                 eigs_k = np.ones((k, k_members))
 
             improved = np.array([sups[m].observe_chunk_best(float(cbv[m])) for m in range(k_members)])
             if improved.any():
                 self.best_val_losses = np.array([s.best_val_loss for s in sups])
-                mask = torch.as_tensor(improved, device=self.device)[:, None]
+                mask = torch.as_tensor(improved[self.local.start:self.local.stop],
+                                       device=self.device)[:, None]
                 self._best_flat = (
                     best_flat if self._best_flat is None
                     else torch.where(mask, best_flat, self._best_flat)
@@ -878,7 +978,7 @@ class _MemberStack:
                         self.lrs[m] = sups[m].lr
                         if not self._load_best_member(m):
                             self._reinit_member(m)
-                        adamw_reset_(self.opt, m)
+                        self._reset_optimizer(m)
                         hyper_changed = intervened[m] = True
                     elif action == "hyper":
                         self.lrs[m], self.wds[m] = sups[m].lr, sups[m].wd

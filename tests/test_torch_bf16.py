@@ -30,7 +30,7 @@ from linna_tpu import train as JTR
 from linna_tpu.parallel import ensemble as JE
 from linna_tpu_torch import orchestrator as TO
 from linna_tpu_torch import train as TTR
-from linna_tpu_torch.parallel import EnsembleTrainer
+from linna_tpu_torch.parallel.ensemble import EnsembleTrainer
 from linna_tpu_torch.utils import checkpoint as ckpt
 from test_torch_train import _jax_params, _problem
 

@@ -239,3 +239,42 @@ def test_phase_premodel_and_bf16_rehearsal(tmp_path):
     assert all(0 < r["rel_err"]["max"] <= C.BF16_RTOL for r in bf16["log_prob"].values())
     assert len(bf16["zeus"]) == 4 and bf16["counts"]["launches"] == none
     assert all(r["calls_per_step"] >= 2 for r in bf16["zeus"].values())
+
+
+# ------------------------------------------- phase 9, rehearsed at small size
+
+
+def test_phase_multiprocess_rehearsal(tmp_path, monkeypatch):
+    """Phase 9 on the CPU: 9a a one-rank gloo group (nccl on the card)
+    against no group, bit for bit; 9b ``python -m linna_tpu_torch.launch``
+    as two gloo ranks on des_synthetic.yaml cut to one iteration at K=4 on a
+    3 -> 12 theory, rank 1 writing nothing; 9c two data ranks' K=1 training,
+    sharded emcee and NUTS against one rank, and the census."""
+    cpu = torch.device("cpu")
+    (tmp_path / "tiny_theory.py").write_text(TINY_THEORY)
+    monkeypatch.syspath_prepend(str(tmp_path))
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    a = C.phase_nccl(cpu, str(tmp_path / "9a"), steps=10, ndim=6, ndata=40, nwalkers=16)
+    assert a["backend"] == "gloo" and a["emcee_equal_bit_for_bit"] and all(a["checks"].values())
+    assert a["collectives"]["all_gather@world"] == 2  # one call, one in fetch
+    overrides = {"theory": "tiny_theory:make_theory", "nwalkers": 8, "ntrainArr": [40],
+                 "nvalArr": [10], "batch_size": 20,
+                 "sampled_params": [{"param": f"p{i}", "dist": "flat", "arg1": -1.0,
+                                     "arg2": 1.0} for i in range(3)]}
+    b = C.phase_launch(cpu, str(tmp_path / "9b"), epochs=4, theory_mod="tiny_theory",
+                       overrides=overrides, timeout=300)
+    assert b["writes_rank1"] == 0 and b["writes_rank0"] > 0 and b["steps"] == 200
+    assert b["log_prob_check"]["abs"] <= 1e-4
+    assert all(c.get("all_gather@world", 0) >= 400 for c in b["collectives"])  # zeus, sharded
+    c = C.phase_data_parallel(cpu, str(tmp_path / "9c"), ndim=6, ndata=40, ntrain=400, nval=50,
+                              depths=(1, 3), nwalkers=16, steps=20, nuts_steps=3, timeout=300)
+    # the forward is row-independent here; the CPU's backward is not
+    assert c["row_independent"]["emcee"] and c["chains"]["emcee"]["bit_for_bit"]
+    assert all(v["max_abs_chain_diff"] <= 1e-6 for v in c["chains"].values())
+    assert c["train"]["first_step_grad_max_diff_over_max"] <= 1e-6
+    for e in (1, 3):
+        assert c["train"]["two_vs_one"][e]["pred_diff_over_pred_std"]["max"] <= 1e-4
+    assert c["train"]["one_vs_one_again"]["pred_diff_over_pred_std"]["max"] == 0.0
+    assert all(n == 0 for v in c["chains"].values() for n in v["walkers_apart_by_sample"])
+    assert c["train_collectives_rank0"]["all_reduce@data[0,1]"] > 0
+    assert c["census"]["sampler"]["emcee"]["per_step"] == {"all_gather@world": 2.0}

@@ -13,7 +13,7 @@ from linna_tpu import nn as JN
 from linna_tpu_torch import losses as TL
 from linna_tpu_torch import nn as TN
 from linna_tpu_torch import transforms as TT
-from linna_tpu_torch.parallel import EnsembleTrainer
+from linna_tpu_torch.parallel.ensemble import EnsembleTrainer
 from linna_tpu_torch.train import Trainer
 from linna_tpu_torch.utils import checkpoint as ckpt
 

@@ -26,7 +26,7 @@ from linna_tpu_torch import linear_model as TLM
 from linna_tpu_torch import nn as TN
 from linna_tpu_torch import orchestrator as TO
 from linna_tpu_torch import train as TTR
-from linna_tpu_torch.parallel import EnsembleTrainer
+from linna_tpu_torch.parallel.ensemble import EnsembleTrainer
 
 from _torch_parity import CPU, problem, walkers
 from test_torch_train import _jax_params, _problem

@@ -154,7 +154,7 @@ def test_entry_points_without_a_card_raise(tmp_path):
         TO.train_emulator(str(tmp_path), [str(tmp_path)], MEANS, COV, np.ones(2), None, False,
                           "chto_v2", {})
     from linna_tpu_torch import losses as TL, nn as TN, transforms as TT
-    from linna_tpu_torch.parallel import EnsembleTrainer
+    from linna_tpu_torch.parallel.ensemble import EnsembleTrainer
 
     ts = TT.TransformSet(
         TT.XTransform(torch.zeros(2), torch.ones(2), torch.zeros(2, dtype=torch.bool)),
