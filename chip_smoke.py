@@ -103,7 +103,28 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    row's result does not depend on the rows beside it; else emcee within
    ``RTOL``/``ATOL`` at every sample, and NUTS's first sample and
    moments), launches per rank, and the census.
-10. One ``{"kernels": [...]}`` line, the card's name and power limit, and the
+10. The rest of the port at the DES width, on phase 5's 10,000 / 500
+   seeded rows.  10a: one tensor-parallel epoch (``parallel/dtrain``, batch
+   500) as two gloo ranks on the card (data 1 x model 2, the 125-wide trunk
+   split 63 + 62) against one rank's whole step: the first step's loss and
+   gradient from the same weights (``TP_STEP_RTOL``, ``TP_GRAD_RTOL``), an
+   epoch with the same permutation (losses and validation metric within
+   ``TP_EPOCH_DRIFT``, the parameters by ``params_apart``), ms a step on
+   each side, the census of one step; and a one-rank nccl group's model-1
+   step bit for bit the step without a group.  10b: the K=4 ``EnsembleTrainer`` for ``SPEC_EPOCHS``
+   epochs with ``speculative_dispatch`` on and off: chunks speculated and
+   dropped, equal bit for bit when nothing was dropped, ms an epoch, the
+   trainer's phase seconds, and a traced run's busy share in each mode.
+   10c: ``make_grad_log_prob`` through ``fused_log_prob`` at 256 walkers
+   against the plain gradient (one launch), ``make_hessian_log_prob`` at
+   phase 6's MAP point against its preconditioner's Hessian, and the fused
+   likelihood's Hessian refused as JAX refuses its kernel's.  10d: one
+   ``use_fused`` ``ml_sampler_core`` iteration in a fresh process with a
+   cold kernel build directory, warming on and off (the foreground's wait
+   for the library, nvcc's seconds, the warm thread's launches), and with a
+   broken compiler, which must fail the run.  10e: ``python -m
+   linna_tpu_torch.pod_accept --structural`` on the card.
+11. One ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 
 Phase 4's and 6's weights are random (from a seed); phases 5, 7 and 8 train
@@ -186,6 +207,30 @@ DP_TRAIN_RTOL = 1e-2
 DP_NUTS_FIRST_APART = 0.1
 DP_MEAN_SIGMA = 0.25
 TRAINED_DIR = os.path.join(ROOT, ".chip_smoke_trained")
+# phase 10: the rest of the port.  10a: tensor-parallel training on phase
+# 5's rows (batch 500, AdamW lr 1e-3 from init_sharded(TP_SEED)), two model
+# ranks against one.  The first step from the same weights: its loss within
+# TP_STEP_RTOL, its gradient within TP_GRAD_RTOL of its largest element
+# (float32 sums split over the ranks).  The epoch: the row-parallel sums
+# round otherwise, a ReLU whose input is within that rounding of 0 switches,
+# and AdamW's normalized steps carry the switch on (this phase on an NVIDIA
+# H100 80GB HBM3 at 700 W: the losses equal for 4 steps, 7e-8 apart at the
+# 5th, 3.1e-3 at the 11th, 7.3e-3 at most): the losses and the validation
+# metric within TP_EPOCH_DRIFT, each parameter within twice the learning
+# rate a step (params_apart)
+TP_BATCH, TP_LR, TP_SEED = 500, 1e-3, 3
+TP_STEP_RTOL, TP_GRAD_RTOL = 1e-6, 1e-5
+TP_EPOCH_DRIFT = 5e-2
+# 10b: speculative dispatch on and off at phase 5's shape (K=4)
+SPEC_EPOCHS = 200
+# the traced runs: 20 epochs in 5-epoch chunks (2 speculated), the card's
+# events only (a profile of every host op of 40 epochs took minutes to read)
+SPEC_TRACED_EPOCHS, SPEC_TRACED_CHUNK = 20, 5
+# 10c: make_hessian_log_prob against the preconditioner's Hessian: the same
+# float32 composition, vmapped against not, over the largest entry
+HESS_RTOL = 1e-4
+# 10d: one use_fused iteration in a fresh process (DES width, K=1)
+PRECOMPILE_NTRAIN, PRECOMPILE_NVAL, PRECOMPILE_EPOCHS = 2000, 200, 20
 
 # tests/test_ops.py's kernel tolerance; both sides accumulate in f32 and
 # differ only in summation order
@@ -1159,6 +1204,11 @@ def phase_gradient(device, outdir, nwalkers=NWALKERS, nuts_steps=NUTS_STEPS,
     if device.type == "cuda" and per_sample != 2**5 - 1:
         raise AssertionError(f"{per_sample} fused_log_prob launches per NUTS sample, not 31")
     log(f"  gradient: {json.dumps(res, default=float)}")
+    # phase 10c's Hessian check: this likelihood, its plain composition and
+    # the NUTS run's preconditioner (its MAP point and Hessian eigenbasis)
+    res["map"] = {"fused": log_prob, "precond": pre, "plain": LK.make_log_prob(
+        model.spec, model.params, model.transforms, pack, data, inv_cov, temperature=1.0,
+        device=device)}
     return res, launches
 
 
@@ -2115,10 +2165,496 @@ def phase_multiprocess(device, outdir) -> dict:
         log(f"  {key}: {res[key + '_s']:.1f} s")
     return res
 
+# ------------------------------------------------- phase 10: the rest of the port
+
+
+def phase10_rows(device, outdir, ndim=NDIM, ndata=NDATA, ntrain=NTRAIN, nval=NVAL,
+                 batch=TP_BATCH) -> dict:
+    """Phase 5's seeded rows (the same theory, priors and Latin hypercube),
+    their fitted transforms, a fixed epoch permutation and the minibatch
+    size, written once to ``outdir/inputs.npz`` for 10a's ranks and read by
+    10a and 10b."""
+    from linna_tpu_torch import data as D
+    from linna_tpu_torch import priors as P
+    from linna_tpu_torch import sample_gen as SG
+    from linna_tpu_torch import transforms as T
+
+    pb = seeded_problem(device, ndim, ndata)
+    it0 = os.path.join(outdir, "rows")
+    SG.generate_training_point(pb.theory, SG.NNSampler(it0, P.prior_range(pb.pack)), None, it0,
+                               ntrain, nval, pb.data, pb.inv_cov)
+    s = D.load_curated_stack([it0])
+    xt = T.fit_x_transform(s.train_x, device="cpu")
+    yt = T.fit_y_transform(s.train_y / pb.sigma, device="cpu")
+    inputs = {"tx": s.train_x, "ty": s.train_y, "vx": s.val_x, "vy": s.val_y,
+              "x_mean": xt.mean.numpy(), "x_std": xt.std.numpy(), "y_mean": yt.mean.numpy(),
+              "y_std": yt.std.numpy(), "sigma": pb.sigma, "data": pb.data, "cov": pb.cov,
+              "perm": np.random.default_rng(7).permutation(len(s.train_x)),
+              "batch": np.int64(batch)}
+    np.savez(os.path.join(outdir, "inputs.npz"), **inputs)
+    return inputs
+
+
+def _tp_problem(inputs, device):
+    from linna_tpu_torch import losses as L
+    from linna_tpu_torch import nn as N
+    from linna_tpu_torch import transforms as T
+
+    f32 = lambda k: torch.as_tensor(np.asarray(inputs[k]), dtype=torch.float32, device=device)
+    ndim, ndata = inputs["tx"].shape[1], inputs["ty"].shape[1]
+    ts = T.TransformSet(
+        T.XTransform(f32("x_mean"), f32("x_std"), torch.zeros(ndim, dtype=torch.bool,
+                                                              device=device)),
+        T.YTransform(f32("y_mean"), f32("y_std"), False), T.YTransformData(f32("sigma")))
+    return (N.make_model_spec("chto_v2", ndim, ndata), ts,
+            L.build_loss_state(inputs["data"], inputs["cov"], ts))
+
+
+def tp_epoch_run(inputs, device, n_model=None) -> dict:
+    """One tensor-parallel epoch (``parallel/dtrain``) from
+    ``init_sharded(TP_SEED)`` with the inputs' permutation, over the current
+    process group's grid (no group: one rank's whole step): its batch
+    losses, validation metric, whole parameters after it (flattened), and
+    ms a step (the epoch's wall over its steps, between synchronizes)."""
+    from linna_tpu_torch.parallel import dtrain as DT
+    from linna_tpu_torch.parallel import mesh as ME
+    from linna_tpu_torch.train import _walk
+
+    spec, ts, ls = _tp_problem(inputs, device)
+    mesh = ME.make_mesh(n_model)
+    opt = DT.adamw(TP_LR)
+    params, state = DT.init_sharded(TP_SEED, spec, opt, mesh, device=device)
+    epoch = DT.make_sharded_epoch(spec, ts, ls, opt, mesh, int(inputs["batch"]))
+    rows = [torch.as_tensor(np.asarray(inputs[k]), dtype=torch.float32, device=device)
+            for k in ("tx", "ty", "vx", "vy")]
+    _sync(device)
+    t0 = time.perf_counter()
+    params, state, losses, vm = epoch(params, state, inputs["perm"], *rows)
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    full = DT.gather_params(spec, params, mesh)
+    return {"losses": losses.cpu().numpy(), "val_metric": vm.cpu().numpy(),
+            "params": np.concatenate([a.reshape(-1) for _, a in _walk(full)]),
+            "ms_per_step": seconds / len(losses) * 1e3, "mesh": mesh.shape}
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def tp_rank(outdir: str, device_name: str) -> int:
+    """One rank of 10a (``chip_smoke.py --tensor-parallel-rank OUTDIR
+    DEVICE``): the tensor-parallel epoch on data 1 x model 2 and the census
+    of one step; rank 0 writes ``OUTDIR/ranks.npz`` and each rank
+    ``OUTDIR/rank_<k>.json``."""
+    from linna_tpu_torch.ops import fused as F
+    from linna_tpu_torch.parallel import census as CE
+    from linna_tpu_torch.parallel import multihost as MH
+
+    device = torch.device(device_name)
+    MH.initialize(backend="gloo", device=device)
+    rank = MH.process_index()
+    with np.load(os.path.join(outdir, "inputs.npz")) as z:
+        inputs = {k: z[k] for k in z.files}
+    F.reset_counts()
+    MH.reset_collective_counts()
+    res = tp_epoch_run(inputs, device, n_model=2)
+    rec = {"rank": rank, "ms_per_step": res["ms_per_step"], "mesh": res["mesh"],
+           "epoch_collectives": MH.collective_counts(), "launches": dict(F.launches)}
+    loss1, grad1 = tp_first_step(inputs, device, n_model=2)
+    ndim, ndata = inputs["tx"].shape[1], inputs["ty"].shape[1]
+    rec["census"] = CE.tensor_parallel_census(2, ndim=ndim, ndata=ndata,
+                                              batch=int(inputs["batch"]), device=device)
+    if rank == 0:
+        np.savez(os.path.join(outdir, "ranks.npz"), first_loss=loss1, first_grad=grad1,
+                 **{k: res[k] for k in ("losses", "val_metric", "params")})
+    with open(os.path.join(outdir, f"rank_{rank}.json"), "w") as f:
+        json.dump(rec, f, default=float)
+    MH.barrier("10a")
+    MH.shutdown()
+    return 0
+
+
+def tp_first_step(inputs, device, n_model=None) -> tuple:
+    """One tensor-parallel step from ``init_sharded(TP_SEED)`` on the
+    epoch's first minibatch at learning rate 0: its loss and the whole
+    gradient (10 x the first moment, gathered from every rank's blocks)."""
+    from linna_tpu_torch.parallel import dtrain as DT
+    from linna_tpu_torch.parallel import mesh as ME
+    from linna_tpu_torch.train import _walk
+
+    spec, ts, ls = _tp_problem(inputs, device)
+    mesh = ME.make_mesh(n_model)
+    opt = DT.adamw(0.0, 0.0)
+    params, state = DT.init_sharded(TP_SEED, spec, opt, mesh, device=device)
+    rows = inputs["perm"][: int(inputs["batch"])]
+    step = DT.make_sharded_train_step(spec, ts, ls, opt, mesh)
+    _, state, loss = step(params, state, inputs["tx"][rows], inputs["ty"][rows])
+    leaves = [v for _, v in _walk(params)]
+    mu = torch.split(state.mu[0], [v.numel() for v in leaves])
+    tree = DT._rebuild(params, (m.view_as(v) for m, v in zip(mu, leaves)))
+    full = DT.gather_params(spec, tree, mesh)
+    return float(loss), 10.0 * np.concatenate([a.reshape(-1) for _, a in _walk(full)])
+
+
+def params_apart(got: np.ndarray, want: np.ndarray, steps: int) -> dict:
+    """How far two runs' parameters after ``steps`` AdamW steps are apart:
+    the largest and median difference, and the share of elements further
+    than 1e-5; ``limit_max``, twice the learning rate a step, bounds the
+    largest."""
+    d = np.abs(got.astype(np.float64) - want)
+    return {"max": float(d.max()), "median": float(np.median(d)),
+            "share_over_1e-5": float(np.mean(d > 1e-5)), "limit_max": 2 * TP_LR * steps}
+
+
+def phase_tensor_parallel(device, outdir, inputs, timeout=MP_TIMEOUT) -> dict:
+    """10a: tensor-parallel training as two gloo ranks sharing the card
+    (data 1 x model 2) against one rank's whole step in this process: the
+    first step's loss and gradient from the same weights, then an epoch
+    with the same permutation on both sides (losses and validation metric,
+    the parameters by :func:`params_apart`; see ``TP_EPOCH_DRIFT``); ms a
+    step on each side; the census of one step; and a one-rank process group
+    (nccl on the card) whose model-1 step equals the step without a group
+    bit for bit."""
+    from linna_tpu_torch.ops import fused as F
+    from linna_tpu_torch.parallel import dtrain as DT
+    from linna_tpu_torch.parallel import mesh as ME
+    from linna_tpu_torch.parallel import multihost as MH
+
+    t0 = time.perf_counter()
+    run_ranks([[sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--tensor-parallel-rank",
+                outdir, str(device)]] * 2, os.path.join(outdir, "logs"), timeout)
+    ranks_s = time.perf_counter() - t0
+    with np.load(os.path.join(outdir, "ranks.npz")) as z:
+        two = {k: z[k] for k in z.files}
+    reps = []
+    for k in range(2):
+        with open(os.path.join(outdir, f"rank_{k}.json")) as f:
+            reps.append(json.load(f))
+    F.reset_counts()
+    one = tp_epoch_run(inputs, device)
+    launches = {"one_rank": dict(F.launches), "ranks": [r["launches"] for r in reps]}
+    steps = len(one["losses"])
+    apart = params_apart(two["params"], one["params"], steps)
+    loss_by_step = np.abs(two["losses"] - one["losses"]) / np.abs(one["losses"])
+    loss_rel = float(loss_by_step.max())
+    vm_rel = float(np.max(np.abs(two["val_metric"] - one["val_metric"])
+                          / np.abs(one["val_metric"])))
+    loss1, grad1 = tp_first_step(inputs, device)
+    first = {"loss_rel": abs(float(two["first_loss"]) - loss1) / abs(loss1),
+             "grad_max_diff_over_max": float(np.abs(two["first_grad"] - grad1).max()
+                                             / np.abs(grad1).max())}
+
+    # a process group of one rank: its model-1 step against the step without
+    spec, ts, ls = _tp_problem(inputs, device)
+    batch = int(inputs["batch"])
+    bx = torch.as_tensor(inputs["tx"][:batch], dtype=torch.float32, device=device)
+    by = torch.as_tensor(inputs["ty"][:batch], dtype=torch.float32, device=device)
+
+    def one_step():
+        mesh = ME.make_mesh(1)
+        opt = DT.adamw(TP_LR)
+        params, state = DT.init_sharded(TP_SEED, spec, opt, mesh, device=device)
+        _, _, loss = DT.make_sharded_train_step(spec, ts, ls, opt, mesh)(params, state, bx, by)
+        return float(loss), DT.gather_params(spec, params, mesh), mesh.groups()
+
+    alone = one_step()
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    MH.initialize(f"localhost:{_free_port()}", 1, 0, backend=backend, device=device)
+    try:
+        MH.reset_collective_counts()
+        grouped = one_step()
+        group_counts = MH.collective_counts()
+    finally:
+        MH.shutdown()
+    from linna_tpu_torch.train import _walk
+
+    same = grouped[0] == alone[0] and all(
+        np.array_equal(a, b) for (_, a), (_, b) in zip(_walk(grouped[1]), _walk(alone[1])))
+    res = {
+        "mesh": reps[0]["mesh"], "steps": steps, "batch": batch,
+        "first_step": first, "step_rtol": TP_STEP_RTOL, "grad_rtol": TP_GRAD_RTOL,
+        "losses_rel_by_step": loss_by_step.tolist(), "losses_max_rel": loss_rel,
+        "val_metric_max_rel": vm_rel, "epoch_drift_limit": TP_EPOCH_DRIFT,
+        "params_apart": apart,
+        "ms_per_step": {"two_ranks": [r["ms_per_step"] for r in reps],
+                        "one_rank": one["ms_per_step"]},
+        "ranks_s": ranks_s, "census": reps[0]["census"],
+        "epoch_collectives_rank0": reps[0]["epoch_collectives"],
+        "launches": launches,
+        "one_rank_group": {"backend": backend, "groups_made": grouped[2] != (None, None),
+                           "collectives": group_counts, "equal_bit_for_bit": same},
+    }
+    log(f"  10a: {json.dumps(res, default=float)}")
+    failures = []
+    if first["loss_rel"] > TP_STEP_RTOL or first["grad_max_diff_over_max"] > TP_GRAD_RTOL:
+        failures.append(f"first step: {first}")
+    if loss_rel > TP_EPOCH_DRIFT or vm_rel > TP_EPOCH_DRIFT:
+        failures.append(f"losses {loss_rel:.2e} / metric {vm_rel:.2e} over {TP_EPOCH_DRIFT}")
+    if apart["max"] > apart["limit_max"]:
+        failures.append(f"parameters apart: {apart}")
+    if not same or not group_counts:
+        failures.append(f"the one-rank {backend} step: equal {same}, collectives {group_counts}")
+    per_step = reps[0]["census"]["per_step"]
+    if per_step.get("all_reduce@model[0,1]") != 10 or per_step.get("all_gather@model[0,1]") != 3:
+        failures.append(f"census {per_step}")
+    if failures:
+        raise AssertionError(f"10a: {failures}")
+    return res
+
+
+def phase_speculative(device, outdir, inputs, epochs=SPEC_EPOCHS, nensemble=NENSEMBLE,
+                      traced_epochs=SPEC_TRACED_EPOCHS, epochs_per_dispatch=None,
+                      traced_chunk=SPEC_TRACED_CHUNK) -> dict:
+    """10b: the K-member EnsembleTrainer on phase 5's rows from train_emulator's
+    member seeds for ``epochs`` epochs (lr 1e-3 for every member, no range
+    test), with ``speculative_dispatch`` on and off: chunks speculated and
+    dropped, whether the best val losses and parameters are equal bit for
+    bit (required when nothing was dropped), ms an epoch, the trainer's
+    phase seconds, and the device busy share of a traced run of
+    ``traced_epochs`` epochs in ``traced_chunk``-epoch chunks in each
+    mode."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from linna_tpu_torch.ops import fused as F
+    from linna_tpu_torch.parallel.ensemble import EnsembleTrainer
+
+    spec, ts, ls = _tp_problem(inputs, device)
+    seeds = [1234 + 1000 * k for k in range(nensemble)]
+    rows = [inputs[k] for k in ("tx", "ty", "vx", "vy")]
+    batch = int(inputs["batch"])
+
+    def train(speculative, n_epochs, traced=False):
+        tr = EnsembleTrainer(spec, ts, ls, [None] * nensemble, seeds, device=device)
+        tr.speculative_dispatch = speculative
+        _sync(device)
+        if traced:
+            acts = [ProfilerActivity.CUDA] if device.type == "cuda" else [ProfilerActivity.CPU]
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                tr.train(*rows, num_epochs=n_epochs, batch_size=batch, auto_lr=False,
+                         lr_scale=10.0, epochs_per_dispatch=traced_chunk)
+                _sync(device)
+                wall = time.perf_counter() - t0
+            dev_ms = sum(us for _, us in kernel_events(prof).values()) / 1e3
+            return {"epochs": n_epochs, "chunk": traced_chunk, "traced_wall_ms": wall * 1e3,
+                    "device_ms": dev_ms,
+                    "device_busy_share": dev_ms / (wall * 1e3), **tr.speculation}
+        t0 = time.perf_counter()
+        tr.train(*rows, num_epochs=n_epochs, batch_size=batch, auto_lr=False, lr_scale=10.0,
+                 epochs_per_dispatch=epochs_per_dispatch)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        return tr, {"wall_s": wall, "ms_per_epoch": wall / n_epochs * 1e3,
+                    "phase_s": dict(tr.phase_seconds), **tr.speculation}
+
+    F.reset_counts()
+    on_tr, on = train(True, epochs)
+    launches = dict(F.launches)
+    off_tr, off = train(False, epochs)
+    equal = bool(np.array_equal(on_tr.best_val_losses, off_tr.best_val_losses)
+                 and torch.equal(on_tr.flat, off_tr.flat))
+    res = {"epochs": epochs, "nensemble": nensemble, "lr": 1e-3, "on": on, "off": off,
+           "equal_bit_for_bit": equal,
+           "best_val_loss": {"on": on_tr.best_val_losses.tolist(),
+                             "off": off_tr.best_val_losses.tolist()},
+           "traced": {"on": train(True, traced_epochs, traced=True),
+                      "off": train(False, traced_epochs, traced=True)},
+           "launches": launches}
+    log(f"  10b: {json.dumps(res, default=float)}")
+    if on["speculated"] == 0 or off["speculated"] != 0:
+        raise AssertionError(f"10b: speculated {on['speculated']} on, {off['speculated']} off")
+    if on["dropped"] == 0 and not equal:
+        raise AssertionError("10b: nothing was dropped and the runs differ")
+    return res
+
+
+def phase_helpers(device, gradient_inputs, rows=NWALKERS, ndim=NDIM, ndata=NDATA) -> dict:
+    """10c: ``make_grad_log_prob`` through ``fused_log_prob`` (one launch
+    forward, the plain backward) against the plain gradient at ``rows``
+    positions with log10 lanes' -inf rows; ``make_hessian_log_prob`` of
+    phase 6's plain likelihood at its MAP point against the preconditioner's
+    Hessian there (U diag(scales^2) U^T of the negative log-prob); and the
+    fused likelihood's Hessian refused with a TypeError, as JAX refuses its
+    kernel's."""
+    from linna_tpu_torch import likelihood as LK
+    from linna_tpu_torch.ops import fused as F
+
+    spec, params, ts, pack, data, inv_cov = make_problem(device, ndim, ndata, log10=(0, 3))
+    lp_k = LK.make_log_prob(spec, params, ts, pack, data, inv_cov, use_fused=True, device=device)
+    lp_p = LK.make_log_prob(spec, params, ts, pack, data, inv_cov, device=device)
+    x = torch.randn((rows, ndim), generator=torch.Generator().manual_seed(13)).to(device)
+    x[: rows // 2, 0] = -3.0  # physical 0.3 - 3 < 0 on a log10 lane: -inf
+    F.reset_counts()
+    g_k = LK.make_grad_log_prob(lp_k)(x)
+    launches = dict(F.launches)
+    g_p = LK.make_grad_log_prob(lp_p)(x)
+    err = compare(g_k, g_p, "make_grad_log_prob through fused_log_prob")
+    dead = int((g_k == 0).all(dim=1).sum())
+
+    plain, pre = gradient_inputs["plain"], gradient_inputs["precond"]
+    center = torch.as_tensor(pre.center, dtype=torch.float32, device=device)[None]
+    t0 = time.perf_counter()
+    h = LK.make_hessian_log_prob(plain)(center)[0].double().cpu().numpy()
+    hess_s = time.perf_counter() - t0
+    want = pre.basis @ np.diag(pre.scales**2) @ pre.basis.T
+    hess_rel = float(np.abs(-h - want).max() / np.abs(want).max())
+    try:
+        LK.make_hessian_log_prob(gradient_inputs["fused"])
+        refused = None
+    except TypeError as e:
+        refused = str(e)
+    res = {"gradient": err, "gradient_rows": rows, "neg_inf_rows_zero_gradient": dead,
+           "launches": launches, "hessian_max_rel_to_precond": hess_rel,
+           "hessian_rtol": HESS_RTOL, "hessian_s": hess_s, "ndim": ndim,
+           "fused_hessian_refused": refused}
+    log(f"  10c: {json.dumps(res, default=float)}")
+    if device.type == "cuda" and launches["fused_log_prob"] != 1:
+        raise AssertionError(f"10c: the gradient launched fused_log_prob "
+                             f"{launches['fused_log_prob']} times, not once")
+    if hess_rel > HESS_RTOL or not np.isfinite(h).all():
+        raise AssertionError(f"10c: the Hessian is {hess_rel:.2e} from the preconditioner's")
+    if refused is None:
+        raise AssertionError("10c: the fused likelihood's Hessian was not refused")
+    return res
+
+
+def precompile_run(outdir: str, device_name: str) -> int:
+    """One ``ml_sampler_core`` iteration for 10d (``chip_smoke.py
+    --precompile-run OUTDIR DEVICE``) at the DES width with ``use_fused``,
+    K=1, in a fresh process whose kernel build directory is cold
+    (``LINNA_COMPILE_CACHE``); prints one JSON line: the run's seconds, the
+    seconds the foreground waited for the library, nvcc's seconds, the warm
+    thread's report and its launches, and the kernels' launches."""
+    import linna_tpu_torch as LT
+    from linna_tpu_torch.ops import fused as F
+    from linna_tpu_torch.parallel import precompile as PC
+
+    device = torch.device(device_name)
+    with open(os.path.join(outdir, "config.json")) as f:
+        cfg = json.load(f)
+    pb = seeded_problem(device, cfg["ndim"], cfg["ndata"])
+    inf = float("inf")
+    t0 = time.perf_counter()
+    LT.ml_sampler_core(
+        ntrainArr=[cfg["ntrain"]], nvalArr=[cfg["nval"]], nkeepArr=[2], ntimesArr=[0],
+        ntautolArr=[inf], meanshiftArr=[inf], stdshiftArr=[inf],
+        outdir=os.path.join(outdir, "run"), theory=pb.theory, priors=pb.priors, data=pb.data,
+        cov=pb.cov, init=pb.truth, pool=None, nwalkers=cfg["nwalkers"], temperatureArr=[1.0],
+        params={"trainingoption": 1, "nensemble": 1, "batch_size": 500,
+                "num_epochs": cfg["epochs"], "use_fused": True},
+        method="zeus", seed=3, device=device)
+    _sync(device)
+    print(json.dumps({"run_s": time.perf_counter() - t0, **F._Library.stats,
+                      "warm": PC.last_report, "warm_error": repr(PC.last_error),
+                      "launches": dict(F.launches),
+                      "cache_dir": PC.compile_cache_dir()}, default=float), flush=True)
+    return 0
+
+
+def phase_precompile(device, outdir, ndim=NDIM, ndata=NDATA, ntrain=PRECOMPILE_NTRAIN,
+                     nval=PRECOMPILE_NVAL, epochs=PRECOMPILE_EPOCHS, nwalkers=NWALKERS,
+                     timeout=MP_TIMEOUT) -> dict:
+    """10d: one use_fused iteration (:func:`precompile_run`) in a fresh
+    process with a cold kernel build directory, warming on and off, and once
+    more with a compiler that fails (``CUDA_HOME`` naming a stand-in
+    ``nvcc``), which must fail the run: the warm thread keeps the error and
+    the foreground's first launch raises it again (on the card: nothing
+    builds off it)."""
+    os.makedirs(outdir, exist_ok=True)
+    with open(os.path.join(outdir, "config.json"), "w") as f:
+        json.dump({"ndim": ndim, "ndata": ndata, "ntrain": ntrain, "nval": nval,
+                   "epochs": epochs, "nwalkers": nwalkers}, f)
+    broken = os.path.join(outdir, "broken_cuda", "bin")
+    os.makedirs(broken, exist_ok=True)
+    with open(os.path.join(broken, "nvcc"), "w") as f:
+        f.write("#!/bin/sh\necho 'stand-in compiler: broken toolchain' >&2\nexit 7\n")
+    os.chmod(os.path.join(broken, "nvcc"), 0o755)
+    res = {}
+    cases = [("warm", {"LINNA_PRECOMPILE": "1"}), ("cold", {"LINNA_PRECOMPILE": "0"})]
+    if device.type == "cuda":
+        cases.append(("broken_compiler", {"LINNA_PRECOMPILE": "1",
+                                          "CUDA_HOME": os.path.dirname(broken)}))
+    for case, env in cases:
+        d = os.path.join(outdir, case)
+        os.makedirs(d)
+        shutil.copy(os.path.join(outdir, "config.json"), d)
+        env = dict(os.environ, PYTHONPATH=ROOT, LINNA_COMPILE_CACHE=os.path.join(d, "build"),
+                   **env)
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                            "--precompile-run", d, str(device)], cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=timeout)
+        wall = time.perf_counter() - t0
+        if case == "broken_compiler":
+            res[case] = {"rc": p.returncode, "process_s": wall,
+                         "error": [ln for ln in p.stderr.splitlines() if "nvcc failed" in ln][-1:]}
+            if p.returncode == 0 or not res[case]["error"]:
+                log(p.stdout[-3000:] + p.stderr[-3000:])
+                raise AssertionError("10d: the run with a broken compiler did not fail on it")
+            continue
+        if p.returncode != 0:
+            log(p.stdout[-3000:] + p.stderr[-3000:])
+            raise AssertionError(f"10d: the {case} run exited with {p.returncode}")
+        res[case] = {**json.loads(p.stdout.strip().splitlines()[-1]), "process_s": wall}
+    log(f"  10d: {json.dumps(res, default=float)}")
+    warm, cold = res["warm"], res["cold"]
+    if device.type == "cuda" and (not warm["warm"].get("launches", {}).get("fused_log_prob")
+                                  or cold["warm"]):
+        raise AssertionError(f"10d: warm thread report {warm['warm']} on, {cold['warm']} off")
+    return res
+
+
+def phase_pod_accept(device, timeout=MP_TIMEOUT, device_arg=None) -> dict:
+    """10e: ``python -m linna_tpu_torch.pod_accept --structural`` (the card
+    by default) as a user runs it: its JSON verdict and exit code."""
+    cmd = [sys.executable, "-m", "linna_tpu_torch.pod_accept", "--structural"]
+    if device_arg:
+        cmd += ["--device", device_arg]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                       capture_output=True, text=True, timeout=timeout)
+    verdict = json.loads(p.stdout.strip().splitlines()[-1]) if p.stdout.strip() else None
+    res = {"rc": p.returncode, "seconds": time.perf_counter() - t0, "verdict": verdict}
+    log(f"  10e: {json.dumps(res, default=float)}")
+    if p.returncode != 0 or not (verdict and verdict["pass"]):
+        log(p.stderr[-3000:])
+        raise AssertionError(f"10e: pod_accept --structural exited {p.returncode}")
+    return res
+
+
+def phase_rest(device, outdir, gradient_inputs, rows=None, speculative=None, helpers=None,
+               precompile=None, pod_accept=None) -> dict:
+    """Phase 10: 10a-10e; each dict gives its phase function's keyword
+    arguments (sizes, for a rehearsal on the CPU)."""
+    res = {}
+    inputs = phase10_rows(device, outdir, **(rows or {}))
+    os.makedirs(os.path.join(outdir, "10a"), exist_ok=True)
+    shutil.copy(os.path.join(outdir, "inputs.npz"), os.path.join(outdir, "10a"))
+    steps = (("10a", lambda: phase_tensor_parallel(device, os.path.join(outdir, "10a"), inputs)),
+             ("10b", lambda: phase_speculative(device, os.path.join(outdir, "10b"), inputs,
+                                               **(speculative or {}))),
+             ("10c", lambda: phase_helpers(device, gradient_inputs, **(helpers or {}))),
+             ("10d", lambda: phase_precompile(device, os.path.join(outdir, "10d"),
+                                              **(precompile or {}))),
+             ("10e", lambda: phase_pod_accept(device, **(pod_accept or {}))))
+    for key, fn in steps:
+        t0 = time.perf_counter()
+        res[key] = fn()
+        res[key + "_s"] = time.perf_counter() - t0
+        log(f"  {key}: {res[key + '_s']:.1f} s")
+    return res
+
+
 
 def main() -> int:
     if sys.argv[1:2] == ["--data-parallel-rank"]:
         return dp_rank(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--tensor-parallel-rank"]:
+        return tp_rank(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--precompile-run"]:
+        return precompile_run(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -2191,7 +2727,7 @@ def main() -> int:
     t0 = time.perf_counter()
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     try:
-        _, path_launches = phase_gradient(device, RUN_DIR)
+        gradient, path_launches = phase_gradient(device, RUN_DIR)
     finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
     log(f"  launches by path: {path_launches}")
@@ -2235,7 +2771,19 @@ def main() -> int:
     log(f"  phase 9: {seconds[9]:.1f} s")
     sharded = {m: mp["9c"]["chains"][m]["launches"]["ranks"] for m in ("emcee", "nuts")}
 
-    log(f"== 10. result (phase seconds {json.dumps(seconds)})")
+    log("== 10. the rest of the port: tensor parallelism, speculative dispatch, the "
+        "helpers, the warm-up, pod acceptance")
+    t0 = time.perf_counter()
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    try:
+        rest = phase_rest(device, RUN_DIR, gradient.pop("map"))
+    finally:
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
+    seconds[10] = time.perf_counter() - t0
+    log(f"  phase 10: {seconds[10]:.1f} s")
+    tp_launches = rest["10a"]["launches"]
+
+    log(f"== 11. result (phase seconds {json.dumps(seconds)})")
     kernels = []
     for k in REPLACES:
         r = rec[k]
@@ -2258,6 +2806,11 @@ def main() -> int:
                 "launcher_two_ranks_K4": [a[k] for a in mp["9b"]["launches"]],
                 "sharded_emcee_per_rank": [r[k] for r in sharded["emcee"]],
                 "sharded_nuts_per_rank": [r[k] for r in sharded["nuts"]],
+                "tensor_parallel": {"one_rank": tp_launches["one_rank"][k],
+                                    "two_ranks": [r[k] for r in tp_launches["ranks"]]},
+                "speculative_training": rest["10b"]["launches"][k],
+                "grad_log_prob": rest["10c"]["launches"][k],
+                "precompile_warm": rest["10d"]["warm"]["warm"]["launches"][k],
             },
             "max_abs_err": r["abs"],
             "max_rel_err": r["rel"],

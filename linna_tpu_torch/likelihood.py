@@ -21,7 +21,7 @@ from . import priors as P
 from .device import DeviceLike, resolve_device
 from .transforms import TransformSet
 
-__all__ = ["gaussian_loglike", "make_log_prob"]
+__all__ = ["gaussian_loglike", "make_log_prob", "make_grad_log_prob", "make_hessian_log_prob"]
 
 
 def _chi2(d: torch.Tensor, inv_cov: torch.Tensor) -> torch.Tensor:
@@ -193,6 +193,56 @@ def make_log_prob(
     log_prob._pure = _pure
     log_prob._env = env
     return log_prob
+
+
+def make_grad_log_prob(log_prob: Callable) -> Callable:
+    """Batched gradient (W, D) -> (W, D), each walker's own: autograd of the
+    summed log-probs (the rows are independent).  A likelihood on the fused
+    route runs the kernel forward and its plain backward
+    (:class:`linna_tpu_torch.ops.fused._FusedLogProb`).  A row whose
+    log-prob is -inf gets a zero gradient, as JAX's gives it there: the
+    gradient samplers' :func:`linna_tpu_torch.samplers.hmc.value_and_grad`."""
+    from .samplers.hmc import value_and_grad
+
+    def grad(x: torch.Tensor) -> torch.Tensor:
+        return value_and_grad(log_prob, torch.as_tensor(x, dtype=torch.float32))[1]
+
+    return grad
+
+
+def make_hessian_log_prob(log_prob: Callable) -> Callable:
+    """Batched Hessian (W, D) -> (W, D, D): ``torch.func.hessian`` of one
+    row, vmapped over the walkers; zero on a row whose log-prob is -inf, as
+    JAX's is there.
+
+    The fused likelihood (``use_fused=True``, or
+    :func:`linna_tpu_torch.ops.fused.fused_log_prob`) is refused with a
+    TypeError, as the JAX package refuses it: JAX's kernel is a
+    ``custom_vjp``, which forward-mode differentiation rejects, and the
+    port's kernel is an ``autograd.Function`` with no forward-mode rule.
+    Nothing here swaps the plain composition in for the kernel; take the
+    Hessian of ``make_log_prob(..., use_fused=False)``."""
+    if getattr(log_prob, "_plain_pure", None) is not None:
+        raise TypeError(
+            "make_hessian_log_prob: this log-prob runs the fused_log_prob kernel, whose "
+            "autograd.Function has no forward-mode rule (the JAX package's custom_vjp "
+            "kernel refuses jvp the same way); build the likelihood with use_fused=False "
+            "for a Hessian"
+        )
+
+    def single(x: torch.Tensor) -> torch.Tensor:
+        return log_prob(x[None, :])[0]
+
+    hess = torch.func.vmap(torch.func.hessian(single))
+
+    def hessian(x: torch.Tensor) -> torch.Tensor:
+        x = torch.as_tensor(x, dtype=torch.float32)
+        h = hess(x)
+        with torch.no_grad():
+            finite = torch.isfinite(log_prob(x))[:, None, None]
+        return torch.where(finite, h, torch.zeros_like(h))
+
+    return hessian
 
 
 def _stack(trees):

@@ -32,6 +32,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import threading
+import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -45,6 +48,7 @@ __all__ = [
     "fused_log_prob",
     "fused_log_prob_plain",
     "build",
+    "build_dir",
     "launch_shape",
     "launches",
     "plain_calls",
@@ -72,10 +76,25 @@ def reset_counts() -> None:
 
 
 class _Library:
-    """The built shared library and its compiler output."""
+    """The built shared library, its compiler output, and the build's
+    timings: ``nvcc_s`` the compiler's seconds, ``foreground_wait_s`` the
+    seconds callers other than the warm thread
+    (:mod:`linna_tpu_torch.parallel.precompile`) spent in :func:`build`
+    before the library was theirs to use."""
 
     lib: Optional[ctypes.CDLL] = None
     log: str = ""
+    private: Optional[Path] = None
+    # True while the warm thread makes its first launches: other callers
+    # wait for it, so its launches are counted apart
+    busy: bool = False
+    stats: Dict[str, float] = {"nvcc_s": 0.0, "foreground_wait_s": 0.0}
+
+
+# one build at a time in a process (the warm thread and the foreground);
+# separate processes are kept apart by the tmp + rename of the library
+_BUILD_LOCK = threading.RLock()
+WARM_THREAD = "linna-precompile"
 
 
 def _nvcc() -> str:
@@ -96,24 +115,55 @@ def _nvcc() -> str:
 _KERNEL_IDS = {"fused_apply": 0, "fused_log_prob": 1}
 
 
+def build_dir() -> Path:
+    """Where the library is built and kept: ``LINNA_COMPILE_CACHE`` when it
+    names a directory, a temporary directory of this process when it is
+    ``0`` or empty (nothing kept across processes), else the package's
+    ``_build/``."""
+    d = os.environ.get("LINNA_COMPILE_CACHE")
+    if d is None:
+        return BUILD_DIR
+    if d in ("0", ""):
+        if _Library.private is None:
+            _Library.private = Path(tempfile.mkdtemp(prefix="linna_kernels_"))
+        return _Library.private
+    return Path(d)
+
+
 def build() -> str:
-    """Compile ``csrc/fused_mlp.cu`` into ``_build/`` (cached by a hash of
-    the source and flags) and load it.  Returns the compiler output
-    (``-Xptxas -v``: registers and shared memory per kernel).  Raises with
-    the compiler output when ``nvcc`` fails."""
-    if _Library.lib is not None:
+    """Compile ``csrc/fused_mlp.cu`` into :func:`build_dir` (cached by a
+    hash of the source and flags) and load it, once per process.  Returns
+    the compiler output (``-Xptxas -v``: registers and shared memory per
+    kernel).  Raises with the compiler output when ``nvcc`` fails; a caller
+    that comes after a failed build tries again, and fails the same way."""
+    if _Library.lib is not None and not _Library.busy:
         return _Library.log
+    t0 = time.perf_counter()
+    with _BUILD_LOCK:
+        try:
+            if _Library.lib is None:
+                _load()
+        finally:
+            if threading.current_thread().name != WARM_THREAD:
+                _Library.stats["foreground_wait_s"] += time.perf_counter() - t0
+    return _Library.log
+
+
+def _load() -> None:
     src = SOURCE.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"libfused_mlp_{tag}.so"
+    where = build_dir()
+    where.mkdir(parents=True, exist_ok=True)
+    so = where / f"libfused_mlp_{tag}.so"
     log_path = so.with_suffix(".log")
     if not so.is_file():
-        tmp = BUILD_DIR / f".{so.name}.{os.getpid()}.tmp"
+        tmp = where / f".{so.name}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
         proc = subprocess.run(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
             capture_output=True, text=True,
         )
+        _Library.stats["nvcc_s"] += time.perf_counter() - t0
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(
@@ -136,9 +186,8 @@ def build() -> str:
     lib.linna_launch_shape.restype = ci
     lib.linna_error_string.argtypes = [ci]
     lib.linna_error_string.restype = ctypes.c_char_p
-    _Library.lib = lib
     _Library.log = log_path.read_text() if log_path.is_file() else ""
-    return _Library.log
+    _Library.lib = lib
 
 
 def _check(err: int, what: str) -> None:

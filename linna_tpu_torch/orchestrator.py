@@ -50,6 +50,7 @@ from . import sample_gen as SG
 from . import transforms as T
 from .device import DeviceLike, resolve_device
 from .parallel import multihost as MH
+from .parallel import precompile
 from .samplers import backends, convergence
 from .samplers import run as sampler_run
 from .train import Trainer
@@ -634,6 +635,21 @@ def ml_sampler_core(
     options = int(params.get("trainingoption", 0))
     timer = PhaseTimer(outdir if is_master and MH.is_primary() else None)
     rng = np.random.default_rng(seed)
+
+    # the kernel build, its first launches at this run's shapes and cuBLAS's
+    # first use, in a daemon thread while iteration 0 makes its training
+    # points (parallel/precompile.py has the gating story)
+    if is_master and precompile.should_warm(params, ypositive, nbest, chisqcut):
+        use_kernel = (
+            bool(params.get("use_fused"))
+            and int(params.get("nensemble", 1)) == 1
+            and loglikelihoodfunc is None
+            and externalloglike is None
+            and params.get("compute_dtype") is None
+            and nnmodel_in != "chto_v2_linear"
+        )
+        precompile.warm_pipeline(nnmodel_in, ndim, len(data), nwalkers,
+                                 int(params.get("batch_size", 500)), use_kernel, device)
 
     chain = None
     for i, (nt, nv, nk, ntimes, tautol, temperature, meanshift, stdshift) in enumerate(

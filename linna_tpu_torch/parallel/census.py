@@ -16,6 +16,12 @@ thresholds are the JAX package's (``examples/pod_accept.py``):
   member's data group (none when the group has one rank), nothing that
   crosses the ``ens`` axis.
 
+:func:`tensor_parallel_census` counts one tensor-parallel training step
+(:mod:`linna_tpu_torch.parallel.dtrain`) by kind and group; it has no JAX
+threshold (JAX's ``dtrain`` has no census).  JAX's
+``hlo_census_by_computation`` parses compiled XLA HLO and has no
+counterpart here: the port compiles no XLA program.
+
 Every rank must call a census at the same point: they are collective.
 """
 
@@ -30,7 +36,12 @@ from ..device import DeviceLike, resolve_device
 from . import multihost as MH
 from .mesh import make_ensemble_mesh, walker_shard
 
-__all__ = ["sampler_collective_census", "trainer_collective_census", "per_step_and_chunk"]
+__all__ = [
+    "sampler_collective_census",
+    "trainer_collective_census",
+    "tensor_parallel_census",
+    "per_step_and_chunk",
+]
 
 METHODS = ("emcee", "zeus", "hmc", "nuts")
 # the census problems: a random-weight emulator and its training rows;
@@ -159,3 +170,32 @@ def trainer_collective_census(k: int = 2, device: DeviceLike = None) -> dict:
         "per_chunk": res["per_chunk"],
         "cross_member_collectives": len(cross),
     }
+
+
+def tensor_parallel_census(n_model: int, ndim: int = TRAIN_DIM, ndata: int = TRAIN_DATA,
+                           batch: int = BATCH, device: DeviceLike = None) -> dict:
+    """One tensor-parallel AdamW step of a random-weight ``chto_v2`` at
+    ``ndim`` -> ``ndata`` on the current process group's ``('data',
+    'model')`` grid with ``n_model`` model ranks: the collectives per step
+    and per chunk, by kind and group."""
+    from .. import losses as L
+    from . import dtrain as DT
+    from .mesh import make_mesh
+
+    device = resolve_device(device)
+    spec, tset, _ = _census_problem(ndim, ndata, device)
+    loss_state = L.build_loss_state(np.zeros(ndata), np.eye(ndata), tset)
+    mesh = make_mesh(n_model)
+    opt = DT.adamw(1e-3)
+    params, state = DT.init_sharded(0, spec, opt, mesh, device=device)
+    step = DT.make_sharded_train_step(spec, tset, loss_state, opt, mesh)
+    rng = np.random.default_rng(0)
+    bx = rng.uniform(-1, 1, (batch, ndim))
+    by = bx @ rng.standard_normal((ndim, ndata))
+
+    def run(n):
+        for _ in range(n):
+            step(params, state, bx, by)
+
+    return {"mesh": mesh.shape, "spec": [ndim, ndata, spec.hidden],
+            **per_step_and_chunk(run, 1, 2)}

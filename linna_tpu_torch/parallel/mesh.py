@@ -16,21 +16,47 @@ walkers, ``2 half / world`` in all.  Draws taken for the whole ensemble are
 cut to the block; the complementary half is gathered whole once per
 half-update.
 
-The tensor-parallel ``make_mesh`` / ``param_shardings`` / ``shard_params``
-of the JAX module are not ported.
+The tensor-parallel half (``make_mesh``, ``replicated``,
+``batch_sharding``, ``param_shardings``, ``shard_params``) lays the ranks
+out as a ``('data', 'model')`` grid, rank r at row ``r // model`` and column
+``r % model`` (JAX's ``devices.reshape(n // n_model, n_model)``).  A
+:class:`Sharding` is a ``PartitionSpec``-like tuple over a tensor's
+dimensions, each entry None (whole), ``"data"``, ``"model"`` or
+``("data", "model")``; a sharded dimension of size n is cut into blocks of
+``ceil(n / parts)`` (the last ones shorter, or empty), where GSPMD pads it
+to that size: at hidden 1000 and ``model=2`` the 125-wide trunk splits 63 +
+62.  The parameter rule is JAX's (Megatron's column/row alternation):
+``layer1`` column-parallel (weight and bias on the output dimension); in
+each residual block ``lin1`` row-parallel (weight on the input dimension,
+bias whole), ``lin2`` and ``skip_w`` column-parallel; ``layer6``
+row-parallel; ``layer7``, ``layer8`` and ``linear_bypass`` whole on every
+rank.  :mod:`linna_tpu_torch.parallel.dtrain` writes the collectives those
+layouts need.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from . import multihost as MH
 
-__all__ = ["EnsembleMesh", "make_ensemble_mesh", "WalkerShard", "walker_shard"]
+__all__ = [
+    "EnsembleMesh",
+    "make_ensemble_mesh",
+    "WalkerShard",
+    "walker_shard",
+    "Mesh",
+    "Sharding",
+    "make_mesh",
+    "replicated",
+    "batch_sharding",
+    "param_shardings",
+    "shard_params",
+]
 
 
 class EnsembleMesh:
@@ -168,3 +194,148 @@ def walker_shard(nwalkers: int, world: Optional[int] = None, rank: Optional[int]
             f"half-ensemble size {nwalkers // 2} must divide over the {world}-rank walker mesh"
         )
     return WalkerShard(rank, world, int(nwalkers))
+
+
+# ------------------------------------------------------ tensor parallelism
+
+
+def block(n: int, parts: int, i: int) -> slice:
+    """Block ``i`` of ``parts`` of a dimension of size ``n``: blocks of
+    ``ceil(n / parts)``, the last ones shorter or empty (GSPMD's padded
+    split)."""
+    c = -(-int(n) // int(parts))
+    return slice(min(i * c, n), min((i + 1) * c, n))
+
+
+class Mesh:
+    """The ``('data', 'model')`` grid of ``world`` ranks (see the module
+    docstring), seen from ``rank``."""
+
+    def __init__(self, world: int, n_model: int = 1, rank: int = 0):
+        if n_model < 1 or world % n_model:
+            raise ValueError(f"{world} ranks not divisible by n_model={n_model}")
+        self.world, self.model = int(world), int(n_model)
+        self.data = self.world // self.model
+        self.rank = int(rank)
+        self.grid = np.arange(self.world).reshape(self.data, self.model)
+        self._groups = None
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": self.data, "model": self.model}
+
+    def coords(self, rank: Optional[int] = None) -> Tuple[int, int]:
+        """(data row, model column) of ``rank`` (this rank by default)."""
+        return divmod(self.rank if rank is None else int(rank), self.model)
+
+    def index(self, axis) -> Tuple[int, int]:
+        """(this rank's position, the number of parts) along a mesh axis or
+        a tuple of them (flattened row-major, as a ``P(("data", "model"))``
+        dimension)."""
+        d, m = self.coords()
+        if axis == "data":
+            return d, self.data
+        if axis == "model":
+            return m, self.model
+        if tuple(axis) == ("data", "model"):
+            return self.rank, self.world
+        raise ValueError(f"unknown mesh axis {axis!r}")
+
+    def groups(self) -> Tuple[Any, Any]:
+        """(model group, data group) of this rank: the ranks of its grid row
+        and of its column.  None for both without a process group, where
+        the collectives of :mod:`linna_tpu_torch.parallel.dtrain` are the
+        identity; with one, each group makes its collectives at one rank
+        too.  Every rank must make the first call at the same point: it
+        creates every row's and every column's group."""
+        if self._groups is None:
+            if MH.backend() is None:
+                self._groups = (None, None)
+            else:
+                name = lambda kind, ranks: kind + str([int(r) for r in ranks]).replace(" ", "")
+                rows = [MH.subgroup(row, name("model", row)) for row in self.grid]
+                cols = [MH.subgroup(col, name("data", col)) for col in self.grid.T]
+                d, m = self.coords()
+                self._groups = (rows[d], cols[m])
+        return self._groups
+
+
+def make_mesh(n_model: Optional[int] = None, world: Optional[int] = None,
+              rank: Optional[int] = None) -> Mesh:
+    """The ``('data', 'model')`` grid over the current process group (or
+    ``world`` ranks, seen from ``rank``).  ``n_model``, the tensor-parallel
+    size, defaults to 1: pure data parallelism."""
+    world = MH.process_count() if world is None else int(world)
+    rank = MH.process_index() if rank is None else int(rank)
+    return Mesh(world, 1 if n_model is None else int(n_model), rank)
+
+
+class Sharding(NamedTuple):
+    """How a tensor lies on the mesh: ``spec[i]`` shards dimension i over a
+    mesh axis (None: whole); dimensions past the spec are whole."""
+
+    mesh: Mesh
+    spec: Tuple = ()
+
+    def slices(self, shape) -> Tuple[slice, ...]:
+        """This rank's block of a tensor of the full ``shape``."""
+        out = []
+        for i, n in enumerate(shape):
+            axis = self.spec[i] if i < len(self.spec) else None
+            if axis is None:
+                out.append(slice(None))
+            else:
+                out.append(block(n, self.mesh.index(axis)[1], self.mesh.index(axis)[0]))
+        return tuple(out)
+
+    def take(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the full tensor ``t`` (a contiguous copy)."""
+        return t[self.slices(t.shape)].contiguous().clone()
+
+
+def replicated(mesh: Mesh) -> Sharding:
+    return Sharding(mesh, ())
+
+
+def batch_sharding(mesh: Mesh, also_model: bool = False) -> Sharding:
+    """A (batch, feature) tensor's rows over ``data`` (or over the whole
+    grid, ``("data", "model")``, for work such as walkers that every rank
+    splits)."""
+    return Sharding(mesh, ((("data", "model") if also_model else "data"), None))
+
+
+def _linear_sharding(mesh: Mesh, kind: str) -> Dict[str, Sharding]:
+    """``col`` shards a weight's output dimension and its bias, ``row`` the
+    weight's input dimension (bias whole)."""
+    if kind == "col":
+        return {"w": Sharding(mesh, (None, "model")), "b": Sharding(mesh, ("model",))}
+    return {"w": Sharding(mesh, ("model", None)), "b": Sharding(mesh, ())}
+
+
+def param_shardings(params: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
+    """The :class:`Sharding` of every leaf of an emulator parameter dict
+    (:func:`linna_tpu_torch.nn.init_model`), by JAX's rule."""
+    out: Dict[str, Any] = {}
+    for name, p in params.items():
+        if name == "layer1":
+            rule = _linear_sharding(mesh, "col")
+        elif name.startswith("rb"):
+            rule = {"lin1": _linear_sharding(mesh, "row"), "lin2": _linear_sharding(mesh, "col"),
+                    "skip_w": Sharding(mesh, (None, "model"))}
+        elif name == "layer6":
+            rule = _linear_sharding(mesh, "row")
+        else:  # layer7, layer8, linear_bypass
+            rule = {k: replicated(mesh) for k in p}
+        out[name] = {k: v for k, v in rule.items() if k in p}
+    return out
+
+
+def shard_params(params: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
+    """This rank's blocks of a full emulator parameter dict, by
+    :func:`param_shardings` (copies; the full dict is left as it is)."""
+
+    def cut(tree, rule):
+        return {k: cut(v, rule[k]) if isinstance(v, dict) else rule[k].take(v)
+                for k, v in tree.items()}
+
+    return cut(params, param_shardings(params, mesh))

@@ -196,10 +196,11 @@ def primary_only(fn: Callable) -> Callable:
 
 def subgroup(ranks: Sequence[int], name: str):
     """The process group of ``ranks``, counted as ``name``; created at the
-    first call, which every rank must make, in the same order."""
-    key = tuple(int(r) for r in ranks)
+    first call for that name and those ranks, which every rank must make,
+    in the same order."""
+    key = (tuple(int(r) for r in ranks), name)
     if key not in _groups:
-        _groups[key] = _dist().new_group(list(key))
+        _groups[key] = _dist().new_group(list(key[0]))
         _group_names[id(_groups[key])] = name
     return _groups[key]
 
@@ -331,6 +332,29 @@ def _unpack(buf: torch.Tensor, like: Sequence[torch.Tensor]) -> List[np.ndarray]
 def to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
     """``tensors`` as host numpy, in one copy from the device."""
     return _unpack(_pack(tensors), tensors)
+
+
+def to_host_async(tensors: Sequence[torch.Tensor]) -> Callable[[], List[np.ndarray]]:
+    """Start the copy of ``tensors`` to the host; returns the function that
+    waits for it and gives the numpy arrays.  CUDA tensors go, in one
+    ``non_blocking`` copy enqueued on the current stream now, to pinned host
+    memory, and the wait is on an event recorded behind that copy, so work
+    enqueued after this call does not delay it.  Other tensors are copied
+    now."""
+    if not tensors or not tensors[0].is_cuda:
+        host = to_host(tensors)
+        return lambda: host
+    packed = _pack(tensors)
+    buf = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+    buf.copy_(packed, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def wait() -> List[np.ndarray]:
+        done.synchronize()
+        return _unpack(buf, tensors)
+
+    return wait
 
 
 def gather_packed(tensors: Sequence[torch.Tensor], group=None) -> List[List[np.ndarray]]:

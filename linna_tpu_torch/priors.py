@@ -9,6 +9,7 @@ leading axes, on whatever device the tensors live on.
 
 from __future__ import annotations
 
+import json
 import math
 from typing import NamedTuple, Sequence
 
@@ -20,6 +21,9 @@ from .device import DeviceLike, resolve_device
 __all__ = [
     "PriorPack",
     "priors_from_list",
+    "priors_to_list",
+    "save_priors",
+    "load_priors",
     "pack_from_numpy",
     "gauss2unif",
     "invgauss2unif",
@@ -71,6 +75,27 @@ def priors_from_list(priors: Sequence[dict], device: DeviceLike = None) -> Prior
         [p["arg2"] for p in priors],
         resolve_device(device),
     )
+
+
+def priors_to_list(pack: PriorPack) -> list:
+    """Inverse of :func:`priors_from_list`, the JAX package's list form
+    (``dist``, ``arg1``, ``arg2`` as Python floats of the float32 values)."""
+    return [
+        {"dist": "gauss" if g else "flat", "arg1": float(a), "arg2": float(b)}
+        for g, a, b in zip(pack.is_gauss.cpu().numpy(), pack.arg1.cpu().numpy(),
+                           pack.arg2.cpu().numpy())
+    ]
+
+
+def save_priors(path: str, pack: PriorPack) -> None:
+    """Write the priors as JSON, the JAX package's file."""
+    with open(path, "w") as f:
+        json.dump(priors_to_list(pack), f)
+
+
+def load_priors(path: str, device: DeviceLike = None) -> PriorPack:
+    with open(path) as f:
+        return priors_from_list(json.load(f), device)
 
 
 def pack_from_numpy(pack, device: DeviceLike = None) -> PriorPack:

@@ -389,6 +389,11 @@ class EmceeBackend(_Store):
             g = f[self.name]
             return np.copy(g["chain"][int(g.attrs["iteration"]) - 1])
 
+    def get_last_log_prob(self) -> np.ndarray:
+        with self._open("r") as f:
+            g = f[self.name]
+            return np.copy(g["log_prob"][int(g.attrs["iteration"]) - 1])
+
 
 class ZeusBackend(_Store):
     """Append-only zeus-layout store (root datasets, gzip)."""
@@ -457,3 +462,7 @@ class ZeusBackend(_Store):
     def get_last_sample(self) -> np.ndarray:
         with self._open("r") as f:
             return np.copy(f["samples"][self._committed(f) - 1])
+
+    def get_last_log_prob(self) -> np.ndarray:
+        with self._open("r") as f:
+            return np.copy(f["logprob"][self._committed(f) - 1])

@@ -20,6 +20,23 @@ halving, and the collapse and late-stall escapes.  A dispatch chunk of
 ``DispatchSchedule.k_at`` epochs runs without a host sync; its metrics come
 back in one fetch and the supervisor then decides epoch by epoch.
 
+Speculative dispatch (``speculative_dispatch``, on by default as in the JAX
+package): after a quiet chunk, chunk k+1 is enqueued from the post-chunk
+state before the host waits for chunk k's metrics, so the fetch and the
+supervisor, save and plot work overlap the card's work.  The parameters and
+the optimizer state advance in place, so a device copy of both, taken on
+the stream between the two chunks, is the restore point: the first
+intervention of chunk k (reinit, reload, hyper), or every member stopping,
+drops chunk k+1 and copies the restore point back before anything else
+writes.  Chunk k's metrics go to pinned host memory with ``non_blocking``
+copies enqueued before chunk k+1, and the host waits on an event, not on
+the stream.  Without an intervention a speculative run equals the serial
+run bit for bit; a dropped chunk has drawn its epoch permutations from each
+member's stream, so after a drop the draws differ from the serial run's
+(JAX's run burns one key split there).  Over ranks the metrics are gathered
+before chunk k+1 is enqueued and every decision comes from them, so every
+rank takes the same branch.
+
 AdamW matches ``optax.inject_hyperparams(optax.adamw)``: b1 0.9, b2 0.999,
 eps 1e-8 outside the square root, bias correction by each member's step
 count, decoupled decay ``lr * wd * p`` on every parameter, biases included,
@@ -72,6 +89,7 @@ __all__ = [
     "EarlyStopping",
     "Supervisor",
     "DispatchSchedule",
+    "device_spike_recover",
     "AdamWState",
     "adamw_init",
     "adamw_step_",
@@ -318,15 +336,28 @@ class DispatchSchedule:
         self.guard = min(guard, self.max_epd)
         self.quiet = 0  # consecutive chunks without a params intervention
 
-    def k_at(self, i: int, num_epochs: int) -> int:
-        """Chunk length starting at epoch ``i`` (0 when done)."""
+    def k_at(self, i: int, num_epochs: int, quiet: Optional[int] = None) -> int:
+        """Chunk length starting at epoch ``i`` (0 when done).  ``quiet``
+        overrides the observed count of quiet chunks: speculative dispatch
+        asks for the next chunk as if the current one lands quiet."""
         if i >= num_epochs:
             return 0
-        k = self.guard if i < self.FLAT_WINDOW or self.quiet == 0 else self.max_epd
+        q = self.quiet if quiet is None else quiet
+        k = self.guard if i < self.FLAT_WINDOW or q == 0 else self.max_epd
         return min(k, num_epochs - i)
 
     def observe(self, intervened: bool) -> None:
         self.quiet = 0 if intervened else self.quiet + 1
+
+    def quiet_path_lengths(self, num_epochs: int) -> List[int]:
+        """The chunk lengths of a run with no intervention."""
+        out, i, q = [], 0, 0
+        while i < num_epochs:
+            k = self.k_at(i, num_epochs, quiet=q)
+            out.append(k)
+            i += k
+            q += 1
+        return out
 
 
 # ------------------------------------------------------------------- AdamW
@@ -382,6 +413,52 @@ def adamw_reset_(state: AdamWState, m: int) -> None:
     state.count[m] = 0
     state.mu[m] = 0.0
     state.nu[m] = 0.0
+
+
+@torch.no_grad()
+def device_spike_recover(
+    flat: torch.Tensor,
+    opt: AdamWState,
+    best_flat: torch.Tensor,
+    lr: torch.Tensor,
+    val0: torch.Tensor,
+    loss: torch.Tensor,
+    prev_val: torch.Tensor,
+    prev_loss: torch.Tensor,
+    ep,
+):
+    """The NaN/spike recovery of one epoch on the card, for K stacked
+    members (JAX ``train.device_spike_recover``; the JAX package never
+    calls it, and neither does the trainer here).
+
+    ``flat``/``best_flat`` (K, P), ``opt`` the members' AdamW state, and the
+    (K,) float32 ``lr``, validation metric ``val0``, last-batch ``loss`` and
+    the previous quiet epoch's ``prev_val``/``prev_loss``.  A member
+    triggers on a NaN or > 1e10 metric, or (after epoch 0) a metric or loss
+    rising by more than 5x its previous value.  A triggered member gets its
+    best params, a fresh optimizer state, its lr halved when the spike is
+    big (NaN, > 1e10 or a 10x metric rise, after epoch 10, lr above
+    ``MIN_LR``), and its recorded metric clamped to the previous value;
+    the previous values advance only on quiet members.  Returns new
+    tensors: (flat, opt, lr, recorded val0, prev_val, prev_loss, trigger)."""
+    ep = torch.as_tensor(ep, device=val0.device)
+    bad = torch.isnan(val0) | (val0 > 1e10)
+    spike_v = (ep != 0) & (val0 - prev_val > 5.0 * prev_val)
+    spike_t = (ep != 0) & (loss - prev_loss > 5.0 * prev_loss)
+    trigger = bad | spike_v | spike_t
+    big = (bad | (val0 - prev_val > 10.0 * prev_val)) & (ep > 10)
+    rows = trigger[:, None]
+    flat = torch.where(rows, best_flat, flat)
+    opt = AdamWState(
+        torch.where(trigger, torch.zeros_like(opt.count), opt.count),
+        torch.where(rows, torch.zeros_like(opt.mu), opt.mu),
+        torch.where(rows, torch.zeros_like(opt.nu), opt.nu),
+    )
+    lr = torch.where(trigger & big & (lr > MIN_LR), lr * 0.5, lr)
+    vm0_rec = torch.where(trigger, prev_val, val0)
+    prev_val = torch.where(trigger, prev_val, val0)
+    prev_loss = torch.where(trigger, prev_loss, loss)
+    return flat, opt, lr, vm0_rec, prev_val, prev_loss, trigger
 
 
 # ------------------------------------------------------------------ layout
@@ -478,6 +555,9 @@ class _MemberStack:
     save_every = 200
     # the most epochs one dispatch chunk runs without a host sync
     epochs_per_dispatch = 10
+    # enqueue chunk k+1 before fetching chunk k (see the module docstring);
+    # False gives the serial loop
+    speculative_dispatch = True
     # write training_progress.png after the first chunk as well (ensembles)
     _plot_first_chunk = False
 
@@ -574,6 +654,17 @@ class _MemberStack:
         if self.mesh is None:
             return MH.to_host(tensors)
         return self.mesh.gather_members(tensors, axes)
+
+    def _fetch_start(self, tensors, axes):
+        """Start the host copy of every member's ``tensors`` (members on
+        ``axes[i]``); returns the function that waits for it and gives the
+        numpy arrays.  With a mesh the gather, a collective, runs here, so
+        every rank makes it before enqueuing anything else; on a card the
+        bytes go to pinned host memory behind an event."""
+        if self.mesh is not None:
+            host = self._gather(tensors, axes)
+            return lambda: host
+        return MH.to_host_async(tensors)
 
     def _set_hypers(self) -> None:
         rows = slice(self.local.start, self.local.stop)
@@ -927,18 +1018,37 @@ class _MemberStack:
         i = 0
         last_plot = 0
         sched = DispatchSchedule(self.epochs_per_dispatch)
+        self.speculation = {"speculated": 0, "dropped": 0}
+        pending = None  # the speculative chunk: (k, outputs)
         while i < num_epochs and not all(s.stopped for s in sups):
-            k = sched.k_at(i, num_epochs)
-            t0 = time.perf_counter()
-            losses_k, vms_k, corrs_k, best_val, best_flat = self._epochs_tracked(
-                self._draw_perms(k, n), data
-            )
-            t1 = time.perf_counter()
-            ps["dispatch"] += t1 - t0
+            if pending is None:
+                k = sched.k_at(i, num_epochs)
+                t0 = time.perf_counter()
+                outs = self._epochs_tracked(self._draw_perms(k, n), data)
+                ps["dispatch"] += time.perf_counter() - t0
+            else:
+                (k, outs), pending = pending, None
+            losses_k, vms_k, corrs_k, best_val, best_flat = outs
             # one fetch of every member's chunk metrics (the only host sync
-            # of a chunk; a gather over the ranks with a mesh)
+            # of a chunk; a gather over the ranks with a mesh), started
+            # before chunk k+1 is enqueued
+            t1 = time.perf_counter()
             parts = [losses_k, vms_k, best_val] + ([corrs_k] if corrs_k is not None else [])
-            pieces = self._gather(parts, [1, 1, 0, 1][:len(parts)])
+            fetch = self._fetch_start(parts, [1, 1, 0, 1][:len(parts)])
+            ps["wait_fetch"] += time.perf_counter() - t1
+
+            # speculate only after a quiet chunk, with chunk k assumed quiet
+            k2 = sched.k_at(i + k, num_epochs, quiet=sched.quiet + 1)
+            restore = None
+            if k2 > 0 and self.speculative_dispatch and sched.quiet >= 1:
+                t0 = time.perf_counter()
+                restore = (self.flat.clone(), AdamWState(*(t.clone() for t in self.opt)))
+                outs2 = self._epochs_tracked(self._draw_perms(k2, n), data)
+                self.speculation["speculated"] += 1
+                ps["dispatch"] += time.perf_counter() - t0
+
+            t1 = time.perf_counter()
+            pieces = fetch()
             ps["wait_fetch"] += time.perf_counter() - t1
             losses_k = pieces[0]
             vms_k = pieces[1].astype(np.float64)
@@ -959,6 +1069,18 @@ class _MemberStack:
                 )
                 self._best_dirty |= improved
 
+            def drop_speculation():
+                # chunk k+1 ran from superseded params or hypers: the
+                # restore point goes back before anything else writes
+                nonlocal restore
+                if restore is not None:
+                    with torch.no_grad():
+                        self.flat.copy_(restore[0])
+                        for dst, src in zip(self.opt, restore[1]):
+                            dst.copy_(src)
+                    restore = None
+                    self.speculation["dropped"] += 1
+
             t0 = time.perf_counter()
             intervened = [False] * k_members
             hyper_changed = False
@@ -970,6 +1092,8 @@ class _MemberStack:
                     val_metrics[m].append(vm)
                     action = sups[m].step(i + j, vm, float(batch_losses[-1]), float(eigs_k[j, m]),
                                           suppressed=intervened[m])
+                    if action in ("reinit", "reload", "hyper"):
+                        drop_speculation()
                     if action == "reinit":
                         self.lrs[m] = sups[m].lr
                         self._reinit_member(m)
@@ -985,6 +1109,10 @@ class _MemberStack:
                         hyper_changed = True
             if hyper_changed:
                 self._set_hypers()
+            if all(s.stopped for s in sups):
+                drop_speculation()
+            if restore is not None:
+                pending = (k2, outs2)
             ps["supervisor"] += time.perf_counter() - t0
             sched.observe(any(intervened))
 

@@ -19,7 +19,13 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 
-__all__ = ["save_checkpoint", "load_checkpoint", "read_checkpoint_raw"]
+__all__ = [
+    "save_checkpoint",
+    "load_checkpoint",
+    "checkpoint_exists",
+    "read_checkpoint_raw",
+    "params_from_raw",
+]
 
 
 def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -111,3 +117,21 @@ def load_checkpoint(
         _check_like(params, params_like)
     opt = _unflatten(arrays, "opt/", device) if any(k.startswith("opt/") for k in arrays) else None
     return params, opt, meta
+
+
+def checkpoint_exists(path: str) -> bool:
+    return os.path.isfile(path)
+
+
+def params_from_raw(
+    params_like: Any, arrays: Dict[str, np.ndarray], device: DeviceLike = None
+) -> Dict[str, Any]:
+    """The ``params/`` half of a :func:`read_checkpoint_raw` payload as
+    nested dicts of tensors on ``device``, checked against ``params_like``
+    (every leaf of the template at its shape; None skips the check): the
+    unflatten half of :func:`load_checkpoint`, for a payload read once by
+    rank 0 and broadcast."""
+    params = _unflatten(arrays, "params/", resolve_device(device))
+    if params_like is not None:
+        _check_like(params, params_like)
+    return params

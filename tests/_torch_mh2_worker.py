@@ -22,6 +22,7 @@ from linna_tpu_torch import nn as TN  # noqa: E402
 from linna_tpu_torch import priors as TP  # noqa: E402
 from linna_tpu_torch import transforms as TT  # noqa: E402
 from linna_tpu_torch.parallel import census as CE  # noqa: E402
+from linna_tpu_torch.parallel import dtrain as DT  # noqa: E402
 from linna_tpu_torch.parallel import mesh as ME  # noqa: E402
 from linna_tpu_torch.parallel import multihost as MH  # noqa: E402
 from linna_tpu_torch.parallel.ensemble import EnsembleTrainer  # noqa: E402
@@ -29,6 +30,7 @@ from linna_tpu_torch.samplers import hmc as TH  # noqa: E402
 from linna_tpu_torch.samplers import run as TR  # noqa: E402
 from linna_tpu_torch.samplers import slicemove as TS  # noqa: E402
 from linna_tpu_torch.samplers import stretch as TST  # noqa: E402
+from linna_tpu_torch.train import _walk  # noqa: E402
 from chip_smoke import WriteAudit  # noqa: E402
 
 NDIM, NDATA = 3, 6
@@ -129,14 +131,79 @@ def zeus_moments(shard, nsteps=150):
     return np.concatenate(chains), np.asarray(counts)
 
 
-def train_members(k, mesh, epochs=1):
-    """``epochs`` epochs of K members (no range test, no files) on
-    ``mesh``; every member's final params and best val loss."""
+def _trained(k, mesh, epochs, speculative=True, epochs_per_dispatch=None):
     _, spec, tset, loss_state, (tx, ty, vx, vy) = emulator_problem()
     tr = EnsembleTrainer(spec, tset, loss_state, [None] * k, [7 + m for m in range(k)],
                          mesh=mesh, device="cpu")
-    tr.train(tx, ty, vx, vy, num_epochs=epochs, batch_size=16, auto_lr=False)
+    tr.speculative_dispatch = speculative
+    tr.train(tx, ty, vx, vy, num_epochs=epochs, batch_size=16, auto_lr=False,
+             epochs_per_dispatch=epochs_per_dispatch)
+    return tr
+
+
+def train_members(k, mesh, epochs=1):
+    """``epochs`` epochs of K members (no range test, no files) on
+    ``mesh``; every member's final params and best val loss."""
+    tr = _trained(k, mesh, epochs)
     return tr._gather([tr.flat], [0])[0], tr.best_val_losses
+
+
+def speculative_members(mesh, speculative=True, k=2, epochs=30):
+    """30 epochs of K=2 in 5-epoch chunks (no intervention on this
+    problem): the params, best val losses and the chunks speculated and
+    dropped."""
+    tr = _trained(k, mesh, epochs, speculative, epochs_per_dispatch=5)
+    return (tr._gather([tr.flat], [0])[0], tr.best_val_losses,
+            np.array([tr.speculation["speculated"], tr.speculation["dropped"]]))
+
+
+# the tensor-parallel epochs: 6 -> 40 is hidden 1000 (an output over 30
+# wide), so the 125-wide trunk splits 63 + 62 over two model ranks; 4 -> 8
+# is hidden 256, every width even
+TP_SHAPES = ((6, 40), (4, 8))
+TP_ROWS, TP_VAL, TP_BATCH, TP_SEED, TP_LR = 64, 16, 16, 3, 1e-3
+
+
+def tp_inputs(ndim, ndata):
+    """The tensor-parallel problem as numpy: transforms, data, covariance
+    and rows (the JAX side builds its objects from the same numbers)."""
+    rng = np.random.default_rng(17)
+    w = rng.standard_normal((ndim, ndata))
+    tx = rng.uniform(-1, 1, (TP_ROWS, ndim))
+    ty = tx @ w + 0.1 * np.sin(3 * tx).sum(1, keepdims=True) + 2.0
+    vx = rng.uniform(-1, 1, (TP_VAL, ndim))
+    vy = vx @ w + 0.1 * np.sin(3 * vx).sum(1, keepdims=True) + 2.0
+    a = 0.05 * rng.standard_normal((ndata, ndata))
+    return {
+        "x_mean": tx.mean(0).astype(np.float32), "x_std": tx.std(0, ddof=1).astype(np.float32),
+        "y_mean": (ty / 0.5).mean(0).astype(np.float32),
+        "y_std": (ty / 0.5).std(0, ddof=1).astype(np.float32),
+        "sigma": np.full(ndata, 0.5, np.float32), "data": 2.0 + 0.1 * rng.normal(size=ndata),
+        "cov": 0.25 * (np.eye(ndata) + a @ a.T),
+        "tx": tx, "ty": ty, "vx": vx, "vy": vy,
+    }
+
+
+def tp_epoch(n_model, perm, ndim, ndata):
+    """One tensor-parallel epoch from ``init_sharded(TP_SEED)`` over the
+    current process group (``n_model`` model ranks; none: one rank's whole
+    step): the batch losses, the validation metric, and the whole
+    parameters after it, flattened in ``init_model``'s order."""
+    d = tp_inputs(ndim, ndata)
+    spec = TN.make_model_spec("chto_v2", ndim, ndata)
+    tset = TT.TransformSet(
+        TT.XTransform(torch.as_tensor(d["x_mean"]), torch.as_tensor(d["x_std"]),
+                      torch.zeros(ndim, dtype=torch.bool)),
+        TT.YTransform(torch.as_tensor(d["y_mean"]), torch.as_tensor(d["y_std"]), False),
+        TT.YTransformData(torch.as_tensor(d["sigma"])))
+    loss_state = TL.build_loss_state(d["data"], d["cov"], tset)
+    mesh = ME.make_mesh(n_model)
+    opt = DT.adamw(TP_LR)
+    params, state = DT.init_sharded(TP_SEED, spec, opt, mesh, device="cpu")
+    epoch = DT.make_sharded_epoch(spec, tset, loss_state, opt, mesh, TP_BATCH)
+    params, state, losses, vm = epoch(params, state, perm, d["tx"], d["ty"], d["vx"], d["vy"])
+    full = DT.gather_params(spec, params, mesh)
+    return losses.numpy(), vm.numpy(), np.concatenate([a.reshape(-1) for _, a in _walk(full)])
 
 
 def run_kwargs(**kw):
@@ -209,6 +276,17 @@ def main() -> None:
 
     res["train_k1"] = train_members(1, ME.make_ensemble_mesh(1))
     res["train_k2"] = train_members(2, ME.make_ensemble_mesh(2))
+    # speculative dispatch over the ens ranks: every rank takes the same
+    # speculate/accept branches, from the gathered metrics
+    res["spec_k2"] = speculative_members(ME.make_ensemble_mesh(2))
+    with np.load(os.path.join(work, "tp_perm.npz")) as z:
+        for ndim, ndata in TP_SHAPES:
+            res[f"tp_epoch_{ndim}_{ndata}"] = tp_epoch(2, z["perm"], ndim, ndata)
+    out["census_tp"] = CE.tensor_parallel_census(n_model=2, device="cpu")
+    from linna_tpu_torch import pod_accept
+
+    accept = {}
+    out["pod_accept"] = (pod_accept.structural_gates(accept, torch.device("cpu")), accept)
     out["census_sampler"] = CE.sampler_collective_census(device="cpu")
     out["census_k1"] = CE.trainer_collective_census(k=1, device="cpu")
     out["census_k2"] = CE.trainer_collective_census(k=2, device="cpu")

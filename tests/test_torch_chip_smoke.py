@@ -278,3 +278,51 @@ def test_phase_multiprocess_rehearsal(tmp_path, monkeypatch):
     assert all(n == 0 for v in c["chains"].values() for n in v["walkers_apart_by_sample"])
     assert c["train_collectives_rank0"]["all_reduce@data[0,1]"] > 0
     assert c["census"]["sampler"]["emcee"]["per_step"] == {"all_gather@world": 2.0}
+
+
+# ------------------------------------------ phase 10, rehearsed at small size
+
+
+def test_phase_rest_rehearsal(tmp_path, monkeypatch):
+    """Phase 10 on the CPU at 6 -> 40 (hidden 1000, so the tensor-parallel
+    trunk splits 125 into 63 + 62): 10a two gloo ranks' tensor-parallel
+    epoch against one rank and a one-rank gloo group's step bit for bit;
+    10b speculative dispatch on and off; 10c the gradient helper, the
+    Hessian against phase 6's preconditioner and the fused Hessian refused;
+    10d one use_fused iteration in fresh processes, warming on and off
+    (nothing is built off the card, so the broken-compiler run is the card's
+    alone); 10e pod_accept."""
+    cpu = torch.device("cpu")
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    grad, _ = C.phase_gradient(cpu, str(tmp_path / "p6"), nwalkers=16, nuts_steps=4,
+                               hmc_steps=2, emcee_steps=4, ndim=6, ndata=40)
+    res = C.phase_rest(
+        cpu, str(tmp_path / "p10"), grad.pop("map"),
+        rows={"ndim": 6, "ndata": 40, "ntrain": 400, "nval": 50, "batch": 50},
+        speculative={"epochs": 12, "nensemble": 2, "traced_epochs": 6,
+                     "epochs_per_dispatch": 3, "traced_chunk": 2},
+        helpers={"rows": 16, "ndim": 6, "ndata": 40},
+        precompile={"ndim": 3, "ndata": 8, "ntrain": 100, "nval": 20, "epochs": 3,
+                    "nwalkers": 16},
+        pod_accept={"device_arg": "cpu"})
+    a = res["10a"]
+    assert a["mesh"] == {"data": 1, "model": 2} and a["steps"] == 8
+    assert a["losses_max_rel"] <= 1e-5 and a["one_rank_group"]["equal_bit_for_bit"]
+    assert a["one_rank_group"]["backend"] == "gloo" and a["one_rank_group"]["groups_made"]
+    assert a["census"]["per_step"]["all_gather@model[0,1]"] == 3
+    assert a["first_step"]["loss_rel"] <= C.TP_STEP_RTOL
+    assert a["first_step"]["grad_max_diff_over_max"] <= C.TP_GRAD_RTOL
+    assert a["params_apart"]["max"] <= a["params_apart"]["limit_max"]
+    b = res["10b"]
+    assert b["on"]["speculated"] > 0 and b["off"]["speculated"] == 0
+    assert b["on"]["dropped"] > 0 or b["equal_bit_for_bit"]
+    assert set(b["on"]["phase_s"]) >= {"dispatch", "wait_fetch", "supervisor", "save"}
+    c = res["10c"]
+    assert c["gradient"]["abs"] <= 1e-5 and c["neg_inf_rows_zero_gradient"] >= 8
+    assert c["hessian_max_rel_to_precond"] <= C.HESS_RTOL
+    assert "forward-mode" in c["fused_hessian_refused"]
+    d = res["10d"]
+    assert d["warm"]["warm"] == {} and d["cold"]["warm"] == {}  # no thread off the card
+    assert d["warm"]["nvcc_s"] == 0.0 and d["warm"]["launches"]["fused_log_prob"] == 0
+    e = res["10e"]
+    assert e["rc"] == 0 and e["verdict"]["pass"] and e["verdict"]["device"] == "cpu"

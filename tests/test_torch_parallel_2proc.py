@@ -6,6 +6,20 @@ writes nothing.  Every sharded result is held against one rank's run of the
 same worker function in this process, and the stretch move also against
 the JAX package's ``shard_over_walkers`` on a 2-device mesh.
 
+The tensor-parallel epoch (``parallel/dtrain``, two model ranks at 6 -> 40,
+hidden 1000, so the 125-wide trunk splits 63 + 62, and at 4 -> 8, hidden
+256) is held against JAX's ``make_sharded_epoch`` on the 8-device
+``n_model=2`` mesh with the same permutation and initial weights (JAX's
+weights sharded by ``param_shardings`` at 4 -> 8; JAX refuses to place the
+uneven 125 split, so at 6 -> 40 they go in replicated), and against one
+rank's whole step: losses
+and validation metric within rtol 1e-4 (JAX's own test's limit; float32 in
+another library and another summation order).  Parameters after the epoch:
+AdamW's first steps move an element whose gradient is nearly zero by about
+the learning rate whatever the gradient's size, so rounding can flip such an
+element's step: all but 1 in 1,000 elements within 1e-5, and none further
+than twice the learning rate a step.
+
 Tolerances: the sharded samplers equal one rank bit for bit (the draws are
 the whole ensemble's, cut to each block, and a row's log-prob does not
 depend on the rows beside it here); the JAX stretch move within rtol 1e-6,
@@ -43,6 +57,7 @@ torch.set_num_threads(1)
 NSTEPS = 5
 HALF = W.NWALKERS // 2
 ZEUS_MAX = 20
+TP_KEY = jax.random.key(23)
 
 
 def _free_port() -> int:
@@ -65,6 +80,8 @@ def _draws(work):
              expo=rng.exponential(size=(2, HALF)).astype(np.float32),
              u0=rng.uniform(size=(2, HALF)).astype(np.float32),
              shrink=rng.uniform(size=(2, ZEUS_MAX, HALF)).astype(np.float32))
+    # the tensor-parallel epoch's row order: the one JAX's epoch draws
+    np.savez(work / "tp_perm.npz", perm=np.asarray(jax.random.permutation(TP_KEY, W.TP_ROWS)))
 
 
 @pytest.fixture(scope="module")
@@ -271,3 +288,101 @@ def test_barriers_of_different_names_raise_on_every_rank(ranks):
     _, _, reports = ranks
     for r in reports:
         assert r["barrier_mismatch"] and "different barriers" in r["barrier_mismatch"]
+
+
+def _tp_params_close(got, want, steps):
+    d = np.abs(got - want)
+    assert np.mean(d > 1e-5) < 1e-3, np.quantile(d, [0.5, 0.999, 1.0])
+    assert d.max() <= 2 * W.TP_LR * steps, d.max()
+
+
+def _tp_jax_epoch(perm, ndim, ndata):
+    """JAX's sharded epoch on the 8-device mesh with n_model=2, from the
+    port's initial weights.  JAX places a parameter by ``param_shardings``
+    only where the model axis divides its dimension (``device_put`` and
+    jit outputs both refuse 125 over 2): at 6 -> 40 its weights go in
+    replicated, the batch still over ``data``."""
+    import optax
+    from linna_tpu import losses as JL
+    from linna_tpu import parallel as PX
+    from linna_tpu import transforms as JT
+    from linna_tpu_torch import train as TTR
+
+    d = W.tp_inputs(ndim, ndata)
+    spec = JN.make_model_spec("chto_v2", ndim, ndata)
+    ts = JT.TransformSet(JT.XTransform(d["x_mean"], d["x_std"], np.zeros(ndim, bool)),
+                         JT.YTransform(d["y_mean"], d["y_std"], False),
+                         JT.YTransformData(d["sigma"]))
+    ls = JL.build_loss_state(d["data"], d["cov"], ts)
+    mesh = PX.make_mesh(jax.devices(), n_model=2)
+    tspec = TN.make_model_spec("chto_v2", ndim, ndata)
+    params = jax.tree.map(lambda t: jnp.asarray(t.numpy()),
+                          TN.init_model(tspec, seed=W.TP_SEED, device="cpu"))
+    if spec.hidden % 16 == 0:  # every trunk width even
+        params = PX.shard_params(params, mesh)
+        assert params["rb3"]["skip_w"].sharding.spec == jax.sharding.PartitionSpec(None, "model")
+    opt = optax.adamw(W.TP_LR)
+    state = jax.jit(opt.init)(params)
+    bsh = PX.batch_sharding(mesh)
+    epoch = PX.make_sharded_epoch(spec, ts, ls, opt, mesh, batch_size=W.TP_BATCH)
+    params, _, losses, vm = epoch(params, state, TP_KEY,
+                                  *(jax.device_put(jnp.asarray(d[k], jnp.float32), bsh)
+                                    for k in ("tx", "ty", "vx", "vy")))
+    flat = TTR.Layout(tspec).flatten(jax.device_get(params)).numpy()
+    assert np.array_equal(np.asarray(jax.random.permutation(TP_KEY, W.TP_ROWS)), perm)
+    return np.asarray(losses), np.asarray(vm), flat
+
+
+@pytest.mark.parametrize("ndim, ndata", W.TP_SHAPES)
+@pytest.mark.parametrize("against", ["jax", "one_rank"])
+def test_tensor_parallel_epoch(ranks, against, ndim, ndata):
+    work, res, _ = ranks
+    with np.load(work / "tp_perm.npz") as z:
+        perm = z["perm"]
+    losses, vm, flat = _get(res, f"tp_epoch_{ndim}_{ndata}")
+    if against == "jax":
+        w_losses, w_vm, w_flat = _tp_jax_epoch(perm, ndim, ndata)
+    else:
+        w_losses, w_vm, w_flat = W.tp_epoch(None, perm, ndim, ndata)
+    steps = W.TP_ROWS // W.TP_BATCH
+    assert losses.shape == (steps,) and vm.shape == (3,)
+    npt.assert_allclose(losses, w_losses, rtol=1e-4)
+    npt.assert_allclose(vm, w_vm, rtol=1e-4)
+    _tp_params_close(flat, w_flat, steps)
+
+
+def test_tensor_parallel_census(ranks):
+    """One step on data 1 x model 2: the four row-parallel sums and the
+    three skip gathers forward, their six conjugates backward, and the
+    gradient's all-reduce over the (one-rank) data group."""
+    _, _, reports = ranks
+    for k, rep in enumerate(reports):
+        c = rep["census_tp"]
+        assert c["mesh"] == {"data": 1, "model": 2}
+        assert c["per_step"] == {"all_reduce@model[0,1]": 10.0, "all_gather@model[0,1]": 3.0,
+                                 f"all_reduce@data[{k}]": 1.0}, c
+        assert c["per_chunk"] == {}
+
+
+def test_speculative_training_over_two_ranks(ranks):
+    """K=2 over the ens ranks with speculative dispatch: every chunk but the
+    first and the last speculates and none is dropped, and the result is
+    one rank's serial run."""
+    _, res, _ = ranks
+    flat, best, counts = _get(res, "spec_k2")
+    flat1, best1, counts1 = W.speculative_members(None, speculative=False)
+    assert counts.tolist() == [4, 0] and counts1.tolist() == [0, 0]
+    npt.assert_allclose(flat, flat1, rtol=0, atol=1e-6)
+    npt.assert_allclose(best, best1, rtol=1e-5)
+
+
+def test_pod_accept_structural_gates_on_two_ranks(ranks):
+    _, _, reports = ranks
+    for rep in reports:
+        ok, accept = rep["pod_accept"]
+        assert ok is True
+        st = accept["structural"]
+        assert st["world"] == 2
+        for m, n in (("emcee", 2), ("zeus", 2), ("hmc", 0), ("nuts", 0)):
+            assert st["sampler"][m] == {"per_step_collectives": n, "limit": n, "pass": True}
+        assert st["trainer"]["pass"] and st["trainer"]["cross_member_collectives"] == 0
