@@ -124,11 +124,23 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    for the library, nvcc's seconds, the warm thread's launches), and with a
    broken compiler, which must fail the run.  10e: ``python -m
    linna_tpu_torch.pod_accept --structural`` on the card.
-11. One ``{"kernels": [...]}`` line, the card's name and power limit, and the
+11. The sampler programs at the DES width, 256 walkers, through
+   ``fused_log_prob``: for emcee, zeus, HMC and NUTS one chunk replayed
+   from CUDA graphs (``samplers/graphs.py``) and one eager from the same
+   state and generator state, equal bit for bit (else the largest
+   difference within ``PROGRAM_ATOL``) with the same generator state after
+   and the same launches counted (the graphs' from the replays); s / 100
+   steps, the busy share of a traced chunk of each, graph replays and
+   launches a step; zeus at each condition lag of ``PROGRAM_LAGS``; the
+   K=4 ensemble's batched likelihood against a copy of the per-member loop
+   it replaced (``K4_RTOL``), and zeus through the loop eager, batched
+   eager and batched graphed, the graphed one at each lag too.  Phases 4-10 sample through the graphs too:
+   ``run_ensemble`` replays every unsharded chunk on a card.
+12. One ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 
-Phase 4's and 6's weights are random (from a seed); phases 5, 7 and 8 train
-their own.  Exits nonzero with no result line when no CUDA device is
+Phase 4's, 6's and 11's weights are random (from a seed); phases 5, 7 and
+8 train their own.  Exits nonzero with no result line when no CUDA device is
 present.
 """
 
@@ -235,6 +247,25 @@ PRECOMPILE_NTRAIN, PRECOMPILE_NVAL, PRECOMPILE_EPOCHS = 2000, 200, 20
 # tests/test_ops.py's kernel tolerance; both sides accumulate in f32 and
 # differ only in summation order
 RTOL = ATOL = 2e-4
+
+# phase 11: the sampler programs at the DES width through fused_log_prob
+# (T^2 = 16): one chunk of each method replayed from CUDA graphs and one
+# eager, from the same state and generator state (steps a chunk), a traced
+# chunk of each (steps), zeus's condition lags, and the K=4 ensemble's
+# batched likelihood against the per-member loop it replaced
+PROGRAM_STEPS = {"emcee": 100, "zeus": 100, "hmc": 10, "nuts": 10}
+PROGRAM_TRACED = {"emcee": 50, "zeus": 20, "hmc": 2, "nuts": 2}
+# graphed against eager where they are not equal bit for bit (the same
+# kernels on the same inputs: any difference is a fault of the graphs)
+PROGRAM_ATOL = 1e-6
+PROGRAM_LAGS = (0, 1, 2, 3)
+# each sampler's step options, the same for the graphed and the eager chunks
+# (run_ensemble's defaults)
+PROGRAM_OPTIONS = {"a": 2.0, "n_leapfrog": 10, "max_depth": 5, "max_steps": 100}
+K4_STEPS, K4_TRACED = 20, 5
+# the batched K=4 likelihood against the per-member loop: the same products,
+# batched (cuBLAS may pick other kernels for the batched shapes)
+K4_RTOL = 1e-5
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_F32_FLOPS = 67e12  # CUDA cores, no tensor cores
@@ -683,6 +714,8 @@ def phase_slice(device, outdir, nwalkers=NWALKERS, steps=STEPS, ndim=NDIM, ndata
         check_every=100, max_iterations=steps, seed=0, device=device, trace_rec=trace,
     )
     t2 = time.perf_counter()
+    if "graphs" in trace:  # the wrapper ran only while the graphs were captured
+        rows["n"] = nwalkers + trace["graphs"]["rows"]
     chain_path = os.path.join(outdir, O._chain_filename("zeus"))
     chain, logp, reader = O.read_chain_and_cut(chain_path, nk=2, ntimes=10, method="zeus", flat=True)
     cut_chain, cut_lp, _ = O.read_chain_and_cut(chain_path, nk=2, ntimes=10, walkercut=True,
@@ -724,6 +757,7 @@ def phase_slice(device, outdir, nwalkers=NWALKERS, steps=STEPS, ndim=NDIM, ndata
         "sample_s": t2 - t1,
         "cut_and_predict_s": t3 - t2,
         "s_per_100_steps": (t2 - t1) / (steps / 100),
+        "loop_s_per_100_steps": trace["sampler"]["loop"] / steps * 100,
         "rows_per_s": rows["n"] / (t2 - t1),
         "rows": rows["n"],
         "launches": launches,
@@ -1019,10 +1053,11 @@ def phase_train(device, outdir, ndim=NDIM, ndata=NDATA, ntrain=NTRAIN, nval=NVAL
                                 temperature=TEMPERATURE, device=device)
     init_white = P.inv_transform(pack, torch.as_tensor(truth, dtype=torch.float32, device=device))
     x0 = init_white.cpu().numpy() + 0.001 * rng.standard_normal((nwalkers, ndim))
+    ens_trace: dict = {}
     t3 = time.perf_counter()
     R.run_ensemble(log_prob, x0, it0, method="zeus", transform=lambda x: P.transform_np(pack, x),
                    check_every=min(100, steps), max_iterations=steps, convergence_check=False,
-                   seed=0, device=device)
+                   seed=0, device=device, trace_rec=ens_trace)
     t4 = time.perf_counter()
     chain_path = os.path.join(it0, O._chain_filename("zeus"))
     chain, lp, reader = O.read_chain_and_cut(chain_path, nk=2, ntimes=10, method="zeus", flat=True)
@@ -1064,6 +1099,8 @@ def phase_train(device, outdir, ndim=NDIM, ndata=NDATA, ntrain=NTRAIN, nval=NVAL
         "plots_written": plots,
         "ensemble_sample_s": t4 - t3,
         "ensemble_steps": steps,
+        "ensemble_trace": ens_trace,
+        "ensemble_loop_s_per_100": ens_trace["sampler"]["loop"] / steps * 100,
         "fused_check": err,
         "drive": drive,
         "drive_s": time.perf_counter() - t5,
@@ -1161,7 +1198,7 @@ def phase_gradient(device, outdir, nwalkers=NWALKERS, nuts_steps=NUTS_STEPS,
         if device.type == "cuda" and any(plain.values()):
             raise AssertionError(f"{method}: a plain version ran on the gradient path")
         s = trace["sampler"]
-        loop = s["device_wait"] + s["host"]
+        loop = s["loop"]
         with backend._open("r") as f:
             accepted = np.asarray(f["mcmc"]["accepted"][:])
         half = tfn(chain[steps // 2:].reshape(-1, ndim))
@@ -1339,7 +1376,7 @@ def _no_kernel(counts: dict, what: str) -> None:
 
 def _sampler_rate(trace: dict, steps: int) -> dict:
     s = trace["sampler"]
-    return {"s_per_100_steps": (s["device_wait"] + s["host"]) / steps * 100,
+    return {"s_per_100_steps": s["loop"] / steps * 100,
             "precond_s": s["precond"], "steps": steps}
 
 
@@ -1625,6 +1662,8 @@ def phase_bf16(device, trained_dir, nensemble=NENSEMBLE, ndim=NDIM, ndata=NDATA,
                        max_iterations=zeus_steps, convergence_check=False, seed=0,
                        device=device, trace_rec=trace)
         rate = _sampler_rate(trace, zeus_steps)["s_per_100_steps"]
+        if "graphs" in trace:  # the wrapper ran only while the graphs were captured
+            calls["n"] = 1 + trace["graphs"]["calls"]
         per_step = calls["n"] / zeus_steps
         rec["zeus"][f"{name} {cd or 'float32'}"] = {
             "s_per_100_steps": rate, "calls_per_step": per_step,
@@ -2648,6 +2687,210 @@ def phase_rest(device, outdir, gradient_inputs, rows=None, speculative=None, hel
 
 
 
+# ------------------------------------------------ phase 11: sampler programs
+
+
+def member_loop_log_prob(spec, members, ts, pack, data, inv_cov, temperature, device):
+    """The K-member likelihood as the port computed it before the batched
+    pass: one eager chain per member, a test-only copy for phase 11."""
+    from linna_tpu_torch import likelihood as LK
+    from linna_tpu_torch import nn as N
+    from linna_tpu_torch import priors as P
+
+    data_t = torch.as_tensor(data, dtype=torch.float32, device=device)
+    ic = torch.as_tensor(inv_cov, dtype=torch.float32, device=device)
+
+    def log_prob(x):
+        x_in = ts.x_transform(P.transform(pack, x))
+        chi2 = []
+        for p in members:
+            m = ts.y_data.inverse(ts.y_transform(N.apply_model(spec, p, x_in).float()))
+            chi2.append(LK._chi2(m - data_t, ic))
+        chi2 = torch.stack(chi2)
+        eff = chi2.mean(dim=0) + chi2.std(dim=0, correction=0)
+        lp = -0.5 * eff / temperature + P.lnprior(x)
+        return torch.where(torch.isnan(lp), torch.full_like(lp, -torch.inf), lp)
+
+    return log_prob
+
+
+def _programs_init(method, log_prob, x0, device, seed=7):
+    from linna_tpu_torch.samplers import hmc
+    from linna_tpu_torch.samplers import slicemove as S
+    from linna_tpu_torch.samplers import stretch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    return {"emcee": stretch.init_state, "zeus": S.init_slice_state,
+            "hmc": hmc.init_hmc_state, "nuts": hmc.init_nuts_state}[method](g, x0, log_prob)
+
+
+def _eager_chunk(method, log_prob):
+    from linna_tpu_torch.samplers import hmc
+    from linna_tpu_torch.samplers import slicemove as S
+    from linna_tpu_torch.samplers import stretch
+
+    fn, opt = {"emcee": (stretch.stretch_chunk, "a"), "zeus": (S.slice_chunk, "max_steps"),
+               "hmc": (hmc.hmc_chunk, "n_leapfrog"), "nuts": (hmc.nuts_chunk, "max_depth")}[method]
+    return lambda st, n: fn(log_prob, st, n, PROGRAM_OPTIONS[opt])
+
+
+def _chunk_run(chunk, state, n, rng_state, device) -> dict:
+    """One chunk from ``state`` with its generator set to ``rng_state``:
+    the result, seconds, the kernel's launches and the generator after."""
+    from linna_tpu_torch.ops import fused as F
+
+    state.rng.set_state(rng_state)
+    F.reset_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    out = chunk(state, n)
+    _sync(device)
+    return {"out": out, "s": time.perf_counter() - t0, "launches": F.launches["fused_log_prob"],
+            "rng_after": state.rng.get_state()}
+
+
+def _held(graphed: dict, eager: dict, what: str, calls=None) -> dict:
+    """The graphed chunk against the eager one: equal bit for bit, else the
+    largest difference within PROGRAM_ATOL; the same generator state after.
+    The launches counted from the replays: one a likelihood call where
+    ``calls`` gives the calls replayed (zeus's graphed loops may run other
+    iterations than the eager ones), else the eager chunk's."""
+    (gs, gc, gl), (es, ec, el) = graphed["out"], eager["out"]
+    pairs = [(gc, ec), (gl, el), (gs.coords, es.coords), (gs.log_prob, es.log_prob)]
+    equal = all(torch.equal(a, b) for a, b in pairs)
+    diff = max(float((a.double() - b.double()).abs().nan_to_num(0.0).max()) for a, b in pairs)
+    same_rng = torch.equal(graphed["rng_after"], eager["rng_after"])
+    log(f"  {what}: graphed and eager chains equal bit for bit: {equal} (largest difference "
+        f"{diff:.3e}); generator after the chunk the same: {same_rng}; fused_log_prob launches "
+        f"{graphed['launches']} graphed (counted from the replays), {eager['launches']} eager")
+    if not same_rng or (not equal and not diff <= PROGRAM_ATOL):
+        raise AssertionError(f"{what}: the graphed chunk is not the eager one")
+    want = eager["launches"] if calls is None else calls
+    if graphed["launches"] != want:
+        raise AssertionError(f"{what}: the replays counted {graphed['launches']} launches, "
+                             f"not {want}")
+    return {"bit_for_bit": equal, "max_abs_diff": diff}
+
+
+def _lag_sweep(runner, state, n, rng_state, device, lags) -> dict:
+    """A graphed zeus runner at each condition lag in turn, up and down,
+    from one state and generator state: s / 100 steps (two readings each)
+    and likelihood calls a step, and the chains, equal bit for bit at every
+    lag; the runner is left at its own lag."""
+    from linna_tpu_torch.samplers import slicemove as S
+
+    own = runner.flags.lag
+    rec = {"lag": own, "lag_s_per_100": {lag: [] for lag in lags}, "lag_calls_per_step": {}}
+    first = None
+    for lag in list(lags) + list(lags)[::-1]:
+        runner.flags = S.LateFlags(device, lag)
+        before = runner.record()
+        run = _chunk_run(runner, state, n, rng_state, device)
+        rec["lag_s_per_100"][lag].append(run["s"] / n * 100)
+        rec["lag_calls_per_step"][lag] = (runner.record()["calls"] - before["calls"]) / n
+        first = first or run
+        if not all(torch.equal(a, b) for a, b in zip(run["out"][1:], first["out"][1:])):
+            raise AssertionError(f"zeus at lag {lag} sampled another chain than at lag {lags[0]}")
+    runner.flags = S.LateFlags(device, own)
+    return rec
+
+
+def _busy(fn, device) -> dict:
+    """A traced call's wall ms and the device's busy share (None where the
+    profiler saw no device event)."""
+    if device.type != "cuda":
+        fn()
+        return {"wall_ms": None, "device_busy_share": None}
+    rec = traced_call(fn, device)
+    if rec["launches"] == 0:
+        rec["device_busy_share"] = None
+    return rec
+
+
+def phase_programs(device, ndim=NDIM, ndata=NDATA, nwalkers=NWALKERS, steps=None, traced=None,
+                   lags=PROGRAM_LAGS, k4_steps=K4_STEPS, k4_traced=K4_TRACED,
+                   nensemble=NENSEMBLE) -> dict:
+    """Phase 11: for each sampler one chunk replayed from CUDA graphs and
+    one eager from the same state and generator state (equal bit for bit,
+    the same launches counted), s / 100 steps and the busy share of a
+    traced chunk of each, replays and launches a step; zeus at each
+    condition lag; and the K=4 ensemble's batched likelihood against the
+    per-member loop (values, and zeus through the loop eager, batched
+    eager and batched graphed, the graphed one at each condition lag)."""
+    from linna_tpu_torch import likelihood as LK
+    from linna_tpu_torch import nn as N
+    from linna_tpu_torch.samplers import graphs as G
+
+    steps, traced = steps or PROGRAM_STEPS, traced or PROGRAM_TRACED
+    lp, x0 = fused_problem(device, ndim, ndata, nwalkers)
+    x0 = torch.as_tensor(x0, dtype=torch.float32, device=device)
+    on_card = device.type == "cuda"
+    res: dict = {"methods": {}}
+    for method in ("emcee", "zeus", "hmc", "nuts"):
+        n = steps[method]
+        state = _programs_init(method, lp, x0, device)
+        g0 = state.rng.get_state()
+        eager = _eager_chunk(method, lp)
+        rec: dict = {"steps": n}
+        if on_card:
+            t0 = time.perf_counter()
+            runner = G.graphed_chunks(method, lp, state, n, **PROGRAM_OPTIONS)
+            rec["capture_s"] = time.perf_counter() - t0
+            before = runner.record()
+            graphed = _chunk_run(runner, state, n, g0, device)
+            after = runner.record()
+            rec["replays_per_step"] = (after["replays"] - before["replays"]) / n
+            rec["likelihood_calls_per_step"] = (after["calls"] - before["calls"]) / n
+            rec["graphed_s_per_100"] = graphed["s"] / n * 100
+            rec["launches_per_step"] = graphed["launches"] / n
+        one = _chunk_run(eager, state, n, g0, device)
+        rec["eager_s_per_100"] = one["s"] / n * 100
+        rec["eager_launches_per_step"] = one["launches"] / n
+        if on_card:
+            rec.update(_held(graphed, one, method, after["calls"] - before["calls"]))
+            nt = traced[method]
+            rec["graphed_traced"] = {"steps": nt, **_busy(lambda: runner(state, nt), device)}
+            rec["eager_traced"] = {"steps": nt, **_busy(lambda: eager(state, nt), device)}
+            if method == "zeus":
+                rec.update(_lag_sweep(runner, state, n, g0, device, lags))
+        log(f"  11 {method}: {json.dumps(rec, default=float)}")
+        res["methods"][method] = rec
+
+    # the K=4 ensemble: one batched pass against the per-member loop
+    spec, _, ts, pack, data, inv_cov = make_problem(device, ndim, ndata)
+    members = [N.init_model(spec, seed=10 + k, device=device) for k in range(nensemble)]
+    batched = LK.make_log_prob(spec, members, ts, pack, data, inv_cov, temperature=TEMPERATURE,
+                               device=device)
+    loop = member_loop_log_prob(spec, members, ts, pack, data, inv_cov, TEMPERATURE, device)
+    with torch.no_grad():
+        a, b = batched(x0), loop(x0)
+    rel = float(((a.double() - b.double()).abs() / b.double().abs().clamp(min=1.0)).max())
+    k4: dict = {"members": nensemble, "max_rel_diff": rel, "rtol": K4_RTOL, "steps": k4_steps}
+    log(f"  11 K={nensemble}: batched against the per-member loop at {nwalkers} walkers: "
+        f"largest relative difference {rel:.3e} (rtol {K4_RTOL:g})")
+    if not rel <= K4_RTOL:
+        raise AssertionError(f"K={nensemble}: the batched likelihood is not the member loop's")
+    state = _programs_init("zeus", batched, x0, device)
+    g0 = state.rng.get_state()
+    runs = {"loop_eager": _eager_chunk("zeus", loop), "batched_eager": _eager_chunk("zeus", batched)}
+    if on_card:
+        runs["batched_graphed"] = G.graphed_chunks("zeus", batched, state, k4_steps,
+                                                   **PROGRAM_OPTIONS)
+    done = {}
+    for name, chunk in runs.items():
+        done[name] = _chunk_run(chunk, state, k4_steps, g0, device)
+        k4[f"{name}_s_per_100"] = done[name]["s"] / k4_steps * 100
+        if on_card:
+            k4[f"{name}_traced"] = {"steps": k4_traced,
+                                    **_busy(lambda: chunk(state, k4_traced), device)}
+    if on_card:
+        k4.update(_held(done["batched_graphed"], done["batched_eager"], f"K={nensemble} zeus"))
+        k4.update(_lag_sweep(runs["batched_graphed"], state, k4_steps, g0, device, lags))
+    log(f"  11 K={nensemble}: {json.dumps(k4, default=float)}")
+    res["k4"] = k4
+    return res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--data-parallel-rank"]:
         return dp_rank(sys.argv[2], sys.argv[3])
@@ -2783,7 +3026,14 @@ def main() -> int:
     log(f"  phase 10: {seconds[10]:.1f} s")
     tp_launches = rest["10a"]["launches"]
 
-    log(f"== 11. result (phase seconds {json.dumps(seconds)})")
+    log("== 11. sampler programs: CUDA graphs against the eager steps, the K=4 ensemble")
+    t0 = time.perf_counter()
+    F.reset_counts()
+    programs = phase_programs(device)
+    seconds[11] = time.perf_counter() - t0
+    log(f"  phase 11: {seconds[11]:.1f} s")
+
+    log(f"== 12. result (phase seconds {json.dumps(seconds)})")
     kernels = []
     for k in REPLACES:
         r = rec[k]
@@ -2811,6 +3061,9 @@ def main() -> int:
                 "speculative_training": rest["10b"]["launches"][k],
                 "grad_log_prob": rest["10c"]["launches"][k],
                 "precompile_warm": rest["10d"]["warm"]["warm"]["launches"][k],
+                "programs_graphed_per_step": {
+                    m: r["launches_per_step"] if k == "fused_log_prob" else 0
+                    for m, r in programs["methods"].items()},
             },
             "max_abs_err": r["abs"],
             "max_rel_err": r["rel"],

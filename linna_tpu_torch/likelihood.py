@@ -106,8 +106,8 @@ def make_log_prob(
     if is_ensemble:
         if loglike_fn is not None:
             raise ValueError("ensemble likelihood requires the default Gaussian loglike")
-        members = [_to(p, device) for p in params]
-        params = {k: _stack([m[k] for m in members]) for k in members[0]}
+        # biases stacked (K, 1, out), so they broadcast over the rows
+        params = _stack([_to(p, device) for p in params])
     else:
         params = _to(params, device)
     if cdtype is not None:
@@ -149,7 +149,6 @@ def make_log_prob(
         "temperature": torch.tensor(temperature, dtype=torch.float32, device=device),
         "k_std": torch.tensor(ensemble_k_std, dtype=torch.float32, device=device),
     }
-    n_members = len(members) if is_ensemble else 0
 
     def _pure(x: torch.Tensor, env) -> torch.Tensor:
         tset = env["transforms"]
@@ -159,21 +158,18 @@ def make_log_prob(
         if cdtype is not None:
             x_in = x_in.to(cdtype)
         if is_ensemble:
-            # the pre-model depends on x_in alone: one evaluation for all
-            # members (apply_model ignores it for a linear_bypass spec)
-            base = None
+            # every member in one pass over the stacked (K, in, out) weights;
+            # the pre-model depends on x_in alone: one evaluation added under
+            # every member (apply_model ignores it for a linear_bypass spec)
+            lead = x_in.shape[:-1]
+            pred = N.apply_model(spec, env["params"], x_in.reshape(-1, x_in.shape[-1])).float()
+            pred = pred.reshape(pred.shape[0], *lead, pred.shape[-1])  # (K, ..., out)
             if linearmodel is not None and not spec.linear_bypass:
-                base = linearmodel(x_in)
-            chi2 = []
-            for k in range(n_members):
-                pred = N.apply_model(spec, _index(env["params"], k), x_in).float()
-                if base is not None:
-                    pred = pred + base
-                m = tset.y_data.inverse(tset.y_transform(pred))
-                if out_cut is not None:
-                    m = m[..., :out_cut]
-                chi2.append(_chi2(m - env["data"], env["inv_cov"]))
-            chi2 = torch.stack(chi2)  # (K, ...)
+                pred = pred + linearmodel(x_in)
+            m = tset.y_data.inverse(tset.y_transform(pred))
+            if out_cut is not None:
+                m = m[..., :out_cut]
+            chi2 = _chi2(m - env["data"], env["inv_cov"])  # (K, ...)
             eff = chi2.mean(dim=0) + env["k_std"] * chi2.std(dim=0, correction=0)
             lp = -0.5 * eff / env["temperature"] + P.lnprior(x)
         else:
@@ -248,10 +244,5 @@ def make_hessian_log_prob(log_prob: Callable) -> Callable:
 def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
-
-def _index(tree, k: int):
-    if isinstance(tree, dict):
-        return {key: _index(v, k) for key, v in tree.items()}
-    return tree[k]
+    stacked = torch.stack(trees)
+    return stacked[:, None] if stacked.dim() == 2 else stacked

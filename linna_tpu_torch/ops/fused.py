@@ -62,6 +62,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# a launch or a plain call from a CUDA graph counts at every replay
+# (linna_tpu_torch.samplers.graphs.LaunchLedger)
 launches: Dict[str, int] = {"fused_apply": 0, "fused_log_prob": 0}
 plain_calls: Dict[str, int] = {"fused_apply": 0, "fused_log_prob": 0}
 

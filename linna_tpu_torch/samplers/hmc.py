@@ -222,19 +222,26 @@ def hmc_chunk(
     chain = torch.empty((nsteps, w, d), dtype=torch.float32, device=coords.device)
     lps = torch.empty((nsteps, w), dtype=torch.float32, device=coords.device)
     for s in range(nsteps):
-        r0 = draws.normal(d) * sqrt_mass
-        x, r, lp, grad = coords, r0, lp0, grad0
-        for _ in range(n_leapfrog):
-            x, r, lp, grad = _leapfrog(log_prob_fn, x, r, grad, eps, inv_mass)
-        log_accept = (lp - _kinetic(r, inv_mass)) - (lp0 - _kinetic(r0, inv_mass))
-        accept = torch.log(draws.uniform()) < log_accept
-        coords = torch.where(accept[:, None], x, coords)
-        lp0 = torch.where(accept, lp, lp0)
-        grad0 = torch.where(accept[:, None], grad, grad0)
-        accepted = accepted + accept.to(torch.int32)
+        coords, lp0, grad0, accepted = hmc_sample(log_prob_fn, n_leapfrog, draws, coords, lp0,
+                                                  grad0, eps, accepted, inv_mass, sqrt_mass)
         chain[s] = coords
         lps[s] = lp0
     return HMCState(coords, lp0, grad0, g, eps, accepted), chain, lps
+
+
+def hmc_sample(log_prob_fn, n_leapfrog: int, draws, coords, lp0, grad0, eps, accepted,
+               inv_mass, sqrt_mass):
+    """One HMC sample of every walker: ``n_leapfrog`` leapfrogs and the
+    Metropolis test; returns (coords, log_prob, grad, accepted)."""
+    d = coords.shape[1]
+    r0 = draws.normal(d) * sqrt_mass
+    x, r, lp, grad = coords, r0, lp0, grad0
+    for _ in range(n_leapfrog):
+        x, r, lp, grad = _leapfrog(log_prob_fn, x, r, grad, eps, inv_mass)
+    log_accept = (lp - _kinetic(r, inv_mass)) - (lp0 - _kinetic(r0, inv_mass))
+    accept = torch.log(draws.uniform()) < log_accept
+    return (torch.where(accept[:, None], x, coords), torch.where(accept, lp, lp0),
+            torch.where(accept[:, None], grad, grad0), accepted + accept.to(torch.int32))
 
 
 # -------------------------------------------------------------------- NUTS
@@ -397,29 +404,35 @@ def nuts_chunk(
     chain = torch.empty((nsteps, w, d), dtype=torch.float32, device=coords.device)
     lps = torch.empty((nsteps, w), dtype=torch.float32, device=coords.device)
     for s in range(nsteps):
-        x_new, lp_new, grad_new, alpha, _ = _nuts_sample(
-            log_prob_fn, max_depth, draws, state.coords, state.log_prob, state.grad,
-            state.epsilon, inv_mass, sqrt_mass,
-        )
-        # dual averaging (H&G Alg. 6)
-        adapting = state.m_adapt > 0
-        eta = 1.0 / (state.m + DA_T0)
-        h_bar = torch.where(adapting, (1.0 - eta) * state.h_bar + eta * (DA_DELTA - alpha),
-                            state.h_bar)
-        log_eps = state.mu - torch.sqrt(state.m) / DA_GAMMA * h_bar
-        eta2 = state.m ** (-DA_KAPPA)
-        log_eps_bar = torch.where(adapting, eta2 * log_eps + (1.0 - eta2) * state.log_eps_bar,
-                                  state.log_eps_bar)
-        state = NUTSState(
-            x_new, lp_new, grad_new, state.rng,
-            torch.where(adapting, torch.exp(log_eps), torch.exp(state.log_eps_bar)),
-            state.mu, h_bar, log_eps_bar,
-            state.m + adapting.to(torch.float32),
-            torch.clamp(state.m_adapt - 1, min=0),
-            # expected acceptances: the sample's mean Metropolis alpha, the
-            # statistic the chain file's 'accepted' records for NUTS
-            state.accepted + alpha,
-        )
-        chain[s] = x_new
-        lps[s] = lp_new
+        state = nuts_step(log_prob_fn, max_depth, draws, state, inv_mass, sqrt_mass)
+        chain[s] = state.coords
+        lps[s] = state.log_prob
     return state, chain, lps
+
+
+def nuts_step(log_prob_fn, max_depth: int, draws, state: NUTSState, inv_mass, sqrt_mass
+              ) -> NUTSState:
+    """One NUTS sample of every walker and its dual-averaging update."""
+    x_new, lp_new, grad_new, alpha, _ = _nuts_sample(
+        log_prob_fn, max_depth, draws, state.coords, state.log_prob, state.grad,
+        state.epsilon, inv_mass, sqrt_mass,
+    )
+    # dual averaging (H&G Alg. 6)
+    adapting = state.m_adapt > 0
+    eta = 1.0 / (state.m + DA_T0)
+    h_bar = torch.where(adapting, (1.0 - eta) * state.h_bar + eta * (DA_DELTA - alpha),
+                        state.h_bar)
+    log_eps = state.mu - torch.sqrt(state.m) / DA_GAMMA * h_bar
+    eta2 = state.m ** (-DA_KAPPA)
+    log_eps_bar = torch.where(adapting, eta2 * log_eps + (1.0 - eta2) * state.log_eps_bar,
+                              state.log_eps_bar)
+    return NUTSState(
+        x_new, lp_new, grad_new, state.rng,
+        torch.where(adapting, torch.exp(log_eps), torch.exp(state.log_eps_bar)),
+        state.mu, h_bar, log_eps_bar,
+        state.m + adapting.to(torch.float32),
+        torch.clamp(state.m_adapt - 1, min=0),
+        # expected acceptances: the sample's mean Metropolis alpha, the
+        # statistic the chain file's 'accepted' records for NUTS
+        state.accepted + alpha,
+    )

@@ -14,6 +14,13 @@ convergence test:
      ``check_every`` interval, is below ``tautol``;
   3. split-half mean/std stationarity over the trailing ``nk * tau`` steps.
 
+On a CUDA device every chunk that is not walker-sharded is replayed from
+CUDA graphs (:mod:`linna_tpu_torch.samplers.graphs`), captured once per
+call, as the JAX package compiles one program per chunk.  Dispatch is
+double-buffered as in the JAX package: chunk k+1 is enqueued before the
+host consumes chunk k, and a stop drops it; the chain file, the state blob
+and a resume are those of the serial order, bit for bit.
+
 Tau is estimated over a rolling window of the trailing ``tau_window`` steps,
 and re-estimated only once the chain has grown ``tau_check_growth``-fold
 since the last estimate.  ``tune_mu`` adapts the slice scale after each of
@@ -36,7 +43,9 @@ values identical on every rank: the resume flag, the state blob, the
 chain's last positions and the preconditioner are read (or computed) by
 rank 0 and broadcast, the tau verdict is rank 0's and broadcast, and each
 chunk is gathered whole (:func:`linna_tpu_torch.parallel.multihost.fetch`)
-before the host appends it and tests convergence.  Only rank 0 writes the
+before the host appends it and tests convergence.  Walker-sharded chunks
+stay eager: gloo's collectives copy through the host and cannot be
+captured in a CUDA graph.  Only rank 0 writes the
 chain store, the state blob and ``precond.npz``.  The saved ``rng_state``
 is the generator every rank shares, so a resumed sharded run restores the
 same stream on every rank.
@@ -48,6 +57,7 @@ import os
 import time
 import zipfile
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional
 
 import numpy as np
@@ -56,7 +66,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..parallel import mesh as ME
 from ..parallel import multihost as MH
-from . import backends, convergence, hmc, precondition, slicemove, stretch
+from . import backends, convergence, graphs, hmc, precondition, slicemove, stretch
 
 __all__ = ["run_ensemble", "EMCEE_FILENAME", "ZEUS_FILENAME", "GRADIENT_METHODS"]
 
@@ -91,15 +101,6 @@ def _np_transform(transform):
         return out.reshape(chain.shape[:-1] + (out.shape[-1],))
 
     return apply
-
-
-def _state_to_blob(state, shard=None) -> dict:
-    """The state's fields as host numpy, the whole ensemble's (one gather
-    of the per-walker fields when they are sharded)."""
-    names = [n for n in state._fields if n != "rng"]
-    blob = dict(zip(names, MH.fetch([getattr(state, n) for n in names], shard)))
-    blob["rng_state"] = state.rng.get_state().numpy()
-    return blob
 
 
 def _blob_to_state(cls, blob: dict, device: torch.device, shard=None):
@@ -173,15 +174,17 @@ def run_ensemble(
 
     ``convergence_check=False`` runs exactly ``max_iterations`` steps with
     no tau/stationarity evaluation.  ``trace_rec``: optional dict receiving
-    this call's wall-time breakdown (the MAP search under ``precond``) and
-    step count.  ``shard_walkers``: over several ranks, each advances its
+    this call's wall-time breakdown (the MAP search under ``precond``, the
+    graphs' capture under ``capture``, the sampling loop without the
+    capture under ``loop``), step count, and on a card the graphs' replays
+    and likelihood calls (``graphs``).  ``shard_walkers``: over several ranks, each advances its
     block of walkers when ``nwalkers`` divides into two blocks per rank.
     """
     if method not in _STATE_CLS:
         raise NotImplementedError(method)
     device = resolve_device(device)
-    ps = {"precond": 0.0, "init": 0.0, "setup": 0.0, "device_wait": 0.0, "host": 0.0,
-          "tau_checks": 0.0}
+    ps = {"precond": 0.0, "init": 0.0, "setup": 0.0, "capture": 0.0, "dispatch": 0.0,
+          "device_wait": 0.0, "host": 0.0, "tau_checks": 0.0, "loop": 0.0}
     t_setup0 = time.perf_counter()
     if not tau_walkers or tau_walkers <= 0:
         tau_walkers = None
@@ -286,6 +289,29 @@ def run_ensemble(
                 _save_precond(pfile, precond)
         log_prob_fn = precond.wrap_log_prob(log_prob_fn, device=device)
 
+    graphed = None  # the CUDA-graph chunk runner, captured at the first chunk
+
+    def _advance(st, nsteps=check_every):
+        """Enqueue one chunk: replayed from CUDA graphs on a card unless the
+        walkers are sharded (emcee's 100-step burn-in is a chunk too), else
+        the eager chunk function."""
+        nonlocal graphed
+        if device.type == "cuda" and shard is None:
+            if graphed is None:
+                t0 = time.perf_counter()
+                graphed = graphs.graphed_chunks(
+                    method, log_prob_fn, st, max(check_every, 100 if method == "emcee" else 0),
+                    a=a, n_leapfrog=n_leapfrog, max_depth=max_depth, max_steps=slice_max_steps)
+                ps["capture"] += time.perf_counter() - t0
+            return graphed(st, nsteps)
+        if method == "emcee":
+            return stretch.stretch_chunk(log_prob_fn, st, nsteps, a, shard=shard)
+        if method == "hmc":
+            return hmc.hmc_chunk(log_prob_fn, st, nsteps, n_leapfrog, shard=shard)
+        if method == "nuts":
+            return hmc.nuts_chunk(log_prob_fn, st, nsteps, max_depth, shard=shard)
+        return slicemove.slice_chunk(log_prob_fn, st, nsteps, slice_max_steps, shard=shard)
+
     iteration = 0
     hist_pending = 0  # persisted steps not yet read into the window
     if resume:
@@ -314,7 +340,7 @@ def run_ensemble(
             backend.reset(nwalkers, ndim)
         # burn-in, then a restart from the high-probability set
         bstate = stretch.init_state(rng, take(torch.as_tensor(x0)), log_prob_fn)
-        _, bchain, blps = stretch.stretch_chunk(log_prob_fn, bstate, 100, a, shard=shard)
+        _, bchain, blps = _advance(bstate, 100)
         bchain, blps = MH.fetch((bchain, blps), shard, dim=1)
         flat = bchain.reshape(-1, ndim)
         flat_lp = blps.reshape(-1)
@@ -376,11 +402,12 @@ def run_ensemble(
     converged_flag = False
     finished_flag = False
 
-    def _save_state() -> None:
-        # every rank joins the gather; rank 0 writes
-        blob = _state_to_blob(state, shard)
+    def _save_state(blob: dict) -> None:
+        """Rank 0 writes ``blob`` (a chunk's state, :func:`_fetch`) with the
+        bookkeeping."""
         if not primary:
             return
+        blob = dict(blob)
         blob["_method"] = np.bytes_(method)
         blob["_iteration"] = np.asarray(int(iteration))
         blob["_old_tau"] = np.atleast_1d(np.asarray(old_tau, np.float64))
@@ -448,7 +475,8 @@ def run_ensemble(
             trace_rec["sampler"] = {k: round(v, 3) for k, v in ps.items()}
             trace_rec["steps_run"] = int(iteration)
 
-    ps["setup"] = time.perf_counter() - t_setup0 - ps["precond"] - ps["init"]
+    ps["setup"] = (time.perf_counter() - t_setup0 - ps["precond"] - ps["init"]
+                   - ps["capture"])
     if (
         convergence_check
         and state_blob is not None
@@ -466,24 +494,49 @@ def run_ensemble(
             _finish_trace()
             return backend
 
-    def _advance(st):
-        if method == "emcee":
-            return stretch.stretch_chunk(log_prob_fn, st, check_every, a, shard=shard)
-        if method == "hmc":
-            return hmc.hmc_chunk(log_prob_fn, st, check_every, n_leapfrog, shard=shard)
-        if method == "nuts":
-            return hmc.nuts_chunk(log_prob_fn, st, check_every, max_depth, shard=shard)
-        return slicemove.slice_chunk(log_prob_fn, st, check_every, slice_max_steps, shard=shard)
+    fields = [n for n in _STATE_CLS[method]._fields if n != "rng"]
 
-    while iteration < max_iterations:
+    def _snapshot(st, chain=None, lps=None):
+        """Chunk k's chain, log-probs and state on their way to the host,
+        queued before chunk k+1 is: on a card (unsharded) copies into pinned
+        memory behind an event; with the generator's state after chunk k's
+        draws.  Under ``shard`` the tensors are gathered when fetched."""
+        tensors = [getattr(st, n) for n in fields]
+        if chain is not None:
+            tensors = [chain, lps] + tensors
+        rng_state = st.rng.get_state().numpy()
+        if shard is not None or device.type != "cuda":
+            return tensors, None, rng_state
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event, rng_state
+
+    def _fetch(snap):
+        """(arrays, blob): the chunk's tensors as host numpy, the same on
+        every rank, and its state blob."""
+        tensors, event, rng_state = snap
+        if event is not None:
+            event.synchronize()
+        n = len(tensors) - len(fields)
+        if shard is None:
+            arrays = [t.detach().cpu().numpy() for t in tensors]
+        else:  # two gathers: the chunk's rows, then the state
+            arrays = list(MH.fetch(tensors[:n], shard, dim=1)) if n else []
+            arrays += list(MH.fetch(tensors[n:], shard))
+        blob = dict(zip(fields, arrays[n:]))
+        blob["rng_state"] = rng_state
+        return arrays[:n], blob
+
+    def _consume(snap) -> bool:
+        """Chunk k on the host: append it, test convergence, save the state;
+        True when the run stops here."""
+        nonlocal prev_accepted, converged_flag, last_blob
         t0 = time.perf_counter()
-        state, chain, lps = _advance(state)
-        if method == "zeus" and n_chunks_done < tune_chunks:
-            state = slicemove.tune_mu(state)
-        # the whole chunk on every rank (one gather when sharded): the host
-        # work below sees the same values everywhere; rank 0 appends
-        parts = (chain, lps) if method == "zeus" else (chain, lps, state.accepted)
-        chain, lps, *acc = MH.fetch(parts, shard, dim=(1, 1, 0)[:len(parts)])
+        (chain, lps), blob = _fetch(snap)
+        last_blob = blob
         lps = lps.astype(np.float64)
         t1 = time.perf_counter()
         ps["device_wait"] += t1 - t0
@@ -493,7 +546,7 @@ def run_ensemble(
         else:
             # cumulative acceptances (counts; the mean alpha for hmc/nuts):
             # the file takes each chunk's delta
-            acc = acc[0].astype(np.float64)
+            acc = np.asarray(blob["accepted"], np.float64)
             if method in GRADIENT_METHODS:
                 # stored in the original (whitened-prior) space
                 chain = precond.to_original(chain.astype(np.float64).reshape(-1, ndim))
@@ -503,25 +556,67 @@ def run_ensemble(
                                transform=tfn)
             prev_accepted = acc
         _push(chain)
-        iteration += check_every
-        n_chunks_done += 1
 
         if not convergence_check or iteration < next_tau_iter:
-            _save_state()
+            _save_state(blob)
             ps["host"] += time.perf_counter() - t1
-            continue
+            return False
         t2 = time.perf_counter()
         ps["host"] += t2 - t1
         converged, nan_stop = _tau_check()
         t3 = time.perf_counter()
         ps["tau_checks"] += t3 - t2
         converged_flag = converged
-        _save_state()
+        _save_state(blob)
         ps["host"] += time.perf_counter() - t3
-        if converged or nan_stop:
-            break
+        return converged or nan_stop
+
+    # Double-buffered dispatch, as in the JAX package: chunk k+1 is enqueued
+    # before the host consumes chunk k (append, tau, stationarity, state
+    # save), and on an early stop the pending chunk is dropped.  zeus mu is
+    # tuned on chunk k's state before chunk k+1 is dispatched, and chunk k's
+    # results, state and generator state are taken before (_snapshot), so the
+    # chain file, the state blob and a resume are those of the serial order,
+    # bit for bit.  A zeus chunk's host drives its loops, so unsharded the
+    # consumer runs on a second thread while this one dispatches; the writes
+    # keep their order (one consumer at a time).  Walker-sharded chunks make
+    # collectives, and consume after the dispatch on this thread, in the
+    # same order on every rank.
+    last_blob = None
+    worker = ThreadPoolExecutor(1, thread_name_prefix="linna-consumer") if shard is None else None
+    t_loop, capture_before = time.perf_counter(), ps["capture"]
+    try:
+        pending = None
+        while iteration < max_iterations:
+            t0 = time.perf_counter()
+            if pending is None:
+                pending = _advance(state)
+            state, chain, lps = pending
+            if method == "zeus" and n_chunks_done < tune_chunks:
+                state = slicemove.tune_mu(state)
+            snap = _snapshot(state, chain, lps)
+            more = iteration + check_every < max_iterations
+            iteration += check_every
+            n_chunks_done += 1
+            job = worker.submit(_consume, snap) if worker is not None else None
+            pending = _advance(state) if more else None
+            ps["dispatch"] += time.perf_counter() - t0
+            stop = job.result() if job is not None else _consume(snap)
+            if stop:
+                break
+    finally:
+        if worker is not None:
+            worker.shutdown(wait=True)
+    # the graphs captured at the first chunk are timed under capture alone
+    captured = ps["capture"] - capture_before
+    ps["loop"] += time.perf_counter() - t_loop - captured
+    ps["dispatch"] -= captured
+    if graphed is not None and trace_rec is not None:
+        trace_rec["graphs"] = graphed.record()
 
     finished_flag = True
-    _save_state()
+    if last_blob is None:  # nothing sampled (a resume at max_iterations)
+        _, last_blob = _fetch(_snapshot(state))
+    _save_state(last_blob)
     _finish_trace()
     return backend

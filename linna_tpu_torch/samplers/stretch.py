@@ -81,24 +81,39 @@ def stretch_steps(log_prob_fn, a: float, carry, xs, gather: Optional[Callable] =
     With ``gather`` (walker-sharded: W/2 is this rank's block, the partner
     indices index the whole half) the complementary half is gathered whole
     before each half-update."""
-    gather = (lambda x: x) if gather is None else gather
     c2, lp2, acc2 = carry
     partners, us, ln_u_acc = xs
-    nsteps, ndim = partners.shape[0], c2.shape[-1]
+    nsteps = partners.shape[0]
     chain = torch.empty((nsteps,) + tuple(c2.shape), dtype=c2.dtype, device=c2.device)
     lps = torch.empty((nsteps,) + tuple(lp2.shape), dtype=lp2.dtype, device=lp2.device)
     for s in range(nsteps):
-        prt, u, ua = partners[s], us[s], ln_u_acc[s]
-        nx0, nlp0, a0 = _half_update(log_prob_fn, a, ndim, c2[0], lp2[0], gather(c2[1]), prt[0],
-                                     u[0], ua[0])
-        nx1, nlp1, a1 = _half_update(log_prob_fn, a, ndim, c2[1], lp2[1], gather(nx0), prt[1],
-                                     u[1], ua[1])
-        c2 = torch.stack([nx0, nx1])
-        lp2 = torch.stack([nlp0, nlp1])
-        acc2 = acc2 + torch.stack([a0, a1]).to(torch.int32)
+        c2, lp2, acc2 = stretch_step(log_prob_fn, a, c2, lp2, acc2, partners[s], us[s],
+                                     ln_u_acc[s], gather)
         chain[s] = c2
         lps[s] = lp2
     return (c2, lp2, acc2), (chain, lps)
+
+
+def stretch_step(log_prob_fn, a: float, c2, lp2, acc2, prt, u, ua, gather=None):
+    """One step, both half-updates, on the ``(2, W/2, ...)`` carry with
+    this step's draws (each ``(2, W/2)``); returns the new carry."""
+    gather = (lambda x: x) if gather is None else gather
+    ndim = c2.shape[-1]
+    nx0, nlp0, a0 = _half_update(log_prob_fn, a, ndim, c2[0], lp2[0], gather(c2[1]), prt[0],
+                                 u[0], ua[0])
+    nx1, nlp1, a1 = _half_update(log_prob_fn, a, ndim, c2[1], lp2[1], gather(nx0), prt[1],
+                                 u[1], ua[1])
+    return (torch.stack([nx0, nx1]), torch.stack([nlp0, nlp1]),
+            acc2 + torch.stack([a0, a1]).to(torch.int32))
+
+
+def chunk_draws(g: torch.Generator, nsteps: int, half: int, device):
+    """A chunk's draws, each ``(nsteps, 2, half)``: partner indices,
+    z-uniforms and log accept-uniforms, one batched draw per stream."""
+    shape = (nsteps, 2, half)
+    partners = torch.randint(0, half, shape, generator=g, device=device)
+    us = torch.rand(shape, generator=g, device=device)
+    return partners, us, torch.log(torch.rand(shape, generator=g, device=device))
 
 
 @torch.no_grad()
@@ -118,13 +133,9 @@ def stretch_chunk(
     if shard is not None and w != shard.local:
         raise ValueError(f"{w} walkers on this rank; the walker shard holds {shard.local}")
     dev = coords.device
-    shape = (nsteps, 2, half)
     # one batched draw per random stream for the whole chunk (the whole
     # ensemble's, cut to this rank's block when sharded)
-    partners = torch.randint(0, half, shape, generator=g, device=dev)
-    us = torch.rand(shape, generator=g, device=dev)
-    ln_u_acc = torch.log(torch.rand(shape, generator=g, device=dev))
-    xs = (partners, us, ln_u_acc)
+    xs = chunk_draws(g, nsteps, half, dev)
     gather = None
     if shard is not None:
         xs = tuple(t[..., shard.block] for t in xs)
