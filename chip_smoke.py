@@ -26,6 +26,9 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    block's shared memory holds 8 walkers of its cluster, not 16.  Each
    kernel's time counts its own device events in torch.profiler and fails
    unless it saw one per launch (shown once on a deliberate mismatch).
+   The same 16 rows inside 16-, 128- and 256-row batches (8, 16 and 24
+   walkers per cluster) must give the same ``fused_log_prob`` values bit
+   for bit (the plain composition's shown beside them).
 4. The sampling stage of one ``ml_sampler_core`` iteration on a DES-width
    iteration directory written with the port's own writers:
    ``retrieve_model`` -> ``make_log_prob(use_fused=True, temperature=16)``
@@ -100,9 +103,9 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    checkpoint after one epoch, and the best val loss after the deepest of
    ``DP_DEPTHS``), emcee and ``DP_NUTS`` NUTS samples sharded over the
    walkers through ``fused_log_prob`` (one rank's chain bit for bit where a
-   row's result does not depend on the rows beside it; else emcee within
-   ``RTOL``/``ATOL`` at every sample, and NUTS's first sample and
-   moments), launches per rank, and the census.
+   row's result does not depend on the rows beside it, which emcee's must
+   not on a card; else emcee within ``RTOL``/``ATOL`` at every sample, and
+   NUTS's first sample and moments), launches per rank, and the census.
 10. The rest of the port at the DES width, on phase 5's 10,000 / 500
    seeded rows.  10a: one tensor-parallel epoch (``parallel/dtrain``, batch
    500) as two gloo ranks on the card (data 1 x model 2, the 125-wide trunk
@@ -129,14 +132,26 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    from CUDA graphs (``samplers/graphs.py``) and one eager from the same
    state and generator state, equal bit for bit (else the largest
    difference within ``PROGRAM_ATOL``) with the same generator state after
-   and the same launches counted (the graphs' from the replays); s / 100
+   and the same launches counted (the graphs' from the replays), and a
+   second chunk of each from its end state the same way; s / 100
    steps, the busy share of a traced chunk of each, graph replays and
    launches a step; zeus at each condition lag of ``PROGRAM_LAGS``; the
    K=4 ensemble's batched likelihood against a copy of the per-member loop
    it replaced (``K4_RTOL``), and zeus through the loop eager, batched
    eager and batched graphed, the graphed one at each lag too.  Phases 4-10 sample through the graphs too:
    ``run_ensemble`` replays every unsharded chunk on a card.
-12. One ``{"kernels": [...]}`` line, the card's name and power limit, and the
+12. The training programs (``train_graphs``) at the DES width: one chunk
+   replayed from CUDA graphs and one eager from the same parameters, AdamW
+   state and member generators, equal bit for bit (losses, metric rows,
+   correlations, best value and params, parameters, AdamW state,
+   generators): 12a phase 5's rows at K=4 f32, 12b 40,000 rows at
+   ``des_synthetic.yaml``'s K=2 bfloat16, 12c K=1 with a norder-2
+   pre-model, 12d the range test's 100 steps, 12e ``train`` with a hyper, a
+   reinit and a reload planted in speculated chunks; ms an epoch both ways,
+   a traced chunk's busy share, replays and kernels an epoch, capture
+   seconds, and no launch of either CUDA kernel.  Phases 5, 7, 8 and 10
+   train through the graphs too: ``_train`` replays every chunk on a card.
+13. One ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 
 Phase 4's, 6's and 11's weights are random (from a seed); phases 5, 7 and
@@ -266,6 +281,23 @@ K4_STEPS, K4_TRACED = 20, 5
 # the batched K=4 likelihood against the per-member loop: the same products,
 # batched (cuBLAS may pick other kernels for the batched shapes)
 K4_RTOL = 1e-5
+
+# phase 12: the training programs (train_graphs) at the DES width.  Each
+# case: one chunk replayed from CUDA graphs and one eager from the same
+# state, bit for bit (epochs a chunk), and a traced chunk of each (epochs).
+# 12a: phase 5's rows at K=4 f32; 12b: 40,000 / 2,000 rows of the same
+# theory at des_synthetic.yaml's K=2 bfloat16 (its fourth iteration's rows,
+# batch 500); 12c: K=1 with a norder-2 pre-model on phase 5's rows; 12d:
+# the range test (100 steps) on 12a's trainer; 12e: train() at K=4 with the
+# range test, and a hyper, a reinit and a reload planted in speculated
+# chunks, graphed
+# against eager (5-epoch chunks: PLANTED_EPOCHS epochs, each planted epoch
+# in a chunk that speculates its successor)
+TRAIN_PROGRAM_EPOCHS = {"12a": 10, "12b": 5, "12c": 10}
+TRAIN_PROGRAM_TRACED = {"12a": 3, "12b": 2, "12c": 3}
+FLAGSHIP_ROWS, FLAGSHIP_VAL = 40000, 2000
+PLANTED = {12: "hyper", 27: "reinit", 42: "reload"}
+PLANTED_EPOCHS, PLANTED_CHUNK = 50, 5
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_F32_FLOPS = 67e12  # CUDA cores, no tensor cores
@@ -601,6 +633,40 @@ def phase_kernels(device, batches=BATCHES, timed=TIMED_ROWS, ndim=NDIM, ndata=ND
         if shape["cluster_size"] != 8 or shape["max_active_clusters"] < 1:
             raise AssertionError(f"fused_log_prob B={b}: launch shape {shape}")
     return rec
+
+
+def row_dependence(device, rows=16, batches=(16, 128, 256), ndim=NDIM, ndata=NDATA) -> dict:
+    """The same ``rows`` walkers evaluated first in a batch of their own and
+    then as the first rows of larger ``batches`` (the rest random), through
+    ``fused_log_prob`` and through the plain composition: for each batch,
+    the kernel's walkers per cluster and each route's largest difference
+    from the ``rows``-row batch (0 where a row's value does not depend on
+    the rows launched beside it).  On a card the kernel's differences must
+    be 0: its sums follow the model's width, not the launch's rows."""
+    from linna_tpu_torch import likelihood as LK
+    from linna_tpu_torch.ops import fused as F
+
+    spec, params, ts, pack, data, inv_cov = make_problem(device, ndim, ndata)
+    lps = {route: LK.make_log_prob(spec, params, ts, pack, data, inv_cov,
+                                   temperature=TEMPERATURE, use_fused=route == "kernel",
+                                   device=device) for route in ("kernel", "plain")}
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    x = torch.randn((max(batches), ndim), generator=gen).to(device) * 0.3
+    res = {"rows": rows, "batches": {}}
+    with torch.no_grad():
+        first = {r: lp(x[:rows]) for r, lp in lps.items()}
+        for b in batches:
+            rec = {"walkers_per_cluster": F.launch_shape(spec, b, "fused_log_prob")[
+                "walkers_per_cluster"] if device.type == "cuda" else None}
+            for r, lp in lps.items():
+                rec[f"{r}_max_abs_diff"] = _apart(lp(x[:b])[:rows], first[r])
+            res["batches"][b] = rec
+    log(f"  the same {rows} rows inside larger batches: {json.dumps(res)}")
+    apart = {b: r["kernel_max_abs_diff"] for b, r in res["batches"].items()}
+    if device.type == "cuda" and any(apart.values()):
+        raise AssertionError(f"fused_log_prob: a row's value depends on the rows launched "
+                             f"beside it: {apart}")
+    return res
 
 
 def traced_call(fn, device) -> dict:
@@ -941,6 +1007,7 @@ def timed_train_chunk(tr, rows, n, device, epochs=10) -> dict:
     by_kernel = sorted(((k, us / 1e3) for k, (_, us) in events.items()), key=lambda kv: -kv[1])
     rows_per_epoch = (n // tr._batch_size) * tr._batch_size * tr.n_members
     return {
+        "program": tr._program.record(),
         "epochs": epochs,
         "ms_per_epoch": wall / epochs * 1e3,
         "rows_per_s": rows_per_epoch * epochs / wall,
@@ -2165,6 +2232,9 @@ def phase_data_parallel(device, outdir, ndim=NDIM, ndata=NDATA, ntrain=NTRAIN, n
             failures.append(f"{m}: the two-rank chain {c2.shape} is not finite")
         if row_independent[m] and not same:
             failures.append(f"{m}: rows are independent, but two ranks' chain differs")
+        if m == "emcee" and device.type == "cuda" and not row_independent[m]:
+            failures.append("emcee: fused_log_prob's value for a row depends on the rows "
+                            "launched beside it")
         if m == "emcee" and by_sample.max():
             failures.append(f"emcee: walkers apart from one rank's by sample {by_sample}")
         if m == "nuts" and (by_sample[0] > DP_NUTS_FIRST_APART * nwalkers
@@ -2812,7 +2882,8 @@ def phase_programs(device, ndim=NDIM, ndata=NDATA, nwalkers=NWALKERS, steps=None
                    nensemble=NENSEMBLE) -> dict:
     """Phase 11: for each sampler one chunk replayed from CUDA graphs and
     one eager from the same state and generator state (equal bit for bit,
-    the same launches counted), s / 100 steps and the busy share of a
+    the same launches counted), then a second chunk of each from its end
+    state (bit for bit too), s / 100 steps and the busy share of a
     traced chunk of each, replays and launches a step; zeus at each
     condition lag; and the K=4 ensemble's batched likelihood against the
     per-member loop (values, and zeus through the loop eager, batched
@@ -2848,6 +2919,15 @@ def phase_programs(device, ndim=NDIM, ndata=NDATA, nwalkers=NWALKERS, steps=None
         rec["eager_launches_per_step"] = one["launches"] / n
         if on_card:
             rec.update(_held(graphed, one, method, after["calls"] - before["calls"]))
+            # a second chunk from each run's end state, after the host has
+            # allocated: a replay must not read memory freed since its capture
+            spare = [torch.zeros(ndim, device=device) for _ in range(64)]
+            before = runner.record()
+            graphed2 = _chunk_run(runner, graphed["out"][0], n, graphed["rng_after"], device)
+            calls2 = runner.record()["calls"] - before["calls"]
+            one2 = _chunk_run(eager, one["out"][0], n, one["rng_after"], device)
+            rec["second_chunk"] = _held(graphed2, one2, f"{method} second chunk", calls2)
+            del spare
             nt = traced[method]
             rec["graphed_traced"] = {"steps": nt, **_busy(lambda: runner(state, nt), device)}
             rec["eager_traced"] = {"steps": nt, **_busy(lambda: eager(state, nt), device)}
@@ -2888,6 +2968,286 @@ def phase_programs(device, ndim=NDIM, ndata=NDATA, nwalkers=NWALKERS, steps=None
         k4.update(_lag_sweep(runs["batched_graphed"], state, k4_steps, g0, device, lags))
     log(f"  11 K={nensemble}: {json.dumps(k4, default=float)}")
     res["k4"] = k4
+    return res
+
+
+# ------------------------------------------------ phase 12: training programs
+
+
+def _train_state(tr) -> tuple:
+    """Copies of the trainer's parameters, AdamW state and member generator
+    states."""
+    return [t.clone() for t in (tr.flat, *tr.opt)], [g.get_state() for g in tr.gens]
+
+
+def _set_train_state(tr, state) -> None:
+    with torch.no_grad():
+        for dst, src in zip((tr.flat, *tr.opt), state[0]):
+            dst.copy_(src)
+    for g, st in zip(tr.gens, state[1]):
+        g.set_state(st)
+
+
+def _apart(a, b) -> float:
+    """The largest difference of two tensors (or arrays); inf where their
+    shapes differ."""
+    a, b = torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a), \
+        torch.as_tensor(np.asarray(b) if not torch.is_tensor(b) else b)
+    if a.shape != b.shape:
+        return float("inf")
+    return float((a.double() - b.double()).abs().nan_to_num(0.0).max()) if a.numel() else 0.0
+
+
+def _held_training(pairs, what: str) -> dict:
+    """Graphed against eager, pair by pair: equal bit for bit, or fail with
+    each pair's largest difference."""
+    apart = {name: (torch.equal(a, b) if torch.is_tensor(a) else np.array_equal(a, b),
+                    _apart(a, b)) for name, (a, b) in pairs.items()}
+    bad = {name: diff for name, (equal, diff) in apart.items() if not equal}
+    log(f"  {what}: graphed and eager equal bit for bit: {not bad}"
+        + (f" (apart: {bad})" if bad else ""))
+    if bad:
+        raise AssertionError(f"{what}: the graphed run is not the eager one: {bad}")
+    return {"bit_for_bit": True, "compared": sorted(pairs)}
+
+
+def _chunk_pairs(graphed: dict, eager: dict) -> dict:
+    names = ("losses", "val_metrics", "correlations", "best_val", "best_params")
+    pairs = {n: (g, e) for n, g, e in zip(names, graphed["out"], eager["out"]) if g is not None}
+    for i, n in enumerate(("params", "adam_count", "adam_mu", "adam_nu")):
+        pairs[n] = (graphed["state"][0][i], eager["state"][0][i])
+    for m, (g, e) in enumerate(zip(graphed["state"][1], eager["state"][1])):
+        pairs[f"generator_{m}"] = (g, e)
+    return pairs
+
+
+def _program_chunk(tr, prog, n_epochs: int, n: int, device) -> dict:
+    """One chunk of ``prog`` on fresh draws: its outputs, the state after,
+    seconds between synchronizes and the program's replays."""
+    replays = prog.replays
+    perms = tr._draw_perms(n_epochs, n)
+    _sync(device)
+    t0 = time.perf_counter()
+    out = prog(perms)
+    _sync(device)
+    return {"out": out, "s": time.perf_counter() - t0, "state": _train_state(tr),
+            "replays": prog.replays - replays}
+
+
+def _traced_chunk(tr, prog, n_epochs: int, n: int, device) -> dict:
+    """A traced chunk: wall, device busy share, and kernels and graph
+    replays an epoch."""
+    from linna_tpu_torch.ops import fused as F
+
+    perms = tr._draw_perms(n_epochs, n)
+    replays = prog.replays
+    rec = _busy(lambda: prog(perms), device)
+    launches = rec.pop("launches", None)
+    rec.pop("device_ms_by_kernel", None)
+    return {"epochs": n_epochs, **rec,
+            "kernels_per_epoch": None if launches is None else launches / n_epochs,
+            "replays_per_epoch": (prog.replays - replays) / n_epochs,
+            "kernel_launches": dict(F.launches)}
+
+
+def program_case(tr, data, n: int, epochs: int, traced: int, device, what: str) -> dict:
+    """A graphed chunk against an eager one from the same state: the
+    trainer's own program (graphs on a card) runs a warm chunk, then a
+    chunk from a saved state; an eager program runs the same chunk from the
+    same state.  Then a traced chunk of each."""
+    from linna_tpu_torch import train_graphs as TG
+
+    nb = n // tr._batch_size
+    t0 = time.perf_counter()
+    graphed = tr._epoch_program(data, nb, epochs)
+    capture_s = time.perf_counter() - t0
+    _program_chunk(tr, graphed, epochs, n, device)  # a warm chunk
+    start = _train_state(tr)
+    g = _program_chunk(tr, graphed, epochs, n, device)
+    _set_train_state(tr, start)
+    eager = TG.EpochProgram(tr, data, nb, epochs, graphed=False)
+    e = _program_chunk(tr, eager, epochs, n, device)
+    rec = {"members": tr.flat.shape[0], "rows": n, "minibatches_per_epoch": nb,
+           "compute_dtype": str(tr.compute_dtype or torch.float32),
+           "pre_model": tr.linearmodel is not None, "graphed": graphed.graphed,
+           "capture_s": capture_s, "graphs": len(graphed.graphs), "epochs": epochs,
+           "graphed_ms_per_epoch": g["s"] / epochs * 1e3,
+           "eager_ms_per_epoch": e["s"] / epochs * 1e3,
+           "replays_per_epoch": g["replays"] / epochs,
+           **_held_training(_chunk_pairs(g, e), what)}
+    rec["graphed_traced"] = _traced_chunk(tr, graphed, traced, n, device)
+    rec["eager_traced"] = _traced_chunk(tr, eager, traced, n, device)
+    log(f"  {what}: {json.dumps(rec, default=float)}")
+    return rec
+
+
+def _program_trainer(inputs, device, nensemble, compute_dtype=None, linearmodel=None):
+    """An EnsembleTrainer (K=1: a Trainer) on the inputs' rows from
+    train_emulator's member seeds at learning rate 1e-3, and its rows."""
+    from linna_tpu_torch.parallel.ensemble import EnsembleTrainer
+    from linna_tpu_torch.train import Trainer
+
+    spec, ts, ls = _tp_problem(inputs, device)
+    seeds = [1234 + 1000 * k for k in range(nensemble)]
+    if nensemble == 1:
+        tr = Trainer(spec, ts, ls, seed=seeds[0], compute_dtype=compute_dtype,
+                     linearmodel=linearmodel, device=device)
+    else:
+        tr = EnsembleTrainer(spec, ts, ls, [None] * nensemble, seeds,
+                             compute_dtype=compute_dtype, linearmodel=linearmodel, device=device)
+    tr._batch_size = int(inputs["batch"])
+    tr.lrs[:] = 1e-3
+    tr._set_hypers()
+    rows = tr._prepare(*(inputs[k] for k in ("tx", "ty", "vx", "vy")))
+    return tr, rows
+
+
+def _pre_model(inputs, device):
+    """A norder-2 pre-model fitted as train_emulator fits one: on the
+    x-transformed inputs and the standardized targets."""
+    from linna_tpu_torch import linear_model as LM
+    from linna_tpu_torch import losses as L
+
+    _, ts, ls = _tp_problem(inputs, device)
+    f32 = lambda k: torch.as_tensor(np.asarray(inputs[k]), dtype=torch.float32, device=device)
+    with torch.no_grad():
+        x = ts.x_transform(f32("tx"))
+        y = L.target_terms(ls, ts, f32("ty"))[0]
+    return LM.fit_linear_model(x.cpu().numpy(), y.cpu().numpy(), norder=2, device=device)
+
+
+def sweep_case(tr, data, n: int, device) -> dict:
+    """12d: the range test's 100 steps from one step graph against the
+    eager steps, from the same params: the raw traces bit for bit, the
+    params put back."""
+    from linna_tpu_torch import train as TTR
+    from linna_tpu_torch import train_graphs as TG
+
+    order = np.random.default_rng(1234).permutation(n)
+    lrs = np.geomspace(1e-4, 5e-3, 100)
+    before = tr.flat.clone()
+    runs = []
+    for graphed in (tr._graphed(), False):  # the trainer's route, then eager
+        rec: dict = {}
+        opt = TTR.adamw_init(tr.flat, tr.compute_dtype)
+        _sync(device)
+        t0 = time.perf_counter()
+        raw = TG.lr_sweep(tr, data, order, lrs, opt, graphed, rec)
+        _sync(device)
+        runs.append((raw, time.perf_counter() - t0 - rec["capture_s"], rec,
+                     torch.equal(tr.flat, before)))
+    (g, g_s, g_rec, g_back), (e, e_s, _, e_back) = runs
+    res = {"steps": len(lrs), "graphed": g_rec["graphed"], "capture_s": g_rec["capture_s"],
+           "replays": g_rec["replays"], "graphed_ms_per_step": g_s / len(lrs) * 1e3,
+           "eager_ms_per_step": e_s / len(lrs) * 1e3, "params_put_back": g_back and e_back,
+           **_held_training({"raw_losses": (g, e)}, "12d range test")}
+    if not res["params_put_back"]:
+        raise AssertionError("12d: the range test did not put the params back")
+    log(f"  12d: {json.dumps(res, default=float)}")
+    return res
+
+
+def planted_case(inputs, device, epochs=PLANTED_EPOCHS, chunk=PLANTED_CHUNK, planted=None,
+                 nensemble=NENSEMBLE) -> dict:
+    """12e: ``train`` at K members with the range test, speculation on and
+    member 0's supervisor answering ``planted`` ({epoch: action}) once
+    each, graphed against eager (a trainer whose chunks and range test run
+    the eager bodies on the card): the range test's learning rates,
+    per-batch losses, metric rows, parameters, AdamW state, best params and
+    losses, generators, and the chunks speculated and dropped, bit for
+    bit."""
+    from linna_tpu_torch import train as TTR
+
+    planted = PLANTED if planted is None else planted
+    real = TTR.Supervisor
+
+    class Planted(real):
+        def step(self, ep, vm, loss, min_eig, suppressed=False):
+            out = real.step(self, ep, vm, loss, min_eig, suppressed)
+            if self.tag in ("member0", "") and ep in planted and not suppressed:
+                if planted[ep] == "hyper":
+                    self.lr, self.wd = self.lr / 2.0, self.wd * 2.0
+                return planted[ep]
+            return out
+
+    runs = {}
+    TTR.Supervisor = Planted
+    try:
+        for graphed in (True, False):
+            tr, _ = _program_trainer(inputs, device, nensemble)
+            if not graphed:
+                tr._graphed = lambda: False
+            _sync(device)
+            t0 = time.perf_counter()
+            losses, vms = tr._train(*(inputs[k] for k in ("tx", "ty", "vx", "vy")),
+                                    num_epochs=epochs, batch_size=int(inputs["batch"]),
+                                    auto_lr=True, epochs_per_dispatch=chunk)
+            _sync(device)
+            runs[graphed] = {"tr": tr, "losses": losses, "vms": vms,
+                             "s": time.perf_counter() - t0}
+    finally:
+        TTR.Supervisor = real
+    g, e = runs[True], runs[False]
+    pairs = {"range_test_lrs": (g["tr"].lrs, e["tr"].lrs),
+             "train_losses": (np.array(g["losses"]), np.array(e["losses"])),
+             "val_metrics": (np.array(g["vms"]), np.array(e["vms"])),
+             "best_val_losses": (g["tr"].best_val_losses, e["tr"].best_val_losses),
+             "best_params": (g["tr"]._best_flat, e["tr"]._best_flat)}
+    for i, n in enumerate(("params", "adam_count", "adam_mu", "adam_nu")):
+        pairs[n] = ((g["tr"].flat, *g["tr"].opt)[i], (e["tr"].flat, *e["tr"].opt)[i])
+    for m, (a, b) in enumerate(zip(g["tr"].gens, e["tr"].gens)):
+        pairs[f"generator_{m}"] = (a.get_state(), b.get_state())
+    res = {"epochs": epochs, "chunk": chunk, "planted": {str(k): v for k, v in planted.items()},
+           "speculation": {"graphed": g["tr"].speculation, "eager": e["tr"].speculation},
+           "graphs": g["tr"].graphs["epochs"],
+           "graphed_ms_per_epoch": g["s"] / epochs * 1e3,
+           "eager_ms_per_epoch": e["s"] / epochs * 1e3,
+           "phase_s": {"graphed": g["tr"].phase_seconds, "eager": e["tr"].phase_seconds},
+           **_held_training(pairs, "12e planted interventions")}
+    log(f"  12e: {json.dumps(res, default=float)}")
+    if g["tr"].speculation != e["tr"].speculation or g["tr"].speculation["dropped"] < len(planted):
+        raise AssertionError(f"12e: speculation {res['speculation']}; each planted action must "
+                             f"drop a speculated chunk")
+    if device.type == "cuda" and not res["graphs"]["graphed"]:
+        raise AssertionError("12e: train() did not run its chunks from CUDA graphs on the card")
+    return res
+
+
+def phase_train_programs(device, outdir, ndim=NDIM, ndata=NDATA, ntrain=NTRAIN, nval=NVAL,
+                         batch=TP_BATCH, flagship_rows=(FLAGSHIP_ROWS, FLAGSHIP_VAL), epochs=None,
+                         traced=None) -> dict:
+    """Phase 12: training chunks and the range test replayed from CUDA
+    graphs against the eager bodies, bit for bit, with their times, busy
+    shares, replays and kernels an epoch and capture seconds, and no launch
+    of either CUDA kernel (training reaches neither)."""
+    from linna_tpu_torch.ops import fused as F
+
+    epochs, traced = epochs or TRAIN_PROGRAM_EPOCHS, traced or TRAIN_PROGRAM_TRACED
+    F.reset_counts()
+    res: dict = {}
+    rows = phase10_rows(device, os.path.join(outdir, "rows"), ndim, ndata, ntrain, nval, batch)
+    n = len(rows["tx"])
+    tr, data = _program_trainer(rows, device, NENSEMBLE)
+    res["12a"] = program_case(tr, data, n, epochs["12a"], traced["12a"], device,
+                              f"12a K={NENSEMBLE} f32")
+    res["12d"] = sweep_case(tr, data, n, device)
+    del tr, data
+    lm = _pre_model(rows, device)
+    tr, data = _program_trainer(rows, device, 1, linearmodel=lm)
+    res["12c"] = program_case(tr, data, n, epochs["12c"], traced["12c"], device,
+                              "12c K=1 with a norder-2 pre-model")
+    del tr, data
+    res["12e"] = planted_case(rows, device)
+    big = phase10_rows(device, os.path.join(outdir, "flagship_rows"), ndim, ndata,
+                       *flagship_rows, batch)
+    tr, data = _program_trainer(big, device, PREMODEL_ENSEMBLE, compute_dtype="bfloat16")
+    res["12b"] = program_case(tr, data, len(big["tx"]), epochs["12b"], traced["12b"], device,
+                              f"12b K={PREMODEL_ENSEMBLE} bf16 at {len(big['tx'])} rows")
+    del tr, data
+    res["launches"], res["plain_calls"] = dict(F.launches), dict(F.plain_calls)
+    log(f"  12: kernel launches {res['launches']}, plain calls {res['plain_calls']}")
+    if any(res["launches"].values()) or any(res["plain_calls"].values()):
+        raise AssertionError("training reached a CUDA kernel or its plain version")
     return res
 
 
@@ -2938,6 +3298,7 @@ def main() -> int:
     log("== 3. kernels against their plain versions")
     t0 = time.perf_counter()
     rec = phase_kernels(device)
+    rec["fused_log_prob"]["row_dependence"] = row_dependence(device)
     seconds[3] = time.perf_counter() - t0
 
     log("== 4. sampling slice")
@@ -3033,7 +3394,17 @@ def main() -> int:
     seconds[11] = time.perf_counter() - t0
     log(f"  phase 11: {seconds[11]:.1f} s")
 
-    log(f"== 12. result (phase seconds {json.dumps(seconds)})")
+    log("== 12. training programs: CUDA graphs against the eager bodies")
+    t0 = time.perf_counter()
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    try:
+        train_programs = phase_train_programs(device, RUN_DIR)
+    finally:
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
+    seconds[12] = time.perf_counter() - t0
+    log(f"  phase 12: {seconds[12]:.1f} s")
+
+    log(f"== 13. result (phase seconds {json.dumps(seconds)})")
     kernels = []
     for k in REPLACES:
         r = rec[k]
@@ -3064,6 +3435,7 @@ def main() -> int:
                 "programs_graphed_per_step": {
                     m: r["launches_per_step"] if k == "fused_log_prob" else 0
                     for m, r in programs["methods"].items()},
+                "training_programs": train_programs["launches"][k],
             },
             "max_abs_err": r["abs"],
             "max_rel_err": r["rel"],
@@ -3082,6 +3454,7 @@ def main() -> int:
             "call_ms_by_rows": r["call_ms"],
             "plain_call_ms_by_rows": r["plain_call_ms"],
             "launch_shape_by_rows": r["shape"],
+            **({"row_dependence": r["row_dependence"]} if "row_dependence" in r else {}),
             **resources.get(k, {}),
             "check": "pass",
         })

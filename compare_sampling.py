@@ -1,7 +1,8 @@
-"""Sampling rates of several trees of this repo on one card, in one process
-each: ``chip_smoke.py``'s phases 4 (zeus through ``fused_log_prob``),
-5 (training, then zeus on the trained K=4 ensemble) and 6 (NUTS, HMC and
-emcee through ``fused_log_prob``), each tree running its own code.
+"""Sampling and training rates of several trees of this repo on one card,
+in one process each: ``chip_smoke.py``'s phases 4 (zeus through
+``fused_log_prob``), 5 (training, then zeus on the trained K=4 ensemble)
+and 6 (NUTS, HMC and emcee through ``fused_log_prob``), each tree running
+its own code.
 
     python3 compare_sampling.py [--out DIR] TREE [TREE ...]
 
@@ -16,6 +17,12 @@ The rates are seconds per 100 steps (samples for NUTS and HMC):
   ``trace_rec``: ``loop`` where the tree records it (the capture apart),
   else the sum of the loop's parts (``device_wait`` + ``host`` +
   ``tau_checks``), as a tree without graphs or double-buffering times it.
+
+Training (phase 5, K=4 f32 on 10,000 / 500 rows): ``train_ms_per_epoch``,
+the ms an epoch of ``train_emulator``'s chunks (its dispatch and fetch
+seconds over its epochs), and ``train_chunk_ms_per_epoch`` /
+``train_chunk_busy_share``, a 10-epoch chunk timed between synchronizes
+and the device's busy share of a traced one.
 
 Needs a CUDA device; writes each run's log and ``compare_sampling.json``
 under ``DIR`` (default ``.compare_sampling/`` in the repo).
@@ -60,6 +67,9 @@ out["zeus_loop"] = loop(r4["trace"]["sampler"]) / steps * 100
 out["zeus_capture_s"] = r4["trace"]["sampler"].get("capture", 0.0)
 shutil.rmtree(C.RUN_DIR, ignore_errors=True)
 r5 = C.phase_train(dev, C.RUN_DIR)
+out["train_ms_per_epoch"] = r5["ms_per_epoch_in_train_emulator"]
+out["train_chunk_ms_per_epoch"] = r5["chunk"]["ms_per_epoch"]
+out["train_chunk_busy_share"] = r5["chunk"]["device_busy_share"]
 out["k4_zeus_wall"] = r5["ensemble_sample_s"] / r5["ensemble_steps"] * 100
 if "ensemble_trace" in r5:
     out["k4_zeus_loop"] = loop(r5["ensemble_trace"]["sampler"]) / r5["ensemble_steps"] * 100

@@ -55,7 +55,11 @@
 // orders the ping-pong buffers' reuse).  lin1 and skip of a residual block
 // read the same input and run as one product.  The chi^2 product gives each
 // block its columns of C^-1 delta and their part of delta . C^-1 delta,
-// which rank 0 sums in a fixed order.
+// which rank 0 sums in a fixed order.  Every sum a row's value takes (each
+// product's k ranges, their partials in order, the chi^2 partials) follows
+// the model's width alone, never R: the k split is planned for the most
+// walkers a cluster can take at that width, so a row's value does not
+// depend on the rows launched beside it.
 //
 // What bounds it at the sampler's 128-256 walkers is latency, not the FMA
 // rate: a launch is a chain of 11 products, each a round of weight loads,
@@ -571,15 +575,18 @@ struct Product {
 
 constexpr size_t kProductBytes = (sizeof(Product) * kProducts + 15) & ~size_t(15);
 
-__device__ void plan_product(Product& P, int R, int rank) {
+// Rs: the most walkers a cluster takes at this width (ClusterLaunch), which
+// the k split is planned for, so that it is the same at every R <= Rs.
+__device__ void plan_product(Product& P, int R, int Rs, int rank) {
   const int n = P.s0.n + P.s1.n;
   P.c0 = slice_edge(n, rank);
   P.ncols = slice_edge(n, rank + 1) - P.c0;
   P.ngc = (P.ncols + kColTile - 1) / kColTile;
   P.tiles = P.ngc * (R / kRowTile);
-  // as many k ranges as the threads allow (tiles <= kThreads: plan_log_prob),
-  // but none shorter than 4
-  P.split = P.tiles == 0 ? 0 : min(kThreads / P.tiles, (P.K + 3) / 4);
+  // as many k ranges as the threads allow at Rs walkers (ngc * Rs / 8 <=
+  // kThreads: fits_block), but none shorter than 4
+  const int most = P.ngc * (Rs / kRowTile);
+  P.split = most == 0 ? 0 : min(kThreads / most, (P.K + 3) / 4);
   P.kchunk = P.split == 0 ? 0 : (((P.K + P.split - 1) / P.split) + 3) & ~3;
 }
 
@@ -656,8 +663,8 @@ __host__ __device__ inline size_t cluster_smem_bytes(const TrunkDims& d, int R) 
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
-fused_log_prob_kernel(const float* __restrict__ x, int nrows, int R, TrunkWeights w, TrunkDims d,
-                      LikeArgs a, float* __restrict__ lp) {
+fused_log_prob_kernel(const float* __restrict__ x, int nrows, int R, int Rs, TrunkWeights w,
+                      TrunkDims d, LikeArgs a, float* __restrict__ lp) {
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -695,7 +702,7 @@ fused_log_prob_kernel(const float* __restrict__ x, int nrows, int R, TrunkWeight
       P.K = K;
       P.alpha = alpha;
       P.mode = mode;
-      plan_product(P, R, rank);
+      plan_product(P, R, Rs, rank);
       P.cst = c;
       c += (mode == Out::kDelta ? 5 : 1) * P.ncols;
     };
@@ -1049,6 +1056,7 @@ struct ClusterLaunch {
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
   int walkers;       // per cluster
+  int split_walkers; // the most walkers per cluster at this width (the k split's)
   int max_clusters;  // the most clusters of this shape the card holds at once
 };
 
@@ -1092,6 +1100,11 @@ int plan_log_prob(int nrows, const TrunkDims& d, cudaStream_t stream, ClusterLau
   }
   if (err != cudaSuccess) return err;
   if (!fits_block(d, kRowTile, smem_max)) return kTooWide;
+  L->split_walkers = kRowTile;
+  while (L->split_walkers < kMaxGroups * kRowTile &&
+         fits_block(d, L->split_walkers + kRowTile, smem_max)) {
+    L->split_walkers += kRowTile;
+  }
   for (int groups = 1;; ++groups) {
     const int R = groups * kRowTile;
     L->walkers = R;
@@ -1183,7 +1196,8 @@ int linna_fused_log_prob(const float* x, int nrows, const void* const* weights, 
   if (planned != 0) return planned;
   if (L.max_clusters < 1) return kNoCluster;
   const cudaError_t err =
-      cudaLaunchKernelEx(&L.cfg, fused_log_prob_kernel, x, nrows, L.walkers, w, d, a, lp);
+      cudaLaunchKernelEx(&L.cfg, fused_log_prob_kernel, x, nrows, L.walkers, L.split_walkers,
+                         w, d, a, lp);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -1194,7 +1208,8 @@ int linna_fused_log_prob(const float* x, int nrows, const void* const* weights, 
 // threads per block, blocks per SM, SMs, tile k, stages, the most work
 // items of a product, then each product's k split; fused_log_prob:
 // walkers per cluster, blocks per cluster, blocks, threads per block, the
-// most clusters the card holds at once, then zeros.  Returns a cudaError_t.
+// most clusters the card holds at once, the walkers per cluster the k split
+// is planned for, then zeros.  Returns a cudaError_t.
 int linna_launch_shape(int kernel, int nrows, const int* dims, int* shape, long long* smem) {
   const TrunkDims d = make_dims(dims);
   for (int i = 0; i < 9 + kApplyProducts; ++i) shape[i] = 0;
@@ -1216,6 +1231,7 @@ int linna_launch_shape(int kernel, int nrows, const int* dims, int* shape, long 
   shape[2] = (int)L.cfg.gridDim.x;
   shape[3] = kThreads;
   shape[4] = L.max_clusters;
+  shape[5] = L.split_walkers;
   *smem = (long long)L.cfg.dynamicSmemBytes;
   return err;
 }

@@ -261,8 +261,11 @@ def launch_shape(spec: N.ModelSpec, nrows: int, kernel: str) -> Dict[str, int]:
     (rows, columns, k per stage, stages), blocks, threads, blocks per SM,
     the card's SMs, each product's k split over blocks, the most work items
     (tiles x split) of any product, and dynamic shared memory per block.  ``fused_log_prob`` runs on clusters: walkers per
-    cluster, blocks per cluster, clusters, blocks, threads, shared memory,
-    and the most clusters of that shape the card holds at once."""
+    cluster, the walkers per cluster its k split is planned for (the most
+    at this width, so that a row's value does not depend on the rows
+    launched beside it), blocks per cluster, clusters, blocks, threads,
+    shared memory, and the most clusters of that shape the card holds at
+    once."""
     build()
     dims = (ctypes.c_int * 10)(*_dims(spec))
     shape, smem = (ctypes.c_int * 19)(), ctypes.c_longlong()
@@ -277,9 +280,10 @@ def launch_shape(spec: N.ModelSpec, nrows: int, kernel: str) -> Dict[str, int]:
         return {"tile": [tile_rows, tile_cols, tile_k], "stages": stages, "blocks": blocks,
                 "threads_per_block": threads, "blocks_per_sm": per_sm, "sms": sms,
                 "split": list(shape[9:]), "max_items": items, "smem_bytes": smem.value}
-    walkers, cluster, blocks, threads, max_clusters = shape[:5]
+    walkers, cluster, blocks, threads, max_clusters, split_walkers = shape[:6]
     return {
         "walkers_per_cluster": walkers,
+        "split_walkers": split_walkers,
         "cluster_size": cluster,
         "clusters": blocks // cluster,
         "blocks": blocks,

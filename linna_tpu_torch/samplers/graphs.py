@@ -82,10 +82,16 @@ class LaunchLedger:
 class StepGraph:
     """``fn()`` captured over static buffers.  ``buffers``: every tensor
     ``fn`` writes (put back after the warm-up); ``generators``: the
-    generators ``fn`` draws from, registered with the graph."""
+    generators ``fn`` draws from, registered with the graph.
+
+    The graph holds ``fn``: a replay reads the tensors ``fn``'s closure
+    holds (HMC's and NUTS's inverse mass, for one) at the addresses they
+    had at capture, and a tensor freed after the capture would have its
+    memory handed to the next allocation."""
 
     def __init__(self, fn: Callable[[], None], buffers: Sequence[torch.Tensor],
                  generators: Iterable[torch.Generator] = (), pool=None):
+        self.fn = fn
         generators = list(generators)
         saved = [b.clone() for b in buffers]
         states = [g.get_state() for g in generators]

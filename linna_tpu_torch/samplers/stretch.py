@@ -24,7 +24,10 @@ whole once per half-update (two all-gathers a step, the chunk's only
 collectives, as ``shard_over_walkers`` gives the JAX package).  The draws
 are taken for the whole ensemble from the same generator on every rank and
 cut to the block, so the chain is one rank's chain, bit for bit wherever
-the likelihood's value for a row does not depend on the rows beside it.
+the likelihood's value for a row does not depend on the rows beside it:
+through ``fused_log_prob`` it does not (the kernel's sums follow the
+model's width, not the launch's rows); the plain composition's cuBLAS
+products may sum in another order at another row count.
 """
 
 from __future__ import annotations

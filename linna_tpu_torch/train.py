@@ -79,6 +79,7 @@ import torch
 
 from . import losses as L
 from . import nn as N
+from . import train_graphs as TG
 from .device import DeviceLike, resolve_device
 from .parallel import multihost as MH
 from .transforms import TransformSet
@@ -461,6 +462,15 @@ def device_spike_recover(
     return flat, opt, lr, vm0_rec, prev_val, prev_loss, trigger
 
 
+def _to_device(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``host`` on ``device``, the copy enqueued on the stream: from pinned
+    memory with ``non_blocking`` on a card, so the host does not wait for
+    the work already enqueued (a speculated chunk's)."""
+    if device.type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)
+
+
 # ------------------------------------------------------------------ layout
 
 
@@ -631,6 +641,11 @@ class _MemberStack:
         self._best_dirty = np.zeros(self.n_members, bool)
         self._last_disk_save = -(10**9)
         self._batch_size: Optional[int] = None
+        # the chunk program of the current training call's rows
+        # (train_graphs.EpochProgram), and the graph records of the last
+        # training call
+        self._program: Optional[TG.EpochProgram] = None
+        self.graphs: Dict[str, dict] = {}
         self._set_hypers()
 
     # ----------------------------------------------------------- device work
@@ -667,9 +682,18 @@ class _MemberStack:
         return MH.to_host_async(tensors)
 
     def _set_hypers(self) -> None:
+        """This rank's rows of ``lrs``/``wds`` into the (K, 1) tensors the
+        steps read, in place after the first call: a captured step reads
+        the storage it was captured with."""
         rows = slice(self.local.start, self.local.stop)
-        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32)[rows, None], device=self.device)
-        self._lr_t, self._wd_t = f32(self.lrs), f32(self.wds)
+        for name, vals in (("_lr_t", self.lrs), ("_wd_t", self.wds)):
+            new = _to_device(torch.as_tensor(np.asarray(vals, np.float32)[rows, None]),
+                             self.device)
+            dst = getattr(self, name, None)
+            if dst is None:
+                setattr(self, name, new)
+            else:
+                dst.copy_(new)
 
     def _prepare(self, train_x, train_y, val_x=None, val_y=None) -> _Data:
         f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=self.device)
@@ -733,6 +757,43 @@ class _MemberStack:
         adamw_step_(self.flat, grad, opt, lr, wd)
         return loss
 
+    def _validate(self, data: _Data):
+        """Every member's validation metric row (K, 3) on the full
+        validation set, and the output-correlation matrix (K, out, out) for
+        the collapse check (None when the output has more than 16
+        components)."""
+        ls = self.loss_state
+        with torch.no_grad():
+            pred = N.apply_model(self.spec, self._model, data.val_x)  # (K, nval, out)
+            if data.val_lm is not None:
+                pred = pred + data.val_lm
+            loss_v = L.chi2_ratio(ls, pred, data.val_std, data.val_mask, data.val_denom)
+            chisq_nn_d = L._masked_chi2(pred - ls.data_std, data.val_mask, ls.inv_transformed_cov)
+            vm = L.val_metric_from_terms(loss_v, data.val_denom, chisq_nn_d)
+            if self.spec.out_size > 16:
+                return vm, None
+            centered = pred - pred.mean(dim=1, keepdim=True)
+            c = centered / (torch.sqrt(torch.mean(centered**2, dim=1, keepdim=True)) + 1e-20)
+            return vm, c.transpose(1, 2) @ c / pred.shape[1]
+
+    def _graphed(self) -> bool:
+        """Whether chunks and the range test replay CUDA graphs: on a card
+        with no data group (gloo's all-reduce copies through the host and
+        cannot be captured)."""
+        return self.device.type == "cuda" and self._group is None
+
+    def _epoch_program(self, data: _Data, nb: int, n_epochs: int) -> "TG.EpochProgram":
+        """The chunk program of ``data`` with ``nb`` minibatches an epoch,
+        holding at least ``n_epochs`` epochs: the one built before, else a
+        new one (on a card its two graphs are captured now)."""
+        prog = self._program
+        if (prog is None or prog.data is not data or prog.nb != nb
+                or prog.capacity < n_epochs):
+            self._program = None  # the old buffers and graphs go first
+            prog = self._program = TG.EpochProgram(
+                self, data, nb, max(n_epochs, self.epochs_per_dispatch), self._graphed())
+        return prog
+
     def _epochs_tracked(self, perms: torch.Tensor, data: _Data):
         """``perms.shape[0]`` epochs of every member with no host sync.
 
@@ -743,74 +804,39 @@ class _MemberStack:
         output has at most 16 components), and the best params so far.
         Returns (losses (e, K, nb), val metrics (e, K, 3), correlations
         (e, K, out, out) or None, best val (K,), best params (K, P)), all on
-        the device; the parameters and optimizer state advance in place.
-        K counts this rank's members."""
-        n_ep, k = perms.shape[0], self.flat.shape[0]
-        bs = self._batch_size
-        nb = perms.shape[-1] // bs
-        dev = self.device
-        out = self.spec.out_size
-        losses = torch.empty((n_ep, k, nb), device=dev)
-        vms = torch.empty((n_ep, k, 3), device=dev)
-        corrs = torch.empty((n_ep, k, out, out), device=dev) if out <= 16 else None
-        best_val = torch.full((k,), torch.inf, device=dev)
-        best_flat = self.flat.clone()
-        ls = self.loss_state
-        for e in range(n_ep):
-            order = perms[e].view(k, nb, bs)
-            for b in range(nb):
-                losses[e, :, b] = self._step(data, order[:, b], self.opt, self._lr_t, self._wd_t)
-            with torch.no_grad():
-                pred = N.apply_model(self.spec, self._model, data.val_x)  # (K, nval, out)
-                if data.val_lm is not None:
-                    pred = pred + data.val_lm
-                loss_v = L.chi2_ratio(ls, pred, data.val_std, data.val_mask, data.val_denom)
-                chisq_nn_d = L._masked_chi2(pred - ls.data_std, data.val_mask,
-                                            ls.inv_transformed_cov)
-                vm = L.val_metric_from_terms(loss_v, data.val_denom, chisq_nn_d)
-                vms[e] = vm
-                if corrs is not None:
-                    centered = pred - pred.mean(dim=1, keepdim=True)
-                    c = centered / (torch.sqrt(torch.mean(centered**2, dim=1, keepdim=True)) + 1e-20)
-                    corrs[e] = c.transpose(1, 2) @ c / pred.shape[1]
-                improved = vm[:, 0] < best_val
-                best_val = torch.where(improved, vm[:, 0], best_val)
-                best_flat = torch.where(improved[:, None], self.flat, best_flat)
-        return losses, vms, corrs, best_val, best_flat
+        the device and owned by the caller; the parameters and optimizer
+        state advance in place.  K counts this rank's members.  The chunk
+        runs as :class:`linna_tpu_torch.train_graphs.EpochProgram`: CUDA
+        graphs on a card with no data group, the same bodies eagerly
+        elsewhere."""
+        nb = perms.shape[-1] // self._batch_size
+        return self._epoch_program(data, nb, perms.shape[0])(perms)
 
     def _draw_perms(self, n_epochs: int, n: int) -> torch.Tensor:
         """Each of this rank's members' epoch permutations from its own
         stream, cut to ``nb * bs`` rows (the remainder rows drop that
-        epoch)."""
+        epoch).  On a card they are drawn into pinned host memory and
+        copied with ``non_blocking``; the caching host allocator hands that
+        memory out again only after the copy has run."""
         bs = self._batch_size
         keep = max(n // bs, 1) * bs
-        perms = [
-            torch.stack([torch.randperm(n, generator=self.gens[m])[:keep] for m in self.local])
-            for _ in range(n_epochs)
-        ]
-        return torch.stack(perms).to(self.device)
+        host = torch.empty((n_epochs, len(self.local), min(keep, n)), dtype=torch.int64,
+                           pin_memory=self.device.type == "cuda")
+        for e in range(n_epochs):
+            for j, m in enumerate(self.local):
+                host[e, j] = torch.randperm(n, generator=self.gens[m])[:keep]
+        return host.to(self.device, non_blocking=True)
 
     def _lr_sweep(self, data: _Data, order: np.ndarray, lrs: np.ndarray) -> np.ndarray:
         """The range test's raw loss traces f32[K, num_iter] (as float64):
         every member from its current params with a fresh optimizer, batch
         ``it % nb`` of ``order`` at step ``it``, weight decay 1e-4.  The
         params are restored afterwards.  Every member's traces, on every
-        rank."""
-        bs = self._batch_size
-        nb = max(len(order) // bs, 1)
-        k = self.flat.shape[0]
-        backup = self.flat.clone()
-        opt = adamw_init(self.flat, self.compute_dtype)
-        order_t = torch.as_tensor(order, device=self.device)
-        lrs_t = torch.as_tensor(np.asarray(lrs, np.float32), device=self.device)
-        wd = torch.full((k, 1), 1e-4, device=self.device)
-        raw = torch.empty((k, len(lrs)), device=self.device)
-        for it in range(len(lrs)):
-            b = it % nb
-            idx = order_t[b * bs:(b + 1) * bs].expand(k, bs)
-            raw[:, it] = self._step(data, idx, opt, lrs_t[it].expand(k, 1), wd)
-        with torch.no_grad():
-            self.flat.copy_(backup)
+        rank.  The steps run as :func:`linna_tpu_torch.train_graphs.lr_sweep`:
+        one step graph replayed on a card with no data group."""
+        self.graphs["lr_sweep"] = rec = {}
+        raw = TG.lr_sweep(self, data, order, lrs, adamw_init(self.flat, self.compute_dtype),
+                          self._graphed(), rec)
         return self._gather([raw], [0])[0].astype(np.float64)
 
     # ------------------------------------------------------------------ host
@@ -992,9 +1018,10 @@ class _MemberStack:
         k_members = self.n_members
 
         ps = self.phase_seconds = {
-            "auto_lr": 0.0, "dispatch": 0.0, "wait_fetch": 0.0,
+            "auto_lr": 0.0, "capture": 0.0, "dispatch": 0.0, "wait_fetch": 0.0,
             "supervisor": 0.0, "save": 0.0, "plot": 0.0,
         }
+        self.graphs = {}
         if auto_lr:
             t0 = time.perf_counter()
             self.lrs = self._auto_lr(data)
@@ -1003,8 +1030,14 @@ class _MemberStack:
         if initfrombest:
             for m in range(k_members):
                 self._load_best_member(m)
-        self.opt = adamw_init(self.flat, self.compute_dtype)
+        with torch.no_grad():
+            for t in self.opt:
+                t.zero_()
         self._set_hypers()
+        # this call's chunk program, its graphs captured now on a card
+        t0 = time.perf_counter()
+        self._epoch_program(data, nb, self.epochs_per_dispatch)
+        ps["capture"] += time.perf_counter() - t0
 
         sups = [
             Supervisor(self.lrs[m], self.wds[m], verbose=verbose,
@@ -1061,8 +1094,9 @@ class _MemberStack:
             improved = np.array([sups[m].observe_chunk_best(float(cbv[m])) for m in range(k_members)])
             if improved.any():
                 self.best_val_losses = np.array([s.best_val_loss for s in sups])
-                mask = torch.as_tensor(improved[self.local.start:self.local.stop],
-                                       device=self.device)[:, None]
+                # enqueued behind the speculated chunk, not waiting for it
+                mask = _to_device(torch.as_tensor(improved[self.local.start:self.local.stop]),
+                                  self.device)[:, None]
                 self._best_flat = (
                     best_flat if self._best_flat is None
                     else torch.where(mask, best_flat, self._best_flat)
@@ -1127,6 +1161,8 @@ class _MemberStack:
                 ps["plot"] += time.perf_counter() - t0
 
         self.epochs_run = i
+        self.graphs["epochs"] = self._program.record()
+        self._program = None
         t0 = time.perf_counter()
         self._save(num_epochs - 1, force=True)
         ps["save"] += time.perf_counter() - t0

@@ -8,9 +8,13 @@ import jax
 import numpy as np
 import torch
 
+import jax.numpy as jnp
+
+from linna_tpu import losses as JL
 from linna_tpu import nn as JN
 from linna_tpu import priors as JP
 from linna_tpu import transforms as JT
+from linna_tpu_torch import losses as TL
 from linna_tpu_torch import nn as TN
 from linna_tpu_torch import priors as TP
 from linna_tpu_torch import transforms as TT
@@ -105,3 +109,29 @@ def gauss_log_probs(mean=GAUSS_MEAN, cov=GAUSS_COV):
         return -0.5 * torch.einsum("...i,ij,...j->...", d, ict, d)
 
     return lp_j, lp_t
+
+
+def train_problem(seed=0, ntrain=70, nval=16, ndim=2, ndata=3, model="chto_simple"):
+    """A small training problem: rows of a seeded tanh theory, the JAX
+    transforms and loss state and the port's copies of them."""
+    rng = np.random.default_rng(seed)
+    data = rng.normal(1.0, 0.1, ndata)
+    cov = np.eye(ndata) * 0.01
+    sigma = np.sqrt(np.diag(cov))
+    proj = rng.normal(size=(ndim, ndata))
+
+    def theory(x):
+        return np.tanh(x @ proj) * 0.1 + data
+
+    tx = rng.uniform(-1, 1, (ntrain, ndim))
+    vx = rng.uniform(-1, 1, (nval, ndim))
+    ts_j = JT.TransformSet(
+        JT.fit_x_transform(tx), JT.fit_y_transform(theory(tx) / sigma),
+        JT.YTransformData(jnp.asarray(sigma, jnp.float32)),
+    )
+    ts_t = TT.transforms_from_numpy(ts_j, CPU)
+    return dict(
+        spec=JN.make_model_spec(model, ndim, ndata), tspec=TN.make_model_spec(model, ndim, ndata),
+        ts_j=ts_j, ts_t=ts_t, ls_j=JL.build_loss_state(data, cov, ts_j),
+        ls_t=TL.build_loss_state(data, cov, ts_t), rows=(tx, theory(tx), vx, theory(vx)),
+    )

@@ -326,3 +326,35 @@ def test_phase_rest_rehearsal(tmp_path, monkeypatch):
     assert d["warm"]["nvcc_s"] == 0.0 and d["warm"]["launches"]["fused_log_prob"] == 0
     e = res["10e"]
     assert e["rc"] == 0 and e["verdict"]["pass"] and e["verdict"]["device"] == "cpu"
+
+
+# ------------------------------------------ phase 12, rehearsed at small size
+
+
+def test_phase_train_programs_rehearsal(tmp_path):
+    """Phase 12 on the CPU at 4 -> 8 (hidden 256), 400 / 50 rows and 800 /
+    100 for 12b, minibatches of 50: every case's program against the eager
+    program (both eager here, so bit for bit by construction), the range
+    test, the planted hyper, reinit and reload each dropping a speculated
+    chunk, and no kernel launch or plain call."""
+    res = C.phase_train_programs(torch.device("cpu"), str(tmp_path), ndim=4, ndata=8,
+                                 ntrain=400, nval=50, batch=50, flagship_rows=(800, 100),
+                                 epochs={"12a": 2, "12b": 2, "12c": 2},
+                                 traced={"12a": 1, "12b": 1, "12c": 1})
+    for key, members, rows, dtype in (("12a", 4, 400, "torch.float32"),
+                                      ("12b", 2, 800, "torch.bfloat16"),
+                                      ("12c", 1, 400, "torch.float32")):
+        r = res[key]
+        assert r["bit_for_bit"] and not r["graphed"] and r["graphs"] == 0
+        assert (r["members"], r["rows"], r["compute_dtype"]) == (members, rows, dtype)
+        assert r["minibatches_per_epoch"] == rows // 50 and r["replays_per_epoch"] == 0
+        assert r["pre_model"] == (key == "12c")
+        assert r["graphed_traced"]["device_busy_share"] is None  # no device here
+    assert res["12d"]["bit_for_bit"] and res["12d"]["params_put_back"]
+    e = res["12e"]
+    assert e["bit_for_bit"] and e["speculation"]["graphed"]["dropped"] == 3
+    # each dropped chunk's epochs run once more
+    assert e["graphs"]["epochs"] == C.PLANTED_EPOCHS + 3 * C.PLANTED_CHUNK
+    assert not e["graphs"]["graphed"]
+    assert "capture" in e["phase_s"]["graphed"]
+    assert not any(res["launches"].values()) and not any(res["plain_calls"].values())

@@ -13,45 +13,17 @@ import optax
 import pytest
 import torch
 
-from linna_tpu import losses as JL
+from _torch_parity import train_problem as _problem
 from linna_tpu import nn as JN
 from linna_tpu import train as JTR
-from linna_tpu import transforms as JT
-from linna_tpu_torch import losses as TL
 from linna_tpu_torch import nn as TN
 from linna_tpu_torch import train as TTR
-from linna_tpu_torch import transforms as TT
 
 torch.set_num_threads(1)
 
 # f32 on both sides, differing in summation order only; after a few hundred
 # AdamW steps the parameters agree to about 1e-5 relative
 CHUNK_RTOL = 1e-4
-
-
-def _problem(seed=0, ntrain=70, nval=16, ndim=2, ndata=3, model="chto_simple"):
-    rng = np.random.default_rng(seed)
-    data = rng.normal(1.0, 0.1, ndata)
-    cov = np.eye(ndata) * 0.01
-    sigma = np.sqrt(np.diag(cov))
-    proj = rng.normal(size=(ndim, ndata))
-
-    def theory(x):
-        return np.tanh(x @ proj) * 0.1 + data
-
-    tx = rng.uniform(-1, 1, (ntrain, ndim))
-    vx = rng.uniform(-1, 1, (nval, ndim))
-    ts_j = JT.TransformSet(
-        JT.fit_x_transform(tx), JT.fit_y_transform(theory(tx) / sigma),
-        JT.YTransformData(jnp.asarray(sigma, jnp.float32)),
-    )
-    ts_t = TT.transforms_from_numpy(ts_j, "cpu")
-    spec = JN.make_model_spec(model, ndim, ndata)
-    return dict(
-        spec=spec, tspec=TN.make_model_spec(model, ndim, ndata), ts_j=ts_j, ts_t=ts_t,
-        ls_j=JL.build_loss_state(data, cov, ts_j), ls_t=TL.build_loss_state(data, cov, ts_t),
-        rows=(tx, theory(tx), vx, theory(vx)),
-    )
 
 
 def _jax_params(spec, seed):
