@@ -22,8 +22,10 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    ``fused_log_prob`` at the sampler's 128 and 256 (clusters of 8 blocks,
    and how many the card holds at once).  Both kernels also against their
    plain versions at the LSST-Y10 width (40 -> 1560): ``fused_apply`` at
-   128, 256 and 4096 rows, ``fused_log_prob`` at 128 and 256, where a
-   block's shared memory holds 8 walkers of its cluster, not 16.  Each
+   128, 256 and 4096 rows, ``fused_log_prob`` at 1, 37, 128 and 256 (every
+   row count 13b launches it at), where a block's shared memory holds 8
+   walkers of its cluster, not 16; both timed there too (``fused_log_prob``
+   at 128 and 256), with their bounds at that width.  Each
    kernel's time counts its own device events in torch.profiler and fails
    unless it saw one per launch (shown once on a deliberate mismatch).
    The same 16 rows inside 16-, 128- and 256-row batches (8, 16 and 24
@@ -151,7 +153,22 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    a traced chunk's busy share, replays and kernels an epoch, capture
    seconds, and no launch of either CUDA kernel.  Phases 5, 7, 8 and 10
    train through the graphs too: ``_train`` replays every chunk on a card.
-13. One ``{"kernels": [...]}`` line, the card's name and power limit, and the
+13. The user scripts on the card.  13a: ``examples/walkthrough_torch.py``
+   (the artifact tree; a finite prediction, Jacobian and gradient).  13b:
+   ``bench_full_torch.py`` on the LSST-Y10 class (``examples.lsst_theory``,
+   40 -> 1560) cut to depth, each cut printed: two iterations (zeus, then
+   NUTS), phase 7's epochs and convergence keys, ``nensemble=1`` and
+   ``use_fused=true``, one polish round (``SCRIPT_POLISH``); the counters
+   zeroed before the run and read after it, each iteration's from its
+   ``mcmc`` record in ``trace.json``: ``fused_log_prob`` must launch on
+   both iterations, only at (rows, 40, 1560) shapes phase 3 checked, and
+   the plain versions never run; the gate's value printed, not gated at
+   this depth.  13c:
+   ``examples/nuts_flagship_demo_torch.py`` on 13b's last iteration (ndim
+   40, NUTS) at ``DEMO_STEPS``.  13d: ``bench_exact_posterior_torch.py`` on
+   the DES class for ``EXACT_STEPS`` steps, its moments against the stored
+   ``EXACT_POSTERIOR.json``.
+14. One ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 
 Phase 4's, 6's and 11's weights are random (from a seed); phases 5, 7 and
@@ -185,6 +202,10 @@ BATCHES = (1, 37, 128, 200, 256, 4096)
 # batch it exists for; fused_log_prob where the sampler calls it
 TIMED_ROWS = {"fused_apply": (128, 256, 4096), "fused_log_prob": (128, 256)}
 WIDE_ROWS = {"fused_apply": (128, 256, 4096), "fused_log_prob": (128, 256)}
+# checked against the plain versions at the LSST width: fused_log_prob at
+# every row count 13b's pipeline launches it at (the MAP search's one row,
+# zeus's half-ensemble, NUTS's whole one; 13b fails on any other) and at 37
+WIDE_CHECK_ROWS = {"fused_apply": (128, 256, 4096), "fused_log_prob": (1, 37, 128, 256)}
 REPS = 30
 # phase 5: ml_sampler's training set (orchestrator.py:582-583) and ensemble
 # (:614), depth cut from 4500 epochs to TRAIN_EPOCHS
@@ -298,6 +319,16 @@ TRAIN_PROGRAM_TRACED = {"12a": 3, "12b": 2, "12c": 3}
 FLAGSHIP_ROWS, FLAGSHIP_VAL = 40000, 2000
 PLANTED = {12: "hyper", 27: "reinit", 42: "reload"}
 PLANTED_EPOCHS, PLANTED_CHUNK = 50, 5
+# phase 13: the user scripts.  13b: bench_full_torch.py on the LSST class
+# (40 -> 1560) cut to phase 7's depth, its R-hat polish to one round; 13c:
+# the NUTS demo's step counts (adaptation, warm-up and timed NUTS samples;
+# slice tuning rounds, their steps and the timed slice steps), cut from
+# 100 / 100 / 200 and 10 / 50 / 500; 13d: the exact posterior's length
+SCRIPT_LSST = ("examples.lsst_theory", "examples/lsst_synthetic.yaml")
+SCRIPT_POLISH = {"polish_rounds": 1, "polish_steps": 200}
+DEMO_STEPS = {"m_adapt": 10, "nuts_warmup": 10, "nuts_steps": 20, "tune_rounds": 2,
+              "tune_steps": 20, "slice_steps": 100}
+EXACT_STEPS = 250
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_F32_FLOPS = 67e12  # CUDA cores, no tensor cores
@@ -516,14 +547,18 @@ def kernel_resources(report: str) -> dict:
 
 
 def phase_kernels(device, batches=BATCHES, timed=TIMED_ROWS, ndim=NDIM, ndata=NDATA, wide=WIDE,
-                  wide_rows=WIDE_ROWS):
-    """Each kernel against its plain version; returns per-kernel records."""
+                  wide_rows=WIDE_ROWS, wide_check=WIDE_CHECK_ROWS):
+    """Each kernel against its plain version; returns per-kernel records
+    (``wide["checked"]``: the (rows, in, out) shapes checked at the LSST
+    width)."""
     from linna_tpu_torch import likelihood as LK
     from linna_tpu_torch.ops import fused as F
 
     gen = torch.Generator(device="cpu").manual_seed(7)
     rec = {k: {"abs": 0.0, "rel": 0.0, "ms": {}, "plain_ms": {}, "call_ms": {},
-               "plain_call_ms": {}, "bound": {}, "shape": {}} for k in REPLACES}
+               "plain_call_ms": {}, "bound": {}, "shape": {},
+               "wide": {"ms": {}, "plain_ms": {}, "bound": {}, "shape": {}, "checked": set()}}
+           for k in REPLACES}
 
     def note(kernel, err):
         rec[kernel]["abs"] = max(rec[kernel]["abs"], err["abs"])
@@ -555,24 +590,22 @@ def phase_kernels(device, batches=BATCHES, timed=TIMED_ROWS, ndim=NDIM, ndata=ND
             note("fused_log_prob", compare(lp_k(x), lp_p(x), f"fused_log_prob {case} B={b}"))
 
     # the widest model the repo configures: its launch shape and both kernels
-    spec, params, ts, pack, data, inv_cov = make_problem(device, *wide)
-    lp_k = LK.make_log_prob(spec, params, ts, pack, data, inv_cov,
+    wspec, wparams, ts, pack, data, inv_cov = make_problem(device, *wide)
+    lp_k = LK.make_log_prob(wspec, wparams, ts, pack, data, inv_cov,
                             temperature=TEMPERATURE, use_fused=True, device=device)
-    lp_p = LK.make_log_prob(spec, params, ts, pack, data, inv_cov,
+    lp_p = LK.make_log_prob(wspec, wparams, ts, pack, data, inv_cov,
                             temperature=TEMPERATURE, device=device)
-    wide_fns = {"fused_apply": (lambda x: F.fused_apply(spec, params, x),
-                                lambda x: F.fused_apply_plain(spec, params, x)),
+    wide_fns = {"fused_apply": (lambda x: F.fused_apply(wspec, wparams, x),
+                                lambda x: F.fused_apply_plain(wspec, wparams, x)),
                 "fused_log_prob": (lp_k, lp_p)}
-    wide_shapes = {}
-    for k, rows in wide_rows.items():
+    for k, rows in wide_check.items():
         kern, plain = wide_fns[k]
         for b in rows:
             x = torch.randn((b, wide[0]), generator=gen).to(device)
             note(k, compare(kern(x), plain(x), f"{k} {wide[0]} -> {wide[1]} B={b}"))
-            shape = F.launch_shape(spec, b, k)
-            log(f"  {k} {wide[0]} -> {wide[1]} B={b}: launch shape {shape}")
-            if k == "fused_log_prob":
-                wide_shapes[b] = shape
+            rec[k]["wide"]["checked"].add((b, *wide))
+            rec[k]["wide"]["shape"][b] = F.launch_shape(wspec, b, k)
+            log(f"  {k} {wide[0]} -> {wide[1]} B={b}: launch shape {rec[k]['wide']['shape'][b]}")
 
     # gradients: the kernels' autograd.Functions against plain autograd
     spec, params, ts, pack, data, inv_cov = make_problem(device, ndim, ndata)
@@ -629,6 +662,21 @@ def phase_kernels(device, batches=BATCHES, timed=TIMED_ROWS, ndim=NDIM, ndata=ND
                     f"{bd['f32_cuda_core_ms']:.4f}, 3xTF32 tensor cores "
                     f"{bd['tf32x3_tensor_core_ms']:.4f}, bytes {bd['bytes_ms']:.4f}); "
                     f"launch shape {r['shape'][b]}")
+        # the same at the LSST width, where 13b's pipeline launches fused_log_prob
+        for k, rows in wide_rows.items():
+            kern, plain = wide_fns[k]
+            r = rec[k]["wide"]
+            for b in rows:
+                x = torch.randn((b, wide[0]), generator=gen).to(device)
+                r["ms"][b], _ = device_ms(lambda: kern(x), KERNEL_NAMES[k])
+                r["plain_ms"][b], _ = device_ms(lambda: plain(x))
+                r["bound"][b] = bound_ms(k, wspec, wparams, b)
+                bd = r["bound"][b]
+                log(f"  {k} {wide[0]} -> {wide[1]} B={b}: kernel {r['ms'][b]:.4f} ms, plain "
+                    f"{r['plain_ms'][b]:.4f} ms device; bound {bd['ms']:.4f} ms ({bd['by']}; "
+                    f"f32 CUDA cores {bd['f32_cuda_core_ms']:.4f}, 3xTF32 tensor cores "
+                    f"{bd['tf32x3_tensor_core_ms']:.4f}, bytes {bd['bytes_ms']:.4f})")
+    wide_shapes = rec["fused_log_prob"]["wide"]["shape"]
     for b, shape in [*rec["fused_log_prob"]["shape"].items(), *wide_shapes.items()]:
         if shape["cluster_size"] != 8 or shape["max_active_clusters"] < 1:
             raise AssertionError(f"fused_log_prob B={b}: launch shape {shape}")
@@ -2887,7 +2935,9 @@ def phase_programs(device, ndim=NDIM, ndata=NDATA, nwalkers=NWALKERS, steps=None
     traced chunk of each, replays and launches a step; zeus at each
     condition lag; and the K=4 ensemble's batched likelihood against the
     per-member loop (values, and zeus through the loop eager, batched
-    eager and batched graphed, the graphed one at each condition lag)."""
+    eager and batched graphed, the graphed one at each condition lag); on a
+    card, captures while a dead runner waits for the collector (11f) and
+    chunks shorter than the warm-up (11g)."""
     from linna_tpu_torch import likelihood as LK
     from linna_tpu_torch import nn as N
     from linna_tpu_torch.samplers import graphs as G
@@ -2968,6 +3018,71 @@ def phase_programs(device, ndim=NDIM, ndata=NDATA, nwalkers=NWALKERS, steps=None
         k4.update(_lag_sweep(runs["batched_graphed"], state, k4_steps, g0, device, lags))
     log(f"  11 K={nensemble}: {json.dumps(k4, default=float)}")
     res["k4"] = k4
+    if on_card:
+        res["collector"] = _collector_check(lp, x0, device)
+        res["small_chunks"] = _small_chunks(lp, x0, device)
+    return res
+
+
+def _small_chunks(lp, x0, device, capacities=(1, 2)) -> dict:
+    """11g: each method's graphs for chunks of fewer steps than the
+    warm-up's runs of a step before its capture (``graphs.WARMUP``), a
+    chunk of each against the eager one, bit for bit."""
+    from linna_tpu_torch.samplers import graphs as G
+
+    res = {}
+    for method in ("emcee", "zeus", "hmc", "nuts"):
+        for cap in capacities:
+            state = _programs_init(method, lp, x0, device)
+            g0 = state.rng.get_state()
+            runner = G.graphed_chunks(method, lp, state, cap, **PROGRAM_OPTIONS)
+            before = runner.record()
+            graphed = _chunk_run(runner, state, cap, g0, device)
+            calls = runner.record()["calls"] - before["calls"]
+            one = _chunk_run(_eager_chunk(method, lp), state, cap, g0, device)
+            res[f"{method}_{cap}"] = _held(graphed, one, f"11g {method}, {cap}-step chunks",
+                                           calls)["bit_for_bit"]
+    return res
+
+
+def _collector_check(lp, x0, device, trials=3) -> dict:
+    """11f: zeus's graphs captured while a runner nobody holds waits for the
+    collector, whose thresholds are (1, 1, 1) so that it would run inside
+    the captures: freeing that runner inside a capture destroys its graphs
+    there and invalidates the capture.  No collection may start while a
+    stream captures, and every capture must succeed.  The runners hold
+    chunks of 2 steps, fewer than the warm-up's runs of a step before its
+    capture (``graphs.WARMUP``)."""
+    import gc
+
+    from linna_tpu_torch.samplers import graphs as G
+
+    seen = {"collections": 0, "in_capture": 0}
+
+    def count(phase, info):
+        if phase == "start":
+            seen["collections"] += 1
+            seen["in_capture"] += torch.cuda.is_current_stream_capturing()
+
+    thresholds = gc.get_threshold()
+    gc.callbacks.append(count)
+    try:
+        for trial in range(trials):
+            dead = G.graphed_chunks("zeus", lp, _programs_init("zeus", lp, x0, device), 2,
+                                    **PROGRAM_OPTIONS)
+            del dead
+            gc.set_threshold(1, 1, 1)
+            G.graphed_chunks("zeus", lp, _programs_init("zeus", lp, x0, device), 2,
+                             **PROGRAM_OPTIONS)
+            gc.set_threshold(*thresholds)
+    finally:
+        gc.set_threshold(*thresholds)
+        gc.callbacks.remove(count)
+    res = {"trials": trials, **seen}
+    log(f"  11f: captures with a dead runner pending, collector at (1, 1, 1): "
+        f"{json.dumps(res)}")
+    if seen["in_capture"]:
+        raise AssertionError(f"11f: {seen['in_capture']} collections started inside a capture")
     return res
 
 
@@ -3251,6 +3366,144 @@ def phase_train_programs(device, outdir, ndim=NDIM, ndata=NDATA, ntrain=NTRAIN, 
     return res
 
 
+# ------------------------------------------------ phase 13: the user scripts
+
+
+def unchecked_shapes(shapes, checked) -> list:
+    """The shapes in ``shapes`` missing from ``checked`` (none when
+    ``checked`` is None)."""
+    return [] if checked is None else [sh for sh in shapes if sh not in checked]
+
+
+def script_cuts(config_yaml, n_iter, epochs, overrides=None):
+    """``config_yaml`` cut to depth for ``bench_full_torch.main``: its first
+    ``n_iter`` iterations (zeus, then NUTS at T = 4, then 1), ``epochs``
+    epochs and phase 7's convergence keys, one emulator through
+    ``fused_log_prob``; ``overrides`` applied last.  Returns (overrides,
+    the cuts as printed)."""
+    from linna_tpu_torch.config import yaml_load
+
+    params = yaml_load(os.path.join(ROOT, config_yaml), os.path.join(ROOT, "examples"))
+    inf = [float("inf")] * n_iter
+    cut = {k: params[k][:n_iter] for k in ("ntrainArr", "nvalArr", "nkeepArr")}
+    cut.update(methodArr=["zeus", "nuts"][:n_iter], temperatureArr=[4.0, 1.0][:n_iter],
+               num_epochs=epochs, ntimesArr=[0] * n_iter, ntautolArr=inf, meanshiftArr=inf,
+               stdshiftArr=inf, nensemble=1, use_fused=True)
+    cuts = {k: f"{params.get(k)} -> {v}" for k, v in cut.items()}
+    cut.update(overrides or {})
+    cuts.update({k: f"-> {v}" for k, v in (overrides or {}).items() if k not in cuts})
+    return cut, cuts
+
+
+def phase_scripts(device, outdir, lsst=SCRIPT_LSST, epochs=DRIVER_EPOCHS, lsst_overrides=None,
+                  exact_path=None, polish=SCRIPT_POLISH, demo_steps=DEMO_STEPS,
+                  exact_mod="examples.des_theory", exact_steps=EXACT_STEPS, exact_yaml=None,
+                  stored_path=None, checked=None) -> dict:
+    """Phase 13: the user scripts through the port.  13a the walkthrough;
+    13b ``bench_full_torch.main`` on the LSST class cut to depth with one
+    emulator through ``fused_log_prob`` (launched on every iteration, the
+    plain versions never, and only at shapes in ``checked``, the (rows, in,
+    out) shapes phase 3 held against the plain version); 13c the NUTS demo
+    on 13b's last iteration; 13d ``bench_exact_posterior_torch.main`` at a
+    short length against the stored exact posterior.  Each script's
+    launches are counted from 0; 13b's iterations' from their ``mcmc``
+    records in ``trace.json``.  The keywords let a CPU rehearsal run it at
+    a small size (there the plain version stands in for the kernel)."""
+    import bench_exact_posterior_torch as E
+    import bench_full_torch as B
+    from examples import nuts_flagship_demo_torch as D
+    from examples import walkthrough_torch as W
+    from linna_tpu_torch.ops import fused as F
+
+    res: dict = {}
+    card = device.type == "cuda"
+
+    log("  13a: examples/walkthrough_torch.py")
+    t0 = time.perf_counter()
+    F.reset_counts()
+    walk_dir = os.path.join(outdir, "walkthrough")
+    w = W.main(walk_dir, device=device)
+    res["13a"] = {"seconds": time.perf_counter() - t0, "counts": _launch_counts(),
+                  "chain": list(w["chain"].shape)}
+    missing = [f"iter_{i}/{f}" for i in range(2)
+               for f in iteration_missing(os.path.join(walk_dir, f"iter_{i}"), 1, chain=True)]
+    bad = [k for k in ("pred", "jac", "grad") if not np.isfinite(w[k]).all()]
+    if missing or bad or w["jac"].shape != (2, 2):
+        raise AssertionError(f"13a: missing {missing}, not finite {bad}, jacobian "
+                             f"{w['jac'].shape}")
+    log(f"  13a: {json.dumps(res['13a'])}")
+
+    log("  13b: bench_full_torch.py on the LSST class, cut to depth")
+    theory_mod, config_yaml = lsst
+    overrides, cuts = script_cuts(config_yaml, 2, epochs, lsst_overrides)
+    cuts.update({k: f"{getattr(B, k.upper())} -> {v}" for k, v in polish.items()})
+    log(f"  13b: {config_yaml} cut to depth: {json.dumps(cuts)}")
+    run_dir = os.path.join(outdir, "lsst")
+    F.reset_counts()
+    t0 = time.perf_counter()
+    result = B.main(overrides=overrides, theory_mod=theory_mod, config_yaml=config_yaml,
+                    device=device, exact_path=exact_path, outdir=os.path.join(run_dir, "run"),
+                    indir=os.path.join(run_dir, "inputs"), **polish)
+    counts = _launch_counts()
+    # the card launches the kernel; the CPU runs its plain version in its place
+    ran, idle = ("launches", "plain_calls") if card else ("plain_calls", "launches")
+    shapes = sorted((F.launch_shapes if card else F.plain_shapes)["fused_log_prob"])
+    with open(os.path.join(run_dir, "run", "trace.json")) as f:
+        by_iteration = [{"iteration": r["iteration"], "method": r["method"], **r["kernels"]}
+                        for r in json.load(f) if r["phase"] == "mcmc"]
+    res["13b"] = {"seconds": time.perf_counter() - t0, "cuts": cuts, "result": result,
+                  "counts": counts, "by_iteration": by_iteration,
+                  # the precompile warm-up's launches and the polish's
+                  "outside_iterations": {kind: {k: v - sum(r[kind][k] for r in by_iteration)
+                                    for k, v in counts[kind].items()} for kind in counts},
+                  "shapes": shapes}
+    log(f"  13b: {json.dumps(res['13b'])}")
+    if [r["iteration"] for r in by_iteration] != [0, 1] or any(
+            r[ran]["fused_log_prob"] == 0 for r in by_iteration):
+        raise AssertionError(f"13b: fused_log_prob's {ran} by iteration {by_iteration}: "
+                             "each iteration must reach it")
+    if any(counts[idle].values()):
+        raise AssertionError(f"13b: {idle} {counts[idle]} on the LSST pipeline")
+    unchecked = unchecked_shapes(shapes, checked)
+    if unchecked:
+        raise AssertionError(f"13b: fused_log_prob ran at (rows, in, out) {unchecked}, "
+                             f"which phase 3 never held against its plain version")
+    if "max_emulator_bias_sigma" not in result:
+        raise AssertionError("13b: no exact posterior to hold the chain against")
+    log(f"  13b: the gate's value at this depth (printed, not gated): max emulator bias "
+        f"{result['max_emulator_bias_sigma']} sigma, median "
+        f"{result['median_emulator_bias_sigma']}; split R-hat {result['max_split_rhat']} "
+        f"after {result['polish_rounds']} polish rounds")
+
+    log("  13c: examples/nuts_flagship_demo_torch.py on 13b's last iteration")
+    F.reset_counts()
+    t0 = time.perf_counter()
+    ndim = result["ndim"]
+    demo = D.main(os.path.join(run_dir, "run", "iter_1"), os.path.join(run_dir, "inputs"),
+                  ndim=ndim, method="nuts", device=device, **demo_steps)
+    res["13c"] = {"seconds": time.perf_counter() - t0, "steps": demo_steps, "demo": demo,
+                  "counts": _launch_counts()}
+    log(f"  13c: {json.dumps(res['13c'], default=float)}")
+    if not all(np.isfinite(demo[k]) for k in ("tau_nuts_max", "tau_slice_max",
+                                               "ess_per_s_nuts", "ess_per_s_slice",
+                                               "agree_sigma")):
+        raise AssertionError(f"13c: {demo}")
+
+    log("  13d: bench_exact_posterior_torch.py at a short length")
+    F.reset_counts()
+    t0 = time.perf_counter()
+    exact = E.main(n_steps=exact_steps, theory_mod=exact_mod, device=device,
+                   outdir=os.path.join(outdir, "exact"), config_yaml=exact_yaml,
+                   stored_path=stored_path)
+    res["13d"] = {"seconds": time.perf_counter() - t0, "n_steps": exact["n_steps"],
+                  "against_stored": exact["against_stored"], "counts": _launch_counts()}
+    log(f"  13d: {json.dumps(res['13d'])}")
+    if not (np.isfinite(exact["exact_mean"]).all() and np.all(np.array(exact["exact_std"]) > 0)):
+        raise AssertionError(f"13d: exact moments {exact}")
+    _no_kernel(res["13d"]["counts"], "13d (the exact theory)")
+    return res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--data-parallel-rank"]:
         return dp_rank(sys.argv[2], sys.argv[3])
@@ -3404,7 +3657,19 @@ def main() -> int:
     seconds[12] = time.perf_counter() - t0
     log(f"  phase 12: {seconds[12]:.1f} s")
 
-    log(f"== 13. result (phase seconds {json.dumps(seconds)})")
+    log("== 13. the user scripts: the walkthrough, the LSST gate through fused_log_prob, "
+        "the NUTS demo, the exact posterior")
+    t0 = time.perf_counter()
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    try:
+        scripts = phase_scripts(device, RUN_DIR,
+                                checked=rec["fused_log_prob"]["wide"]["checked"])
+    finally:
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
+    seconds[13] = time.perf_counter() - t0
+    log(f"  phase 13: {seconds[13]:.1f} s")
+
+    log(f"== 14. result (phase seconds {json.dumps(seconds)})")
     kernels = []
     for k in REPLACES:
         r = rec[k]
@@ -3436,6 +3701,13 @@ def main() -> int:
                     m: r["launches_per_step"] if k == "fused_log_prob" else 0
                     for m, r in programs["methods"].items()},
                 "training_programs": train_programs["launches"][k],
+                # iteration 0 (zeus), 1 (NUTS), then the warm-up and the polish
+                "lsst_pipeline": [[f"iter_{r['iteration']}", r["method"], r["launches"][k]]
+                                  for r in scripts["13b"]["by_iteration"]]
+                + [["warm-up and polish", None,
+                    scripts["13b"]["outside_iterations"]["launches"][k]]],
+                "walkthrough": scripts["13a"]["counts"]["launches"][k],
+                "nuts_demo": scripts["13c"]["counts"]["launches"][k],
             },
             "max_abs_err": r["abs"],
             "max_rel_err": r["rel"],
@@ -3454,6 +3726,10 @@ def main() -> int:
             "call_ms_by_rows": r["call_ms"],
             "plain_call_ms_by_rows": r["plain_call_ms"],
             "launch_shape_by_rows": r["shape"],
+            "lsst_ms_by_rows": r["wide"]["ms"],
+            "lsst_plain_ms_by_rows": r["wide"]["plain_ms"],
+            "lsst_bound_by_rows": r["wide"]["bound"],
+            "lsst_launch_shape_by_rows": r["wide"]["shape"],
             **({"row_dependence": r["row_dependence"]} if "row_dependence" in r else {}),
             **resources.get(k, {}),
             "check": "pass",

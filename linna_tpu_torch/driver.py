@@ -50,6 +50,7 @@ __all__ = [
     "align_mask",
     "priors_and_init_from_config",
     "resolve_theory",
+    "external_loglike_from_config",
     "run_from_config",
     "main",
 ]
@@ -222,6 +223,19 @@ def _load_data_cov(params: dict):
     return data, cov, mask, None
 
 
+def external_loglike_from_config(params: dict) -> Optional[ExternalLogLike]:
+    """The sum of the config's ``external_likelihoods`` (``module:factory``
+    entries, each called with ``params``), or None without any."""
+    ext_spec = params.get("external_likelihoods")
+    if not ext_spec:
+        return None
+    likes = []
+    for item in ext_spec:
+        mod_name, _, attr = item.partition(":")
+        likes.append(getattr(importlib.import_module(mod_name), attr)(params))
+    return ExternalLogLike(likes)
+
+
 def run_from_config(
     params: dict,
     method: str = "zeus",
@@ -245,14 +259,7 @@ def run_from_config(
     if tmat is not None:
         theory = CompressedModel(theory, tmat)
 
-    external = None
-    ext_spec = params.get("external_likelihoods")
-    if ext_spec:
-        likes = []
-        for item in ext_spec:
-            mod_name, _, attr = item.partition(":")
-            likes.append(getattr(importlib.import_module(mod_name), attr)(params))
-        external = ExternalLogLike(likes)
+    external = external_loglike_from_config(params)
 
     if pool is not None and not pool.is_master():
         pool.wait()

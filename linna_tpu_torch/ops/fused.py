@@ -21,7 +21,8 @@ Each wrapper launches its kernel for a CUDA tensor and raises if the build or
 the launch fails; for a CPU tensor it runs the plain PyTorch version beside
 it (``fused_apply_plain``, ``fused_log_prob_plain``).  ``launches`` counts
 kernel launches and ``plain_calls`` plain-version calls, so a run can show
-which one its main path took.  Gradients recompute the plain composition
+which one its main path took; ``launch_shapes`` and ``plain_shapes`` hold
+the shapes they ran at.  Gradients recompute the plain composition
 under autograd (``torch.autograd.Function``), as the JAX custom VJPs do.
 """
 
@@ -52,6 +53,8 @@ __all__ = [
     "launch_shape",
     "launches",
     "plain_calls",
+    "launch_shapes",
+    "plain_shapes",
     "reset_counts",
 ]
 
@@ -66,12 +69,19 @@ NVCC_FLAGS = (
 # (linna_tpu_torch.samplers.graphs.LaunchLedger)
 launches: Dict[str, int] = {"fused_apply": 0, "fused_log_prob": 0}
 plain_calls: Dict[str, int] = {"fused_apply": 0, "fused_log_prob": 0}
+# the shapes each ran at, (rows, in width, out width); a graph's replays run
+# the shapes of its capture, so the sets are whole without them
+launch_shapes: Dict[str, set] = {"fused_apply": set(), "fused_log_prob": set()}
+plain_shapes: Dict[str, set] = {"fused_apply": set(), "fused_log_prob": set()}
 
 
 def reset_counts() -> None:
     for d in (launches, plain_calls):
         for k in d:
             d[k] = 0
+    for d in (launch_shapes, plain_shapes):
+        for k in d:
+            d[k].clear()
 
 
 # ------------------------------------------------------------------ build
@@ -329,6 +339,7 @@ def fused_apply_plain(spec: N.ModelSpec, params, x: torch.Tensor) -> torch.Tenso
     """Plain PyTorch version of the ``fused_apply`` kernel."""
     _reject_bypass(spec, "fused kernels do", "nn.apply_model (the XLA path)")
     plain_calls["fused_apply"] += 1
+    plain_shapes["fused_apply"].add((x.shape[0], spec.in_size, spec.out_size))
     return _trunk_plain(x.to(torch.float32), _flatten_params(params))
 
 
@@ -351,6 +362,7 @@ def _launch_apply(spec: N.ModelSpec, x: torch.Tensor, weights) -> torch.Tensor:
         )
     _check(err, "fused_apply")
     launches["fused_apply"] += 1
+    launch_shapes["fused_apply"].add((x.shape[0], spec.in_size, spec.out_size))
     return out
 
 
@@ -397,6 +409,7 @@ def fused_log_prob_plain(spec: N.ModelSpec, x: torch.Tensor, env, ypositive: boo
     """Plain PyTorch version of the ``fused_log_prob`` kernel: the seven
     steps of the kernel on an env of :func:`likelihood.make_log_prob`."""
     plain_calls["fused_log_prob"] += 1
+    plain_shapes["fused_log_prob"].add((x.shape[0], spec.in_size, spec.out_size))
     is_gauss, a1, a2, xm, xs, xl, ym, ys, sg, data, ic, temp = _like_tensors(env)
     xw = x.to(torch.float32)
     u = 0.5 * (1.0 + torch.special.erf(xw / 1.4142135623730951))
@@ -459,6 +472,7 @@ def _launch_log_prob(spec: N.ModelSpec, x: torch.Tensor, env, ypositive: bool,
         )
     _check(err, "fused_log_prob")
     launches["fused_log_prob"] += 1
+    launch_shapes["fused_log_prob"].add((x.shape[0], spec.in_size, spec.out_size))
     return lp
 
 

@@ -70,6 +70,7 @@ __all__ = [
     "retrieve_model_exist",
     "retrieve_model_wrapper",
     "retrieve_ensemble_params",
+    "iteration_log_prob",
     "read_chain_and_cut",
     "get_good_walker_list",
 ]
@@ -296,6 +297,59 @@ def retrieve_model_wrapper(
         return out[0] if one else out
 
     return emulator
+
+
+def iteration_log_prob(
+    outdir_in: str,
+    priors: Sequence[dict],
+    data: np.ndarray,
+    inv_cov: np.ndarray,
+    temperature: float,
+    nnmodel_in: str = "chto_v2",
+    params: Optional[dict] = None,
+    loglike_fn: Optional[Callable] = None,
+    external_loglike: Optional[Callable] = None,
+    device: DeviceLike = None,
+):
+    """The likelihood :func:`ml_sampler_core` samples an iteration with: the
+    emulator members trained under ``outdir_in``, ``priors``, the squared
+    ``temperature`` and ``params``' ``use_fused`` and ``compute_dtype``.
+    A checkpoint trained with more parameters or outputs than ``priors``
+    and ``data`` gets flat [-1, 1] priors for its extra inputs and its
+    predictions cut to the data width.  Returns (log_prob, the priors pack
+    the walkers take, their dimension)."""
+    params = params or {}
+    ndim = len(priors)
+    in_saved, out_saved = _saved_shapes(outdir_in)
+    out_cut = len(data) if out_saved != len(data) else None
+    if in_saved == ndim and out_cut is None:
+        model = retrieve_model(outdir_in, ndim, len(data), nnmodel_in, device=device)
+        ndim_run = ndim
+    else:
+        model, ndim_run, _ = retrieve_model_exist(outdir_in, ndim, len(data), nnmodel_in,
+                                                  device=device)
+    priors_run = list(priors) + [
+        {"dist": "flat", "arg1": -1, "arg2": 1} for _ in range(ndim_run - ndim)
+    ]
+    pack_run = P.priors_from_list(priors_run, device)
+    members = retrieve_ensemble_params(outdir_in, model)
+    log_prob = LK.make_log_prob(
+        model.spec,
+        members if len(members) > 1 else model.params,
+        model.transforms,
+        pack_run,
+        data,
+        inv_cov,
+        temperature=temperature,
+        loglike_fn=loglike_fn,
+        external_loglike=external_loglike,
+        use_fused=bool(params.get("use_fused")),
+        compute_dtype=params.get("compute_dtype"),
+        out_cut=out_cut,
+        linearmodel=model.linearmodel,
+        device=device,
+    )
+    return log_prob, pack_run, ndim_run
 
 
 # ------------------------------------------------------------------- training
@@ -716,40 +770,11 @@ def ml_sampler_core(
         if MH.primary_flag(MH.is_primary() and _open_backend(chain_path, methods[i]).exists()
                            and not _chain_incomplete(chain_path, methods[i])):
             continue
-        in_saved, out_saved = _saved_shapes(outdir_in)
-        out_cut = len(data) if out_saved != len(data) else None
-        if in_saved == ndim and out_cut is None:
-            model = retrieve_model(outdir_in, ndim, len(data), nnmodel_in, device=device)
-            pack_run, ndim_run, init_run = pack, ndim, init_white
-        else:
-            # a checkpoint trained with more parameters or outputs: walkers
-            # get flat [-1, 1] priors for the extra inputs, and predictions
-            # are cut to the data width
-            model, incut, _ = retrieve_model_exist(outdir_in, ndim, len(data), nnmodel_in,
-                                                   device=device)
-            priors_new = list(priors) + [
-                {"dist": "flat", "arg1": -1, "arg2": 1} for _ in range(incut - ndim)
-            ]
-            pack_run = P.priors_from_list(priors_new, device)
-            ndim_run = incut
-            init_run = np.concatenate([init_white, np.zeros(incut - ndim)])
-        params_lp = retrieve_ensemble_params(outdir_in, model)
-        log_prob = LK.make_log_prob(
-            model.spec,
-            params_lp if len(params_lp) > 1 else model.params,
-            model.transforms,
-            pack_run,
-            data,
-            inv_cov,
-            temperature=temperature,
-            loglike_fn=loglikelihoodfunc,
-            external_loglike=externalloglike,
-            use_fused=bool(params.get("use_fused")),
-            compute_dtype=params.get("compute_dtype"),
-            out_cut=out_cut,
-            linearmodel=model.linearmodel,
-            device=device,
+        log_prob, pack_run, ndim_run = iteration_log_prob(
+            outdir_in, priors, data, inv_cov, temperature, nnmodel_in, params,
+            loglike_fn=loglikelihoodfunc, external_loglike=externalloglike, device=device,
         )
+        init_run = np.concatenate([init_white, np.zeros(ndim_run - ndim)])
         jitter = 0.1 if methods[i] == "emcee" else 0.001
         x0 = init_run + jitter * rng.standard_normal((nwalkers, ndim_run))
         with timer.phase("mcmc", iteration=i, method=methods[i]) as mrec, \

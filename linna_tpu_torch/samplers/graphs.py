@@ -39,6 +39,7 @@ takes back what a capture counted and adds it on every replay.
 from __future__ import annotations
 
 import contextlib
+import gc
 from typing import Callable, Dict, Iterable, List, Sequence
 
 import torch
@@ -46,7 +47,7 @@ import torch
 from ..ops import fused
 from . import hmc, slicemove, stretch
 
-__all__ = ["LaunchLedger", "StepGraph", "graphed_chunks", "WARMUP"]
+__all__ = ["LaunchLedger", "StepGraph", "collector_paused", "graphed_chunks", "WARMUP"]
 
 # eager runs of a step on a side stream before its capture: they create
 # cuBLAS's workspace and the autograd engine's state on the stream, and
@@ -77,6 +78,25 @@ class LaunchLedger:
         for c, per in zip(self.counters, self.per_replay):
             for k, v in per.items():
                 c[k] += n * v
+
+
+@contextlib.contextmanager
+def collector_paused():
+    """Python's cyclic garbage collector off inside, as it was outside.
+
+    A runner nobody holds any more lives on in a cycle (its graphs' step
+    functions hold it) until the collector frees it, and freeing it
+    destroys its CUDA graphs.  That destruction is a CUDA call a capture
+    forbids: run by a collection that happens to start inside a capture,
+    it invalidates the capture (``cudaErrorStreamCaptureInvalidated`` at
+    its end)."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class StepGraph:
@@ -111,8 +131,8 @@ class StepGraph:
         self.ledger = LaunchLedger(fused.launches, fused.plain_calls)
         # thread_local: the kernel warm-up thread (parallel/precompile) may
         # still be running
-        with self.ledger.capturing(), torch.cuda.graph(self.graph, pool=pool,
-                                                       capture_error_mode="thread_local"):
+        with self.ledger.capturing(), collector_paused(), \
+                torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
             fn()
         self.replays = 0
 
@@ -135,6 +155,9 @@ class _Chunks:
         self.w, self.d = coords.shape
         self.dev = coords.device
         self.capacity = int(capacity)
+        # the per-step buffers' rows: each warm-up run of a step before its
+        # capture advances the step counter, so they hold WARMUP rows at least
+        self.rows = max(self.capacity, WARMUP)
         self.g = state.rng
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: List[StepGraph] = []
@@ -162,7 +185,7 @@ class _Chunks:
             raise ValueError(f"{nsteps} steps; the graphs hold {self.capacity}")
 
     def row(self, t: torch.Tensor) -> torch.Tensor:
-        """This step's row of a ``(capacity, ...)`` buffer."""
+        """This step's row of a ``(rows, ...)`` buffer."""
         return t.index_select(0, self.step)[0]
 
     def write_row(self, buf: torch.Tensor, value: torch.Tensor) -> None:
@@ -184,7 +207,7 @@ class _Chunks:
 class _StretchChunks(_Chunks):
     def __init__(self, log_prob_fn, state, capacity: int, a: float):
         super().__init__(state, capacity)
-        hl, n = self.w // 2, self.capacity
+        hl, n = self.w // 2, self.rows
         self.c2, self.lp2 = self.zeros(2, hl, self.d), self.zeros(2, hl)
         self.acc2 = self.zeros(2, hl, dtype=torch.int32)
         self.draws = (self.zeros(n, 2, hl, dtype=torch.int64), self.zeros(n, 2, hl),
@@ -229,8 +252,8 @@ class _StateChunks(_Chunks):
         self.cls = type(state)
         self.fields = [n for n in state._fields if n != "rng"]
         self.bufs = {n: torch.zeros_like(getattr(state, n)) for n in self.fields}
-        self.chain = self.zeros(self.capacity, self.w, self.d)
-        self.lps = self.zeros(self.capacity, self.w)
+        self.chain = self.zeros(self.rows, self.w, self.d)
+        self.lps = self.zeros(self.rows, self.w)
         draws = hmc._Draws(self.g, self.w)
         inv_mass, sqrt_mass = hmc._mass(1.0, self.d, self.dev)
 
@@ -285,7 +308,7 @@ class _SliceChunks(_Chunks):
 
     def __init__(self, log_prob_fn, state, capacity: int, max_steps: int):
         super().__init__(state, capacity)
-        hl, n, d = self.w // 2, self.capacity, self.d
+        hl, n, d = self.w // 2, self.rows, self.d
         self.max_steps = int(max_steps)
         self.c2, self.lp2 = self.zeros(2, hl, d), self.zeros(2, hl)
         self.nx, self.nlp = self.zeros(2, hl, d), self.zeros(2, hl)

@@ -9,7 +9,13 @@ approximately unit-mass space.  Walker starts are drawn ~ N(0, 1) in that
 space.
 
 The Hessian is ``torch.func.hessian`` of one row at the MAP in float32; it
-is symmetrized and decomposed with ``eigh`` in float64.  It always goes
+is symmetrized and decomposed with ``eigh`` in float64.  For a K-member
+ensemble likelihood it is the Hessian of the members' mean chi^2
+(``ensemble_k_std`` set to 0), where the JAX package takes the ensemble's
+mean + std: the MAP search often ends on the kink between two members'
+chi^2, and the std's second derivatives there are f32 rounding noise that
+can hand NUTS a direction of negative curvature (unit scale) and a tiny
+step.  The MAP search and the sampled posterior stay the reference's.  It always goes
 through the likelihood's plain composition: the CUDA kernel's
 ``autograd.Function`` has no forward-mode or vmap rule, so ``torch.func``
 cannot trace it.  The MAP search itself calls the likelihood as the sampler
@@ -78,7 +84,8 @@ def calc_hess_mass_mat(
     """MAP search from ``x0`` and the Hessian's eigendecomposition there.
     The likelihood's tensors set the device (``device`` when it has none).
     ``log_prob_fn._plain_pure``, where the likelihood has one (the kernel's
-    plain composition), gives the Hessian."""
+    plain composition), gives the Hessian, with the ensemble's std term
+    left out (see the module docstring)."""
     from scipy import optimize
 
     dev = _env_device(log_prob_fn, device)
@@ -107,6 +114,13 @@ def calc_hess_mass_mat(
     plain = getattr(log_prob_fn, "_plain_pure", None) or getattr(log_prob_fn, "_pure", None)
     if plain is not None:
         env = log_prob_fn._env
+        if "k_std" in env:
+            # an ensemble's chi^2_eff = mean + k_std * std is the larger
+            # member's at K=2, and the MAP often sits on the kink c_1 = c_2,
+            # where the std's f32 second derivatives are rounding noise of
+            # size |grad(c_1 - c_2)|^2 / |c_1 - c_2|: the members' mean
+            # chi^2 gives the curvature
+            env = {**env, "k_std": torch.zeros_like(env["k_std"])}
         single = lambda x: -plain(x[None, :], env)[0]
     else:
         single = lambda x: -log_prob_fn(x[None, :])[0]

@@ -64,6 +64,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..ops import fused
 from ..parallel import mesh as ME
 from ..parallel import multihost as MH
 from . import backends, convergence, graphs, hmc, precondition, slicemove, stretch
@@ -176,9 +177,11 @@ def run_ensemble(
     no tau/stationarity evaluation.  ``trace_rec``: optional dict receiving
     this call's wall-time breakdown (the MAP search under ``precond``, the
     graphs' capture under ``capture``, the sampling loop without the
-    capture under ``loop``), step count, and on a card the graphs' replays
-    and likelihood calls (``graphs``).  ``shard_walkers``: over several ranks, each advances its
-    block of walkers when ``nwalkers`` divides into two blocks per rank.
+    capture under ``loop``), step count, the kernels' launches and plain
+    versions' calls this call made (``kernels``), and on a card the graphs'
+    replays and likelihood calls (``graphs``).  ``shard_walkers``: over
+    several ranks, each advances its block of walkers when ``nwalkers``
+    divides into two blocks per rank.
     """
     if method not in _STATE_CLS:
         raise NotImplementedError(method)
@@ -186,6 +189,7 @@ def run_ensemble(
     ps = {"precond": 0.0, "init": 0.0, "setup": 0.0, "capture": 0.0, "dispatch": 0.0,
           "device_wait": 0.0, "host": 0.0, "tau_checks": 0.0, "loop": 0.0}
     t_setup0 = time.perf_counter()
+    counts0 = {"launches": dict(fused.launches), "plain_calls": dict(fused.plain_calls)}
     if not tau_walkers or tau_walkers <= 0:
         tau_walkers = None
     primary = MH.is_primary()
@@ -474,6 +478,10 @@ def run_ensemble(
         if trace_rec is not None:
             trace_rec["sampler"] = {k: round(v, 3) for k, v in ps.items()}
             trace_rec["steps_run"] = int(iteration)
+            trace_rec["kernels"] = {
+                kind: {k: now[k] - counts0[kind][k] for k in now}
+                for kind, now in (("launches", fused.launches),
+                                  ("plain_calls", fused.plain_calls))}
 
     ps["setup"] = (time.perf_counter() - t_setup0 - ps["precond"] - ps["init"]
                    - ps["capture"])

@@ -358,3 +358,55 @@ def test_phase_train_programs_rehearsal(tmp_path):
     assert not e["graphs"]["graphed"]
     assert "capture" in e["phase_s"]["graphed"]
     assert not any(res["launches"].values()) and not any(res["plain_calls"].values())
+
+
+# ------------------------------------------------ phase 13, rehearsed at small size
+
+
+def test_phase_scripts_rehearsal(tmp_path, monkeypatch):
+    """Phase 13 on the CPU: the walkthrough; ``bench_full_torch.main`` on
+    des_synthetic.yaml with the phase's cuts (two iterations, one emulator
+    with ``use_fused``) on the 3 -> 12 theory of ``tests/_torch_tiny_theory.py``,
+    where the kernel's plain version runs on every iteration in its place;
+    the NUTS demo on its last iteration; and the exact posterior of the same
+    theory against a stand-in stored file."""
+    import json
+
+    import yaml
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    priors = [{"param": f"p{i}", "dist": "flat", "arg1": -1.0, "arg2": 1.0} for i in range(3)]
+    stored = tmp_path / "exact.json"
+    stored.write_text(json.dumps({"exact_mean": [0.05] * 3, "exact_std": [0.5] * 3,
+                                  "split_half_mc_err_sigma_max": 0.01, "n_steps": 250}))
+    cfg = tmp_path / "tiny.yaml"
+    cfg.write_text(yaml.safe_dump({"sampled_params": priors}))
+    overrides = {"theory": "_torch_tiny_theory:make_theory", "nwalkers": 8,
+                 "ntrainArr": [40, 40], "nvalArr": [10, 10], "batch_size": 20,
+                 "sampled_params": priors}
+    demo = {"m_adapt": 4, "nuts_warmup": 4, "nuts_steps": 8, "tune_rounds": 1,
+            "tune_steps": 10, "slice_steps": 20}
+    res = C.phase_scripts(torch.device("cpu"), str(tmp_path / "p13"),
+                          lsst=("_torch_tiny_theory", "examples/des_synthetic.yaml"), epochs=4,
+                          lsst_overrides=overrides, exact_path=str(stored),
+                          polish={"polish_rounds": 1, "polish_steps": 20}, demo_steps=demo,
+                          exact_mod="_torch_tiny_theory", exact_steps=10,
+                          exact_yaml=str(cfg), stored_path=str(stored),
+                          checked={(1, 3, 12), (4, 3, 12), (8, 3, 12)})
+    assert res["13a"]["chain"][1] == 2
+    b = res["13b"]
+    assert set(b["cuts"]) >= {"ntrainArr", "methodArr", "temperatureArr", "num_epochs",
+                              "ntimesArr", "nensemble", "use_fused", "polish_rounds"}
+    its = [(r["iteration"], r["method"]) for r in b["by_iteration"]]
+    assert its == [(0, "zeus"), (1, "nuts")]
+    assert all(r["plain_calls"]["fused_log_prob"] > 0 for r in b["by_iteration"])
+    assert not any(b["counts"]["launches"].values())
+    # the MAP search's one row, zeus's half-ensemble and NUTS's whole one
+    assert b["shapes"] == [(1, 3, 12), (4, 3, 12), (8, 3, 12)]
+    assert C.unchecked_shapes(b["shapes"], {(1, 3, 12)}) == [(4, 3, 12), (8, 3, 12)]
+    assert C.unchecked_shapes(b["shapes"], None) == []
+    assert b["result"]["ndim"] == 3 and "max_emulator_bias_sigma" in b["result"]
+    assert res["13c"]["steps"] == demo and res["13c"]["demo"]["agree_sigma"] >= 0
+    d = res["13d"]
+    assert d["n_steps"] == 10 and d["against_stored"]["n_steps"]["stored"] == 250
+    assert np.isfinite(d["against_stored"]["max_mean_diff_sigma"])

@@ -130,6 +130,23 @@ def test_use_fused_on_cpu_runs_the_plain_version():
     np.testing.assert_allclose(got.numpy(), comp, **TOL)
 
 
+def test_counters_record_the_shapes_each_version_ran_at():
+    """``plain_shapes`` holds each (rows, in, out) a plain version ran at;
+    ``launch_shapes`` stays empty on the CPU; ``reset_counts`` clears both."""
+    p = problem()
+    lp_f = TLK.make_log_prob(p.tspec, p.params_t, p.ts_t, p.pack_t, p.data, p.inv_cov,
+                             use_fused=True, device=CPU)
+    TF.reset_counts()
+    for rows in (1, 9, 9, 4):
+        lp_f(t(walkers(rows, 5)))
+    TF.fused_apply(p.tspec, p.params_t, t(walkers(3, 5)))
+    assert TF.plain_shapes == {"fused_log_prob": {(1, 5, 8), (9, 5, 8), (4, 5, 8)},
+                               "fused_apply": {(3, 5, 8)}}
+    assert TF.launch_shapes == {"fused_log_prob": set(), "fused_apply": set()}
+    TF.reset_counts()
+    assert not any(TF.plain_shapes.values()) and not any(TF.plain_calls.values())
+
+
 def test_gaussian_loglike_matches_jax():
     rng = np.random.default_rng(8)
     m, d = rng.normal(size=(4, 6)), rng.normal(size=6)

@@ -66,6 +66,45 @@ def test_the_port_never_imports_sklearn():
     assert out.stdout.strip() == "False"
 
 
+USER_SCRIPTS = ["bench_full_torch.py", "bench_exact_posterior_torch.py",
+                "examples/walkthrough_torch.py", "examples/nuts_flagship_demo_torch.py"]
+
+
+def test_user_scripts_leave_jax_and_the_jax_package_out(tmp_path):
+    """The gate, the exact posterior, the walkthrough and the NUTS demo
+    import the port only; without a card their entry points raise."""
+    pattern = re.compile(r"^\s*(import jax|from jax)|linna_tpu\.", re.M)
+    for rel in USER_SCRIPTS:
+        assert not pattern.search((REPO / rel).read_text()), rel
+    code = (
+        "import sys; sys.path.insert(0, 'examples'); "
+        "import bench_full_torch, bench_exact_posterior_torch, walkthrough_torch, "
+        "nuts_flagship_demo_torch; "
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'linna_tpu' or m.startswith('linna_tpu.')); print(bad)"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=str(REPO), timeout=120, check=True)
+    assert out.stdout.strip() == "[]"
+    if torch.cuda.is_available():
+        return
+    sys.path.insert(0, str(REPO / "examples"))
+    import bench_exact_posterior_torch as E
+    import bench_full_torch as B
+    import nuts_flagship_demo_torch as D
+    import walkthrough_torch as W
+
+    for call in (lambda: B.main(outdir=str(tmp_path / "b"), indir=str(tmp_path / "i")),
+                 lambda: E.main(outdir=str(tmp_path / "e")),
+                 lambda: W.main(str(tmp_path / "w")),
+                 lambda: D.main(str(tmp_path / "d"), str(tmp_path / "i"))):
+        with pytest.raises(RuntimeError, match="pass device='cpu'"):
+            call()
+    assert not os.listdir(tmp_path)
+
+
 def test_entry_points_without_a_device_raise_off_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is the card")

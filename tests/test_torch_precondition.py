@@ -78,3 +78,30 @@ def test_kernel_route_takes_the_plain_hessian():
     npt.assert_allclose(wrapped(y).numpy(), a.wrap_log_prob(lp_plain)(y).numpy(), rtol=1e-5)
     jw = JP.Preconditioner(a.center, a.basis, a.scales).wrap_log_prob(log_probs(pb)[0])
     npt.assert_allclose(wrapped(y).numpy(), np.asarray(jw(jnp.zeros((3, 4)))), rtol=1e-5)
+
+
+def test_ensemble_hessian_is_the_members_mean_chi2():
+    """A K=2 ensemble's preconditioner is the curvature of the members'
+    mean chi^2 (the JAX package's likelihood built with
+    ``ensemble_k_std=0``, its Hessian taken by ``jax.hessian``) at the MAP
+    of the full ensemble likelihood (mean + std), which JAX's search finds
+    too (rtol 2e-3 and 1e-3, as above)."""
+    import jax
+
+    from linna_tpu import likelihood as JLK
+    from linna_tpu_torch import likelihood as TLK
+
+    pb, other = problem(ndim=4, ndata=6, seed=5), problem(ndim=4, ndata=6, seed=8)
+    lp_t = TLK.make_log_prob(pb.tspec, [pb.params_t, other.params_t], pb.ts_t, pb.pack_t,
+                             pb.data, pb.inv_cov, device="cpu")
+    members_j = [pb.params_j, other.params_j]
+    lp_j = JLK.make_log_prob(pb.spec, members_j, pb.ts_j, pb.pack_j, pb.data, pb.inv_cov)
+    mean_j = JLK.make_log_prob(pb.spec, members_j, pb.ts_j, pb.pack_j, pb.data, pb.inv_cov,
+                               ensemble_k_std=0.0)
+    x0 = np.full(4, 0.1)
+    pt = TP.calc_hess_mass_mat(lp_t, x0, device="cpu")
+    npt.assert_allclose(pt.center, JP.calc_hess_mass_mat(lp_j, x0).center, rtol=1e-3, atol=1e-3)
+    hess = -np.asarray(jax.hessian(lambda x: mean_j(x[None])[0])(
+        jnp.asarray(pt.center, jnp.float32)), dtype=np.float64)
+    assert np.all(np.linalg.eigvalsh(0.5 * (hess + hess.T)) > 0)
+    npt.assert_allclose(_curvature(pt), 0.5 * (hess + hess.T), rtol=2e-3, atol=2e-3)

@@ -250,6 +250,27 @@ def test_launch_ledger_restores_the_counters_when_a_capture_fails():
     assert counters == {"fused_log_prob": 2} and ledger.per_replay == [{"fused_log_prob": 7}]
 
 
+@pytest.mark.parametrize("enabled", [True, False])
+def test_collector_paused_restores_the_collector(enabled):
+    """No cyclic collection inside a capture (a dead runner freed there
+    destroys its graphs and invalidates the capture); outside, the
+    collector is as it was, after an error too."""
+    import gc
+
+    was = gc.isenabled()
+    (gc.enable if enabled else gc.disable)()
+    try:
+        with TG.collector_paused():
+            assert not gc.isenabled()
+        assert gc.isenabled() is enabled
+        with pytest.raises(RuntimeError, match="capture failed"):
+            with TG.collector_paused():
+                raise RuntimeError("capture failed")
+        assert gc.isenabled() is enabled
+    finally:
+        (gc.enable if was else gc.disable)()
+
+
 def test_graphed_chunks_refuse_the_cpu():
     """The CPU runs the eager chunks; nothing falls back from a graph."""
     state = TS.init_slice_state(torch.Generator().manual_seed(0), torch.zeros(8, 2),
