@@ -44,7 +44,6 @@ import importlib
 import json
 import os
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -59,18 +58,6 @@ POLISH_TARGET = 0.01  # split R - 1 of the final chain
 POLISH_ROUNDS = 12
 POLISH_STEPS = 2000
 RESULT_FILE = "FLAGSHIP_torch.json"
-
-
-def device_line(device) -> str:
-    """The device a run used: the card's name and power limit as
-    ``nvidia-smi`` gives them, or ``cpu``."""
-    if device.type != "cuda":
-        return "cpu"
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
-    return smi.splitlines()[device.index or 0]
 
 
 def write_inputs(T, indir: str):
@@ -149,6 +136,7 @@ def main(
     most rounds and steps a round.  Exits 1 under ``check`` when the gate
     fails."""
     from bench_common import exact_posterior_filename, theory_tag
+    from bench_torch_common import card_line
     from linna_tpu_torch import driver
     from linna_tpu_torch import orchestrator as O
     from linna_tpu_torch import priors as P
@@ -166,7 +154,7 @@ def main(
             and os.path.commonpath([out_path, os.path.abspath(outdir)]) != os.path.abspath(outdir)):
         raise FileExistsError(f"{out_path} exists; bench_full_torch.py never overwrites a file "
                               "outside its run directory")
-    print(f"device: {device_line(device)}", flush=True)
+    print(f"device: {card_line(device)}", flush=True)
 
     # every 5 minutes, all threads' stacks: a phase that hangs shows where
     faulthandler.dump_traceback_later(300, repeat=True, file=sys.__stderr__)

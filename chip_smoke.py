@@ -168,7 +168,19 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    40, NUTS) at ``DEMO_STEPS``.  13d: ``bench_exact_posterior_torch.py`` on
    the DES class for ``EXACT_STEPS`` steps, its moments against the stored
    ``EXACT_POSTERIOR.json``.
-14. One ``{"kernels": [...]}`` line, the card's name and power limit, and the
+14. The measurement scripts on the card, each ``main`` cut to depth (each
+   cut printed, ``bench_cuts``): ``bench_torch.py`` (2 repetitions),
+   ``bench_fused_torch.py`` at 128 and 16,384 walkers (1 repetition; every
+   count and its half held against the composition first, and its fused
+   rows must launch ``fused_log_prob`` with no plain call),
+   ``bench_bf16_torch.py`` (1024 walkers and one LSST row),
+   ``bench_train_torch.py`` and ``bench_train_profile_torch.py`` (3
+   epochs), ``bench_dispatch_torch.py`` (100 epochs) and
+   ``bench_allopts_torch.py`` (2 iterations of 500 rows, 100 epochs,
+   ``nimp=200``, phase 7's convergence keys: its option artifacts and a
+   finite chain; the importance ESS printed, not gated at this depth).  The
+   other six launch neither kernel.
+15. One ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 
 Phase 4's, 6's and 11's weights are random (from a seed); phases 5, 7 and
@@ -329,6 +341,10 @@ SCRIPT_POLISH = {"polish_rounds": 1, "polish_steps": 200}
 DEMO_STEPS = {"m_adapt": 10, "nuts_warmup": 10, "nuts_steps": 20, "tune_rounds": 2,
               "tune_steps": 20, "slice_steps": 100}
 EXACT_STEPS = 250
+# phase 14: the measurement scripts cut to depth (bench_cuts); the walker
+# counts bench_fused_torch.py launches fused_log_prob at, its smallest and
+# largest (16,384 walkers: chunks at 8,192 rows, raw calls at 16,384)
+BENCH_FUSED_WALKERS = (128, 16384)
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_F32_FLOPS = 67e12  # CUDA cores, no tensor cores
@@ -3504,6 +3520,102 @@ def phase_scripts(device, outdir, lsst=SCRIPT_LSST, epochs=DRIVER_EPOCHS, lsst_o
     return res
 
 
+def bench_cuts(overrides=None) -> dict:
+    """Each measurement script's keyword arguments for phase 14 (``main``
+    of the script), ``overrides`` (by script; a dict entry updates the
+    cut's dict) applied last."""
+    inf = float("inf")
+    cuts = {
+        "bench_torch": {"reps": 2},
+        "bench_fused_torch": {"walker_counts": BENCH_FUSED_WALKERS, "reps": 1},
+        "bench_bf16_torch": {"walker_counts": (1024,), "ensembles": (), "lsst_walkers": (1024,)},
+        "bench_train_torch": {"epochs": 3},
+        "bench_train_profile_torch": {"epochs": 3},
+        "bench_dispatch_torch": {"epochs": 100},
+        "bench_allopts_torch": {"schedule": {
+            "n_iter": 2, "ntrain": 500, "nval": 100, "epochs": 100, "nimp": 200,
+            # phase 7's convergence keys: each sampler stops at its second
+            # tau check (200 steps)
+            "ntimes": [0, 0], "ntautol": inf, "meanshift": inf, "stdshift": inf},
+            "min_ess": None},
+    }
+    for name, kw in (overrides or {}).items():
+        for k, v in kw.items():
+            old = cuts[name].get(k)
+            cuts[name][k] = {**old, **v} if isinstance(old, dict) else v
+    return cuts
+
+
+def phase_bench_scripts(device, outdir, overrides=None) -> dict:
+    """Phase 14: the seven measurement scripts through the port, each
+    ``main`` cut to depth (:func:`bench_cuts`, printed) with its result
+    under ``outdir``.  ``bench_fused_torch`` must launch ``fused_log_prob``
+    at every walker count with no plain call (the script holds every count
+    and its half against the composition first, relative error below
+    5e-4); ``bench_allopts_torch`` must leave its option artifacts and a
+    finite chain.  Each script's kernel counts run from 0.  ``overrides``
+    lets a CPU rehearsal run it small (there the plain version stands in
+    for the kernel)."""
+    import importlib
+
+    from linna_tpu_torch.ops import fused as F
+
+    card = device.type == "cuda"
+    cuts = bench_cuts(overrides)
+    mods = {name: importlib.import_module(name) for name in cuts}
+    res: dict = {}
+    for name, kw in cuts.items():
+        kw = dict(kw)
+        if name == "bench_torch":
+            kw["history"] = os.path.join(outdir, "history.json")
+        if name == "bench_allopts_torch":
+            kw["outdir"] = os.path.join(outdir, "allopts")
+        else:
+            kw["out"] = os.path.join(outdir, f"{name}.json")
+        log(f"  14: {name}.py cut to depth: {json.dumps(kw, default=str)}")
+        F.reset_counts()
+        t0 = time.perf_counter()
+        result = mods[name].main(device=device, **kw)
+        res[name] = {"seconds": time.perf_counter() - t0, "counts": _launch_counts(),
+                     "result": result}
+        log(f"  14: {name}: {res[name]['seconds']:.1f} s, counts {res[name]['counts']}")
+
+    b = res["bench_torch"]["result"]
+    if not (b["value"] > 0 and b["chain_finite"]) or b["path"] != (
+            "cuda_graphs" if card else "eager"):
+        raise AssertionError(f"14 bench_torch: {b}")
+    fused = res["bench_fused_torch"]["result"]
+    ran, idle = ("launches", "plain_calls") if card else ("plain_calls", "launches")
+    for row in fused["rows"]:
+        if (row["fused_counts"][ran] == 0 or row["fused_counts"][idle]
+                or not row["max_rel_err"] < mods["bench_fused_torch"].RTOL):
+            raise AssertionError(f"14 bench_fused_torch at {row['walkers']} walkers: {row}")
+    for name in ("bench_torch", "bench_bf16_torch", "bench_train_torch",
+                 "bench_train_profile_torch", "bench_dispatch_torch", "bench_allopts_torch"):
+        _no_kernel(res[name]["counts"], f"14 {name}")
+    train = res["bench_train_torch"]["result"]
+    bad = {c: r for c, r in train["cases"].items() if not (
+        r["sec_per_epoch"] > 0 and r["replays_per_epoch"]
+        == ((r["minibatches_per_epoch"] + 1) if card else 0))}
+    if bad:
+        raise AssertionError(f"14 bench_train_torch: {bad}")
+    prof = res["bench_train_profile_torch"]["result"]
+    if sorted(prof["replays_per_epoch"]) != sorted(mods["bench_train_profile_torch"].VARIANTS) \
+            or not all(prof[v] > 0 for v in prof["replays_per_epoch"]):
+        raise AssertionError(f"14 bench_train_profile_torch: {prof}")
+    disp = res["bench_dispatch_torch"]["result"]
+    epochs = disp["shape"]["epochs"]
+    if any(disp[m]["epochs_run"] != epochs for m in ("speculative", "serial")):
+        raise AssertionError(f"14 bench_dispatch_torch: {disp}")
+    allopts = res["bench_allopts_torch"]["result"]
+    if not (all(allopts["artifacts"].values()) and allopts["chain_finite"]):
+        raise AssertionError(f"14 bench_allopts_torch: {allopts}")
+    log(f"  14: allopts at this depth (printed, not gated): importance ESS "
+        f"{allopts['importance_ess']}, max posterior error {allopts['max_posterior_err_sigma']} "
+        f"sigma, split R-hat {allopts['max_split_rhat']}")
+    return res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--data-parallel-rank"]:
         return dp_rank(sys.argv[2], sys.argv[3])
@@ -3669,7 +3781,18 @@ def main() -> int:
     seconds[13] = time.perf_counter() - t0
     log(f"  phase 13: {seconds[13]:.1f} s")
 
-    log(f"== 14. result (phase seconds {json.dumps(seconds)})")
+    log("== 14. the measurement scripts: bench, fused, bf16, train, train profile, dispatch, "
+        "all options")
+    t0 = time.perf_counter()
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    try:
+        bench = phase_bench_scripts(device, RUN_DIR)
+    finally:
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
+    seconds[14] = time.perf_counter() - t0
+    log(f"  phase 14: {seconds[14]:.1f} s")
+
+    log(f"== 15. result (phase seconds {json.dumps(seconds)})")
     kernels = []
     for k in REPLACES:
         r = rec[k]
@@ -3708,6 +3831,11 @@ def main() -> int:
                     scripts["13b"]["outside_iterations"]["launches"][k]]],
                 "walkthrough": scripts["13a"]["counts"]["launches"][k],
                 "nuts_demo": scripts["13c"]["counts"]["launches"][k],
+                # walkers, launches of its fused rows (chunks and raw calls)
+                "bench_fused": [[r["walkers"], r["fused_counts"]["launches"] if k ==
+                                 "fused_log_prob" else 0]
+                                for r in bench["bench_fused_torch"]["result"]["rows"]],
+                "bench_scripts": {n: r["counts"]["launches"][k] for n, r in bench.items()},
             },
             "max_abs_err": r["abs"],
             "max_rel_err": r["rel"],

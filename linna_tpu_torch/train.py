@@ -710,6 +710,34 @@ class _MemberStack:
             return _Data(x, t_std, t_mask, t_denom, vx, *L.target_terms(ls, ts, f32(val_y)),
                          None if lm is None else lm(vx))
 
+    def _loss(self, data: _Data, idx: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """Every member's minibatch loss (K,) on rows ``idx`` (K, bs), this
+        rank's share of them with a data group, and the autograd leaves it
+        was computed from (see :meth:`_step`)."""
+        bs = idx.shape[1]
+        if self._group is not None:
+            idx = idx[:, self.mesh.batch_slice(self._rank, bs)]
+        if self.compute_dtype is None:
+            pred = N.apply_model(self.spec, self._model, data.x[idx])
+            leaves = self._leaves
+        else:
+            low = self.flat.to(self.compute_dtype)
+            leaves = [v.detach().requires_grad_(True) for v in self.layout.stacked_views(low)]
+            model = _nest((path, v) for (path, *_), v in zip(self.layout.entries, leaves))
+            pred = N.apply_model(self.spec, model, data.x[idx].to(self.compute_dtype))
+            pred = pred.to(torch.float32)
+        per_row = L.chi2_ratio(self.loss_state, pred, data.t_std[idx], data.t_mask[idx],
+                               data.t_denom[idx])
+        if self._group is None:
+            return torch.mean(per_row, dim=-1), leaves
+        return per_row.sum(dim=-1) / bs, leaves
+
+    def _grad(self, loss: torch.Tensor, leaves: List[torch.Tensor]) -> torch.Tensor:
+        """The float32 gradient (K, P) of the members' summed ``loss``."""
+        grads = torch.autograd.grad(loss.sum(), leaves)
+        return torch.cat([g.reshape(self.flat.shape[0], -1) for g in grads], dim=1).to(
+            torch.float32)
+
     def _step(self, data: _Data, idx: torch.Tensor, opt: AdamWState, lr, wd) -> torch.Tensor:
         """One minibatch AdamW step of every member on rows ``idx`` (K, bs);
         returns each member's loss (K,).
@@ -729,27 +757,8 @@ class _MemberStack:
         ranks' sums of their rows' losses over the whole minibatch size add
         up, in one ``all_reduce`` of the gradient with the loss beside it,
         to the minibatch's mean loss and its gradient."""
-        bs = idx.shape[1]
-        if self._group is not None:
-            idx = idx[:, self.mesh.batch_slice(self._rank, bs)]
-        if self.compute_dtype is None:
-            pred = N.apply_model(self.spec, self._model, data.x[idx])
-            leaves = self._leaves
-        else:
-            low = self.flat.to(self.compute_dtype)
-            leaves = [v.detach().requires_grad_(True) for v in self.layout.stacked_views(low)]
-            model = _nest((path, v) for (path, *_), v in zip(self.layout.entries, leaves))
-            pred = N.apply_model(self.spec, model, data.x[idx].to(self.compute_dtype))
-            pred = pred.to(torch.float32)
-        per_row = L.chi2_ratio(self.loss_state, pred, data.t_std[idx], data.t_mask[idx],
-                               data.t_denom[idx])
-        k = self.flat.shape[0]
-        if self._group is None:
-            loss = torch.mean(per_row, dim=-1)
-        else:
-            loss = per_row.sum(dim=-1) / bs
-        grads = torch.autograd.grad(loss.sum(), leaves)
-        grad = torch.cat([g.reshape(k, -1) for g in grads], dim=1).to(torch.float32)
+        loss, leaves = self._loss(data, idx)
+        grad = self._grad(loss, leaves)
         loss = loss.detach()
         if self._group is not None:
             both = MH.all_reduce(torch.cat([grad, loss[:, None]], dim=1), group=self._group)

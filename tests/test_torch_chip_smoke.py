@@ -410,3 +410,50 @@ def test_phase_scripts_rehearsal(tmp_path, monkeypatch):
     d = res["13d"]
     assert d["n_steps"] == 10 and d["against_stored"]["n_steps"]["stored"] == 250
     assert np.isfinite(d["against_stored"]["max_mean_diff_sigma"])
+
+
+# ------------------------------------------------ phase 14, rehearsed at small size
+
+
+def test_phase_bench_scripts_rehearsal(tmp_path, monkeypatch):
+    """Phase 14 on the CPU: the seven measurement scripts with the phase's
+    cuts at small widths (the sampling scripts at 5 -> 8, the training
+    scripts at 4 -> 8 on 2,000 rows, the all-options pipeline on the 3 -> 12
+    theory of ``tests/_torch_tiny_theory.py``), where ``fused_log_prob``'s
+    plain version runs in place of the kernel at each walker count, no other
+    script reaches either kernel, and the option artifacts are written."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setattr("bench_torch_common.tempfile.gettempdir", lambda: str(tmp_path))
+    train = {"n_train": 2000, "n_val": 50, "ndim": 4, "ndata": 8}
+    small = {
+        "bench_torch": {"walkers": 16, "shape": (5, 8), "baseline_evals": 10, "probe_n": 32,
+                        "chunks_per_rep": 1},
+        "bench_fused_torch": {"walker_counts": (8, 32), "shape": (5, 8), "raw_reps": 2},
+        "bench_bf16_torch": {"walker_counts": (8,), "lsst_walkers": (8,), "shape": (5, 8),
+                             "lsst": (6, 12), "accuracy_walkers": 16},
+        "bench_train_torch": {"epochs": 1, **train},
+        "bench_train_profile_torch": {"epochs": 1, **train},
+        "bench_dispatch_torch": {"epochs": 10, **train, "batch": 250},
+        "bench_allopts_torch": {"theory_mod": "_torch_tiny_theory", "schedule": {
+            "ntrain": 80, "nval": 20, "epochs": 5, "nimp": 40, "nbest": 10, "nwalkers": 8,
+            "batch_size": 20, "temperatures": [2.0, 1.0]}},
+    }
+    cuts = C.bench_cuts(small)
+    # the phase's cuts stay where the rehearsal does not replace them
+    assert cuts["bench_torch"]["reps"] == 2 and cuts["bench_fused_torch"]["reps"] == 1
+    assert cuts["bench_allopts_torch"]["schedule"]["n_iter"] == 2
+    assert cuts["bench_allopts_torch"]["min_ess"] is None
+    res = C.phase_bench_scripts(torch.device("cpu"), str(tmp_path / "p14"), small)
+    assert set(res) == set(cuts)
+    fused = res["bench_fused_torch"]
+    assert [r["walkers"] for r in fused["result"]["rows"]] == [8, 32]
+    assert fused["counts"]["plain_calls"]["fused_log_prob"] == sum(
+        r["fused_counts"]["plain_calls"] for r in fused["result"]["rows"]) + 4  # + the checks
+    assert not any(fused["counts"]["launches"].values())
+    assert len(res["bench_torch"]["result"]["rates"]) == 2
+    assert res["bench_dispatch_torch"]["result"]["serial"]["epochs_run"] == 10
+    allopts = res["bench_allopts_torch"]["result"]
+    assert all(allopts["artifacts"].values()) and allopts["chain_finite"]
+    assert (tmp_path / "p14" / "allopts" / "iter_1" / "zeus_256.h5").exists()
+    assert sorted(os.listdir(tmp_path / "p14")) == sorted(
+        ["allopts", "history.json"] + [f"{n}.json" for n in cuts if n != "bench_allopts_torch"])

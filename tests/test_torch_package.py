@@ -68,6 +68,10 @@ def test_the_port_never_imports_sklearn():
 
 USER_SCRIPTS = ["bench_full_torch.py", "bench_exact_posterior_torch.py",
                 "examples/walkthrough_torch.py", "examples/nuts_flagship_demo_torch.py"]
+# the measurement scripts and their shared module
+BENCH_SCRIPTS = ["bench_torch_common.py", "bench_torch.py", "bench_fused_torch.py",
+                 "bench_bf16_torch.py", "bench_train_torch.py", "bench_train_profile_torch.py",
+                 "bench_dispatch_torch.py", "bench_allopts_torch.py"]
 
 
 def test_user_scripts_leave_jax_and_the_jax_package_out(tmp_path):
@@ -237,3 +241,36 @@ def test_run_ensemble_resumes_exactly_on_the_npz_store(tmp_path, monkeypatch):
     assert whole.iteration == 150 and bool(split.load_state()["_finished"])
     chain, logp, _ = TO.read_chain_and_cut(paths[1], nk=2, method="zeus", flat=True)
     assert chain.shape[1] == 2 and logp.shape == (chain.shape[0], 1)
+
+
+def test_bench_scripts_leave_jax_and_the_jax_package_out(tmp_path, monkeypatch):
+    """The seven measurement scripts and their shared module import the port
+    only (never jax, ``linna_tpu`` or ``__graft_entry__``, which imports
+    jax); without a card each script's entry point raises, and writes
+    nothing first."""
+    pattern = re.compile(r"^\s*(import jax|from jax|(import|from) __graft_entry__)|linna_tpu\.",
+                         re.M)
+    for rel in BENCH_SCRIPTS:
+        assert not pattern.search((REPO / rel).read_text()), rel
+    mods = [rel[:-3] for rel in BENCH_SCRIPTS]
+    code = (
+        f"import sys; import {', '.join(mods)}; "
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'linna_tpu' or m.startswith('linna_tpu.') or m == '__graft_entry__'); "
+        "print(bad)"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=str(REPO), timeout=120, check=True)
+    assert out.stdout.strip() == "[]"
+    if torch.cuda.is_available():
+        return
+    import bench_torch_common as BC
+
+    monkeypatch.setattr(BC.tempfile, "gettempdir", lambda: str(tmp_path))
+    for name in mods[1:]:
+        mod = __import__(name)
+        with pytest.raises(RuntimeError, match="pass device='cpu'"):
+            mod.main()
+    assert not os.listdir(tmp_path)
