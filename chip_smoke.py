@@ -180,7 +180,23 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    ``nimp=200``, phase 7's convergence keys: its option artifacts and a
    finite chain; the importance ESS printed, not gated at this depth).  The
    other six launch neither kernel.
-15. One ``{"kernels": [...]}`` line, the card's name and power limit, and the
+15. The JAX package's slow acceptance tier on the card (15a,
+   ``tests/_torch_acceptance.py``): the 2-D Gaussian (three annealed
+   iterations, each mean within 0.25 and each std within 0.35 sigma of the
+   truncated normal's) and the 33-dimensional Gaussian (median mean error
+   below 0.7 sigma, the largest below 6.0, median std ratio 0.5-4.0), each
+   at its JAX test's budget and seed, every pin enforced (a miss fails the
+   phase once 15b and 15c have run).  The flagship configuration's pin
+   (median bias below 0.35 sigma at ``seed=11``) is not run here: at its
+   budget it flips with the sampler and training seeds in both packages
+   (PERF.md §6, ROADMAP Queue 3 item 3); 15b the code cells
+   of ``examples/walkthrough_torch.ipynb`` in order in one namespace (the
+   marker lines and the artifact tree); 15c ``bench_scaling_torch.py`` cut
+   to depth (``SCALING_CUTS``, printed: 5 epochs, ranks 1 and 2 over
+   gloo).  Each run's wall, figures and graph replays are printed; neither
+   kernel nor its plain version runs (K=2 takes the composition, the rest
+   the unfused single emulator).
+16. One ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 
 Phase 4's, 6's and 11's weights are random (from a seed); phases 5, 7 and
@@ -200,6 +216,8 @@ import time
 
 import numpy as np
 import torch
+
+from linna_tpu_torch.launch import free_port, run_ranks
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(ROOT, ".chip_smoke")
@@ -345,6 +363,12 @@ EXACT_STEPS = 250
 # counts bench_fused_torch.py launches fused_log_prob at, its smallest and
 # largest (16,384 walkers: chunks at 8,192 rows, raw calls at 16,384)
 BENCH_FUSED_WALKERS = (128, 16384)
+# phase 15: the JAX package's slow acceptance tier at its tests' budgets
+# (tests/_torch_acceptance.py), the walkthrough notebook's code cells, and
+# bench_scaling_torch.py cut to depth (two gloo ranks share the card)
+NOTEBOOK = os.path.join("examples", "walkthrough_torch.ipynb")
+NOTEBOOK_MARKERS = ("posterior mean", "grad log p at whitened 0")
+SCALING_CUTS = {"epochs": 5, "max_ranks": 2, "backend": "gloo"}
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_F32_FLOPS = 67e12  # CUDA cores, no tensor cores
@@ -1856,54 +1880,6 @@ runpy.run_module("linna_tpu_torch.launch", run_name="__main__", alter_sys=True)
 """
 
 
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def run_ranks(cmds, logdir: str, timeout: float) -> list:
-    """Start one process per command as the ranks of one cluster (the
-    ``LINNA_*`` variables, a free localhost port), wait for all of them, and
-    return their output; any rank that fails or outlives ``timeout`` fails
-    the phase, and no rank is left running."""
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([ROOT] + [p for p in sys.path if p]),
-               LINNA_COORDINATOR_ADDRESS=f"localhost:{_free_port()}",
-               LINNA_NUM_PROCESSES=str(len(cmds)), OMP_NUM_THREADS="1")
-    os.makedirs(logdir, exist_ok=True)
-    logs = [open(os.path.join(logdir, f"rank_{k}.log"), "w+") for k in range(len(cmds))]
-    procs = []
-    try:
-        for k, cmd in enumerate(cmds):
-            procs.append(subprocess.Popen(cmd, cwd=ROOT, env=dict(env, LINNA_PROCESS_ID=str(k)),
-                                          stdout=logs[k], stderr=subprocess.STDOUT))
-        deadline = time.monotonic() + timeout
-        for k, p in enumerate(procs):
-            try:
-                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
-            except subprocess.TimeoutExpired:
-                raise AssertionError(f"rank {k} outlived {timeout} s (a collective another "
-                                     "rank skipped?)") from None
-        outs = []
-        for f in logs:
-            f.seek(0)
-            outs.append(f.read())
-        for k, (p, out) in enumerate(zip(procs, outs)):
-            if p.returncode != 0:
-                log(out[-6000:])
-                raise AssertionError(f"rank {k} exited with {p.returncode}")
-        return outs
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
-
-
 def fused_problem(device, ndim=NDIM, ndata=NDATA, nwalkers=NWALKERS, temperature=TEMPERATURE):
     """Phase 3's random-weight DES-width problem through ``fused_log_prob``
     (``use_fused=True``) and seeded walkers around the origin."""
@@ -1951,7 +1927,7 @@ def phase_nccl(device, outdir, steps=MP_EMCEE_STEPS, ndim=NDIM, ndata=NDATA,
     backend = "nccl" if device.type == "cuda" else "gloo"
     lp, x0 = fused_problem(device, ndim, ndata, nwalkers)
     alone, b0 = sample(lp, x0, os.path.join(outdir, "alone"), "emcee", steps, device)
-    if MH.initialize(f"localhost:{_free_port()}", 1, 0, backend=backend, device=device):
+    if MH.initialize(f"localhost:{free_port()}", 1, 0, backend=backend, device=device):
         raise AssertionError("one rank expected")
     try:
         if MH.backend() != backend or MH.process_count() != 1:
@@ -2534,7 +2510,7 @@ def phase_tensor_parallel(device, outdir, inputs, timeout=MP_TIMEOUT) -> dict:
 
     alone = one_step()
     backend = "nccl" if device.type == "cuda" else "gloo"
-    MH.initialize(f"localhost:{_free_port()}", 1, 0, backend=backend, device=device)
+    MH.initialize(f"localhost:{free_port()}", 1, 0, backend=backend, device=device)
     try:
         MH.reset_collective_counts()
         grouped = one_step()
@@ -3616,6 +3592,146 @@ def phase_bench_scripts(device, outdir, overrides=None) -> dict:
     return res
 
 
+# ------------------------------------- phase 15: the slow acceptance tier
+
+
+def run_notebook(path: str, outdir: str, device) -> tuple:
+    """The notebook's code cells in order in one namespace, as a kernel
+    would run them (the card has no Jupyter), with ``LINNA_WALKTHROUGH_OUTDIR``
+    and ``LINNA_WALKTHROUGH_DEVICE`` set for the run: (what the cells
+    printed, the namespace)."""
+    import contextlib
+    import io
+
+    with open(path) as f:
+        cells = [c for c in json.load(f)["cells"] if c["cell_type"] == "code"]
+    saved = {k: os.environ.get(k) for k in ("LINNA_WALKTHROUGH_OUTDIR",
+                                            "LINNA_WALKTHROUGH_DEVICE")}
+    os.environ.update(LINNA_WALKTHROUGH_OUTDIR=outdir, LINNA_WALKTHROUGH_DEVICE=str(device))
+    ns: dict = {"__name__": "__main__"}
+    out = io.StringIO()
+    try:
+        for i, cell in enumerate(cells):
+            code = compile("".join(cell["source"]), f"{path} code cell {i}", "exec")
+            with contextlib.redirect_stdout(out):
+                exec(code, ns)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out.getvalue(), ns
+
+
+def _scaling_checks(result: dict, card: bool) -> list:
+    """What ``bench_scaling_torch.main``'s result must show: both trainer
+    rows timed, each side's graph replays an epoch (nb + 1 a member on a
+    card, none on the CPU), a finite chain and a rate at each rank count,
+    the graph at one rank on a card, and the censuses' contract."""
+    import bench_scaling_torch as S
+
+    nb1 = S.N_TRAIN // S.BATCH + 1 if card else 0
+    bad = [f"trainer K={r['k']}: {r}" for r in result["trainer"] if not (
+        r["mesh_s"] > 0 and r["serial_s"] > 0 and r["mesh_replays_per_epoch"] == nb1
+        and r["serial_replays_per_epoch"] == r["k"] * nb1 and r["graphed"] == card)]
+    bad += [f"sampler at {r['devices']} ranks: {r}" for r in result["sampler"] if not (
+        r["evals_per_s"] > 0 and r["finite"] and r["graphed"] == (card and r["devices"] == 1))]
+    census = result["sampler_hlo"]
+    if census["world"] > 1 and (census["emcee"]["per_step"] != {"all_gather@world": 2.0}
+                                or census["hmc"]["per_step"] or census["nuts"]["per_step"]):
+        bad.append(f"sampler census {census}")
+    if result["hlo"]["cross_member_collectives"]:
+        bad.append(f"trainer census {result['hlo']}")
+    return bad
+
+
+# the acceptance runs of phase 15; the flagship configuration
+# (``flagship_config_posterior_parity``) stays out until its pin is decided:
+# at its budget and seed it misses in about half the seeds of either package
+ACCEPTANCE_ON_CARD = ("posterior_accuracy_2d_gaussian", "gaussian33_posterior_parity")
+
+
+def phase_acceptance(device, outdir, budgets=None, pins=True, notebook=NOTEBOOK,
+                     scaling=SCALING_CUTS) -> dict:
+    """Phase 15.  15a: the JAX package's slow acceptance tier
+    (``tests/_torch_acceptance.py``) that ``ACCEPTANCE_ON_CARD`` names (the
+    2-D and the 33-dimensional Gaussian) at its tests' budgets and seeds,
+    each pin enforced when ``pins`` (a miss
+    fails the phase once 15b and 15c have run); 15b the
+    walkthrough notebook's code cells (:func:`run_notebook`): the marker lines
+    and the artifact tree; 15c ``bench_scaling_torch.main`` cut to depth
+    (``scaling``, printed).  Each run's kernel counts run from 0 and must
+    stay 0: K=2 takes the composition and the rest the unfused single
+    emulator, as in the JAX package.  ``budgets`` ({name: ml_sampler_core
+    overrides}, only the functions it names run) and ``pins=False`` let a
+    CPU rehearsal run it small."""
+    import bench_scaling_torch as S
+    from linna_tpu_torch.ops import fused as F
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _torch_acceptance as A
+
+    card = device.type == "cuda"
+    res: dict = {}
+    missed: dict = {}
+    log("  15a: flagship_config_posterior_parity not run: its pin at the JAX budget and "
+        "seed flips with the seeds in both packages (PERF.md §6)")
+    for name in ACCEPTANCE_ON_CARD:
+        fn = A.ACCEPTANCE[name]
+        if budgets is not None and name not in budgets:
+            continue
+        over = (budgets or {}).get(name, {})
+        log(f"  15a: {name}" + (f", cut: {json.dumps(over)}" if over else
+                                ", the JAX test's budget and seed"))
+        F.reset_counts()
+        r = fn(os.path.join(outdir, name), device, **over)
+        res[name] = {**{k: v for k, v in r.items() if k != "chain"},
+                     "chain": list(r["chain"].shape), "counts": _launch_counts()}
+        log(f"  15a: {name}: {json.dumps(res[name])}")
+        _no_kernel(res[name]["counts"], f"15a {name}")
+        if not np.isfinite(r["chain"]).all():
+            raise AssertionError(f"15a {name}: the chain is not finite")
+        if pins and A.missed(r):
+            missed[name] = A.missed(r)
+            log(f"  15a: {name} MISSED its JAX pins {missed[name]}")
+
+    log(f"  15b: {notebook}, its code cells in order")
+    nb_out = os.path.join(outdir, "notebook")
+    F.reset_counts()
+    t0 = time.perf_counter()
+    text, ns = run_notebook(os.path.join(ROOT, notebook), nb_out, device)
+    res["notebook"] = {"seconds": time.perf_counter() - t0, "counts": _launch_counts(),
+                       "chain": list(ns["chain"].shape),
+                       "lines": [ln for ln in text.splitlines()
+                                 if ln.startswith(NOTEBOOK_MARKERS)]}
+    log(f"  15b: {json.dumps(res['notebook'])}")
+    missing = [f"iter_{i}/{f}" for i in range(2)
+               for f in iteration_missing(os.path.join(nb_out, f"iter_{i}"), 1, chain=True)]
+    absent = [m for m in NOTEBOOK_MARKERS if m not in text]
+    if missing or absent:
+        raise AssertionError(f"15b: missing artifacts {missing}, marker lines {absent}")
+    _no_kernel(res["notebook"]["counts"], "15b (the notebook)")
+
+    log(f"  15c: bench_scaling_torch.py cut to depth: {json.dumps(scaling)} (epochs "
+        f"{S.EPOCHS}, rank counts {list(S.RANKS)} uncut)")
+    F.reset_counts()
+    t0 = time.perf_counter()
+    result = S.main(device=device, out=os.path.join(outdir, "scaling.json"), **scaling)
+    res["bench_scaling"] = {"seconds": time.perf_counter() - t0, "counts": _launch_counts(),
+                            "trainer": result["trainer"], "sampler": result["sampler"],
+                            "census": {"hlo": result["hlo"],
+                                       "sampler_hlo": result["sampler_hlo"]}}
+    log(f"  15c: {json.dumps(res['bench_scaling'])}")
+    bad = _scaling_checks(result, card)
+    if bad:
+        raise AssertionError(f"15c: {bad}")
+    _no_kernel(res["bench_scaling"]["counts"], "15c (bench_scaling_torch, this process)")
+    if missed:
+        raise AssertionError(f"15a: pins missed {missed}")
+    return res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--data-parallel-rank"]:
         return dp_rank(sys.argv[2], sys.argv[3])
@@ -3792,7 +3908,18 @@ def main() -> int:
     seconds[14] = time.perf_counter() - t0
     log(f"  phase 14: {seconds[14]:.1f} s")
 
-    log(f"== 15. result (phase seconds {json.dumps(seconds)})")
+    log("== 15. the JAX package's slow acceptance tier, the walkthrough notebook, "
+        "bench_scaling_torch.py")
+    t0 = time.perf_counter()
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    try:
+        acceptance = phase_acceptance(device, RUN_DIR)
+    finally:
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
+    seconds[15] = time.perf_counter() - t0
+    log(f"  phase 15: {seconds[15]:.1f} s")
+
+    log(f"== 16. result (phase seconds {json.dumps(seconds)})")
     kernels = []
     for k in REPLACES:
         r = rec[k]
@@ -3836,6 +3963,8 @@ def main() -> int:
                                  "fused_log_prob" else 0]
                                 for r in bench["bench_fused_torch"]["result"]["rows"]],
                 "bench_scripts": {n: r["counts"]["launches"][k] for n, r in bench.items()},
+                # the acceptance tier (K=2), the notebook, bench_scaling_torch
+                "acceptance": {n: r["counts"]["launches"][k] for n, r in acceptance.items()},
             },
             "max_abs_err": r["abs"],
             "max_rel_err": r["rel"],

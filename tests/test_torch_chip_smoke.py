@@ -457,3 +457,62 @@ def test_phase_bench_scripts_rehearsal(tmp_path, monkeypatch):
     assert (tmp_path / "p14" / "allopts" / "iter_1" / "zeus_256.h5").exists()
     assert sorted(os.listdir(tmp_path / "p14")) == sorted(
         ["allopts", "history.json"] + [f"{n}.json" for n in cuts if n != "bench_allopts_torch"])
+
+
+# ------------------------------------------------ phase 15, rehearsed at small size
+
+
+def test_phase_acceptance_rehearsal(tmp_path, monkeypatch):
+    """Phase 15 on the CPU: the 2-D acceptance run at its tiny budget (the
+    other two run so in ``tests/test_torch_acceptance.py``), the notebook's
+    code cells with its pipeline cut (40 / 10 points, 5 epochs, each sampler
+    to its second convergence check) and ``bench_scaling_torch`` at one
+    epoch, 64 walkers and two gloo ranks, the pins not applied: neither
+    kernel nor its plain version runs, and the card's checks of the scaling
+    result hold for the CPU."""
+    import functools
+    import json
+
+    sys.path.insert(0, str(REPO / "tests"))
+    import _torch_acceptance as A
+    from linna_tpu_torch.samplers import run as TR
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setattr("bench_torch_common.tempfile.gettempdir", lambda: str(tmp_path))
+    monkeypatch.setattr(TR, "run_ensemble",
+                        functools.partial(TR.run_ensemble, check_every=A.TINY_CHECK_EVERY))
+    nb = json.loads((REPO / C.NOTEBOOK).read_text())
+    inf2 = "[float('inf')] * 2"
+    cuts = {"ntrainArr=[400, 400], nvalArr=[80, 80]": "ntrainArr=[40, 40], nvalArr=[10, 10]",
+            "ntimesArr=[8, 15], ntautolArr=[0.2, 0.1]": f"ntimesArr=[0, 0], ntautolArr={inf2}",
+            "meanshiftArr=[0.5, 0.5], stdshiftArr=[0.5, 0.5]":
+                f"meanshiftArr={inf2}, stdshiftArr={inf2}",
+            '"num_epochs": 300': '"num_epochs": 5'}
+    for cell in nb["cells"]:
+        src = "".join(cell["source"])
+        for old, new in cuts.items():
+            if old in src:
+                src = src.replace(old, new)
+                cuts[old] = None
+        cell["source"] = src
+    assert not any(cuts.values()), cuts
+    (tmp_path / "nb.ipynb").write_text(json.dumps(nb))
+    name = "posterior_accuracy_2d_gaussian"
+    res = C.phase_acceptance(torch.device("cpu"), str(tmp_path / "p15"),
+                             budgets={name: A.TINY_BUDGETS[name]}, pins=False,
+                             notebook=str(tmp_path / "nb.ipynb"),
+                             scaling={"epochs": 1, "max_ranks": 2, "backend": "gloo",
+                                      "walkers": 64, "chunk": 5, "reps": 2})
+    assert set(res) == {name, "notebook", "bench_scaling"}
+    for r in res.values():
+        assert not any(r["counts"]["launches"].values())
+        assert not any(r["counts"]["plain_calls"].values())
+    assert res[name]["chain"][1] == 2 and set(res[name]["pins"]) == {
+        "each mean within 0.25 sigma", "each std within 0.35 sigma"}
+    assert [r["iteration"] for r in res[name]["record"] if r["phase"] == "mcmc"] == [0, 1, 2]
+    lines = res["notebook"]["lines"]
+    assert [ln.split(" ")[0] for ln in lines] == ["posterior", "grad"], lines
+    scaling = res["bench_scaling"]
+    assert [r["k"] for r in scaling["trainer"]] == [2, 4]
+    assert [(r["devices"], r["backend"]) for r in scaling["sampler"]] == [(1, None), (2, "gloo")]
+    assert scaling["census"]["sampler_hlo"]["world"] == 2

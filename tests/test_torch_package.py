@@ -67,23 +67,30 @@ def test_the_port_never_imports_sklearn():
 
 
 USER_SCRIPTS = ["bench_full_torch.py", "bench_exact_posterior_torch.py",
-                "examples/walkthrough_torch.py", "examples/nuts_flagship_demo_torch.py"]
+                "examples/walkthrough_torch.py", "examples/nuts_flagship_demo_torch.py",
+                "tests/_torch_acceptance.py"]
 # the measurement scripts and their shared module
 BENCH_SCRIPTS = ["bench_torch_common.py", "bench_torch.py", "bench_fused_torch.py",
                  "bench_bf16_torch.py", "bench_train_torch.py", "bench_train_profile_torch.py",
-                 "bench_dispatch_torch.py", "bench_allopts_torch.py"]
+                 "bench_dispatch_torch.py", "bench_allopts_torch.py", "bench_scaling_torch.py"]
 
 
 def test_user_scripts_leave_jax_and_the_jax_package_out(tmp_path):
-    """The gate, the exact posterior, the walkthrough and the NUTS demo
-    import the port only; without a card their entry points raise."""
+    """The gate, the exact posterior, the walkthrough (script and notebook),
+    the NUTS demo and the acceptance tier import the port only; without a
+    card their entry points raise."""
+    import json
+
     pattern = re.compile(r"^\s*(import jax|from jax)|linna_tpu\.", re.M)
     for rel in USER_SCRIPTS:
         assert not pattern.search((REPO / rel).read_text()), rel
+    cells = json.loads((REPO / "examples" / "walkthrough_torch.ipynb").read_text())["cells"]
+    for cell in cells:
+        assert not pattern.search("".join(cell["source"])), cell["source"]
     code = (
-        "import sys; sys.path.insert(0, 'examples'); "
+        "import sys; sys.path[:0] = ['examples', 'tests']; "
         "import bench_full_torch, bench_exact_posterior_torch, walkthrough_torch, "
-        "nuts_flagship_demo_torch; "
+        "nuts_flagship_demo_torch, _torch_acceptance; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'linna_tpu' or m.startswith('linna_tpu.')); print(bad)"
     )
@@ -95,15 +102,20 @@ def test_user_scripts_leave_jax_and_the_jax_package_out(tmp_path):
     if torch.cuda.is_available():
         return
     sys.path.insert(0, str(REPO / "examples"))
+    sys.path.insert(0, str(REPO / "tests"))
+    import _torch_acceptance as A
     import bench_exact_posterior_torch as E
     import bench_full_torch as B
     import nuts_flagship_demo_torch as D
     import walkthrough_torch as W
 
-    for call in (lambda: B.main(outdir=str(tmp_path / "b"), indir=str(tmp_path / "i")),
-                 lambda: E.main(outdir=str(tmp_path / "e")),
-                 lambda: W.main(str(tmp_path / "w")),
-                 lambda: D.main(str(tmp_path / "d"), str(tmp_path / "i"))):
+    calls = [lambda: B.main(outdir=str(tmp_path / "b"), indir=str(tmp_path / "i")),
+             lambda: E.main(outdir=str(tmp_path / "e")),
+             lambda: W.main(str(tmp_path / "w")),
+             lambda: D.main(str(tmp_path / "d"), str(tmp_path / "i"))]
+    calls += [lambda fn=fn, name=name: fn(str(tmp_path / name))
+              for name, fn in A.ACCEPTANCE.items()]
+    for call in calls:
         with pytest.raises(RuntimeError, match="pass device='cpu'"):
             call()
     assert not os.listdir(tmp_path)
