@@ -469,6 +469,7 @@ def train_emulator(
         if trace_rec is not None:
             trace_rec["trainer"] = {k: round(v, 3) for k, v in trainer.phase_seconds.items()}
             trace_rec["epochs_run"] = trainer.epochs_run
+            trace_rec["graphs"] = trainer.graphs["epochs"]
     elif MH.is_primary():
         # the one-rank trainer makes no collective: rank 0 alone runs it
         for mi, (member_dir, member_seed) in enumerate(zip(member_dirs, seeds)):
@@ -485,6 +486,7 @@ def train_emulator(
                     k: round(v, 3) for k, v in trainer.phase_seconds.items()
                 }
                 trace_rec[f"epochs_run_m{mi}"] = trainer.epochs_run
+                trace_rec[f"graphs_m{mi}"] = trainer.graphs["epochs"]
     if trace_rec is not None and trainer is not None:
         trace_rec["compute_dtype"] = str(trainer.compute_dtype or torch.float32)
     if MH.is_primary():

@@ -45,6 +45,7 @@ from typing import Callable, Dict, Iterable, List, Sequence
 import torch
 
 from ..ops import fused
+from ..utils.trace import ChunkTimes
 from . import hmc, slicemove, stretch
 
 __all__ = ["LaunchLedger", "StepGraph", "collector_paused", "graphed_chunks", "WARMUP"]
@@ -164,6 +165,7 @@ class _Chunks:
         self.step = torch.zeros((), dtype=torch.int64, device=self.dev)
         self.steps = 0
         self.calls_by_graph = []  # (graph, likelihood calls a replay, rows a call)
+        self.times = ChunkTimes()
 
     def zeros(self, *shape, dtype=torch.float32) -> torch.Tensor:
         return torch.zeros(shape, dtype=dtype, device=self.dev)
@@ -196,12 +198,14 @@ class _Chunks:
         return sum(g.replays for g in self.graphs)
 
     def record(self) -> dict:
-        """Replays, steps, and the likelihood calls and rows replayed (a
-        Python wrapper of the likelihood runs only while a graph is
-        captured, so it cannot count them)."""
-        return {"graphs": len(self.graphs), "replays": self.replays, "steps": self.steps,
+        """Replays, steps, the likelihood calls and rows replayed (a Python
+        wrapper of the likelihood runs only while a graph is captured, so
+        it cannot count them), and the card's seconds in and between the
+        chunks (:class:`ChunkTimes`)."""
+        return {"replays": self.replays, "steps": self.steps,
                 "calls": sum(g.replays * c for g, c, _ in self.calls_by_graph),
-                "rows": sum(g.replays * c * r for g, c, r in self.calls_by_graph)}
+                "rows": sum(g.replays * c * r for g, c, r in self.calls_by_graph),
+                **self.times.record()}
 
 
 class _StretchChunks(_Chunks):
@@ -230,12 +234,14 @@ class _StretchChunks(_Chunks):
         self.check(state, nsteps)
         coords, lp, g, accepted = state
         w, d, hl = self.w, self.d, self.w // 2
+        self.times.start()
         _store([t[:nsteps] for t in self.draws], stretch.chunk_draws(g, nsteps, hl, self.dev))
         _store((self.c2, self.lp2, self.acc2),
                (coords.reshape(2, hl, d), lp.reshape(2, hl), accepted.reshape(2, hl)))
         self.step.zero_()
         for _ in range(nsteps):
             self.graph.replay()
+        self.times.stop()
         self.steps += nsteps
         new = stretch.EnsembleState(self.c2.reshape(w, d).clone(), self.lp2.reshape(w).clone(),
                                     g, self.acc2.reshape(w).clone())
@@ -273,10 +279,12 @@ class _StateChunks(_Chunks):
 
     def __call__(self, state, nsteps: int):
         self.check(state, nsteps)
+        self.times.start()
         _store([self.bufs[n] for n in self.fields], [getattr(state, n) for n in self.fields])
         self.step.zero_()
         for _ in range(nsteps):
             self.graph.replay()
+        self.times.stop()
         self.steps += nsteps
         return (self._state(clone=True), self.chain[:nsteps].clone(),
                 self.lps[:nsteps].clone())
@@ -372,9 +380,14 @@ class _SliceChunks(_Chunks):
                                           self.counts, self.chain, self.lps, self.step])
                     for h in (0, 1)]
 
+    def _replay(self, graph: StepGraph) -> None:
+        """A replay, which ends the host's turnaround after a condition read."""
+        graph.replay()
+        self.flags.launched()
+
     def _loop(self, graph: StepGraph) -> None:
         def body(it: int) -> torch.Tensor:
-            graph.replay()
+            self._replay(graph)
             return self.more
 
         slicemove.late_loop(body, self.max_steps, self.flags)
@@ -383,6 +396,7 @@ class _SliceChunks(_Chunks):
         self.check(state, nsteps)
         coords, lp, g, mu, n_expand, n_contract = state
         w, d, hl = self.w, self.d, self.w // 2
+        self.times.start()
         _store([t[:nsteps] for t in self.draws], slicemove.chunk_draws(g, nsteps, hl, self.dev))
         _store((self.c2, self.lp2, self.mu, self.counts),
                (coords.reshape(2, hl, d), lp.reshape(2, hl), mu,
@@ -390,16 +404,25 @@ class _SliceChunks(_Chunks):
         self.step.zero_()
         for _ in range(nsteps):
             for h in (0, 1):
-                self.begin[h].replay()
+                self._replay(self.begin[h])
                 self._loop(self.out)
                 self._loop(self.inward)
-                self.end[h].replay()
+                self._replay(self.end[h])
+        self.times.stop()
         self.steps += nsteps
         counts = self.counts.clone()
         new = slicemove.SliceState(self.c2.reshape(w, d).clone(), self.lp2.reshape(w).clone(),
                                    g, mu, counts[0], counts[1])
         return (new, self.chain[:nsteps].reshape(nsteps, w, d).clone(),
                 self.lps[:nsteps].reshape(nsteps, w).clone())
+
+    def record(self) -> dict:
+        """:meth:`_Chunks.record` with the loops' condition reads, the
+        host's turnaround after them and the time the reads blocked
+        (:class:`~linna_tpu_torch.samplers.slicemove.LateFlags`)."""
+        return {**super().record(), "cond_reads": self.flags.reads,
+                "turnaround_s": self.flags.turnaround_s,
+                "cond_wait_s": self.flags.seconds["cond_wait"]}
 
 
 def graphed_chunks(method: str, log_prob_fn: Callable, state, capacity: int, *, a: float,

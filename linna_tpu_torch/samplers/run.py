@@ -67,6 +67,7 @@ from ..device import DeviceLike, resolve_device
 from ..ops import fused
 from ..parallel import mesh as ME
 from ..parallel import multihost as MH
+from ..utils.trace import span
 from . import backends, convergence, graphs, hmc, precondition, slicemove, stretch
 
 __all__ = ["run_ensemble", "EMCEE_FILENAME", "ZEUS_FILENAME", "GRADIENT_METHODS"]
@@ -179,7 +180,8 @@ def run_ensemble(
     graphs' capture under ``capture``, the sampling loop without the
     capture under ``loop``), step count, the kernels' launches and plain
     versions' calls this call made (``kernels``), and on a card the graphs'
-    replays and likelihood calls (``graphs``).  ``shard_walkers``: over
+    record (``graphs``: replays, likelihood calls, the card's seconds in and
+    between the chunks, and zeus's condition reads).  ``shard_walkers``: over
     several ranks, each advances its block of walkers when ``nwalkers``
     divides into two blocks per rank.
     """
@@ -283,12 +285,11 @@ def run_ensemble(
                 )
         if precond is None:
             # rank 0 searches; every rank samples in its space, bit for bit
-            t0 = time.perf_counter()
-            precond = MH.broadcast_from_primary(
-                lambda: precondition.calc_hess_mass_mat(log_prob_fn, np.mean(x0, axis=0),
-                                                        device=device)
-            )
-            ps["precond"] += time.perf_counter() - t0
+            with span("sampler.precond", ps):
+                precond = MH.broadcast_from_primary(
+                    lambda: precondition.calc_hess_mass_mat(log_prob_fn, np.mean(x0, axis=0),
+                                                            device=device)
+                )
             if primary:
                 _save_precond(pfile, precond)
         log_prob_fn = precond.wrap_log_prob(log_prob_fn, device=device)
@@ -302,11 +303,10 @@ def run_ensemble(
         nonlocal graphed
         if device.type == "cuda" and shard is None:
             if graphed is None:
-                t0 = time.perf_counter()
-                graphed = graphs.graphed_chunks(
-                    method, log_prob_fn, st, max(check_every, 100 if method == "emcee" else 0),
-                    a=a, n_leapfrog=n_leapfrog, max_depth=max_depth, max_steps=slice_max_steps)
-                ps["capture"] += time.perf_counter() - t0
+                with span("sampler.capture", ps):
+                    graphed = graphs.graphed_chunks(
+                        method, log_prob_fn, st, max(check_every, 100 if method == "emcee" else 0),
+                        a=a, n_leapfrog=n_leapfrog, max_depth=max_depth, max_steps=slice_max_steps)
             return graphed(st, nsteps)
         if method == "emcee":
             return stretch.stretch_chunk(log_prob_fn, st, nsteps, a, shard=shard)
@@ -384,19 +384,19 @@ def run_ensemble(
             old_tau = float(old_tau[0]) if old_tau.size else np.inf
         n_chunks_done = int(state_blob["_n_chunks_done"])
     else:
-        t0 = time.perf_counter()
-        x0_dev = take(torch.as_tensor(x0, device=device))
-        if method == "emcee":
-            state = stretch.init_state(rng, x0_dev, log_prob_fn)
-        elif method == "hmc":
-            state = hmc.init_hmc_state(rng, x0_dev, log_prob_fn, shard=shard)
-        elif method == "nuts":
-            state = hmc.init_nuts_state(rng, x0_dev, log_prob_fn, m_adapt=m_adapt, shard=shard)
-        else:
-            state = slicemove.init_slice_state(rng, x0_dev, log_prob_fn)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        ps["init"] += time.perf_counter() - t0
+        with span("sampler.init", ps):
+            x0_dev = take(torch.as_tensor(x0, device=device))
+            if method == "emcee":
+                state = stretch.init_state(rng, x0_dev, log_prob_fn)
+            elif method == "hmc":
+                state = hmc.init_hmc_state(rng, x0_dev, log_prob_fn, shard=shard)
+            elif method == "nuts":
+                state = hmc.init_nuts_state(rng, x0_dev, log_prob_fn, m_adapt=m_adapt,
+                                            shard=shard)
+            else:
+                state = slicemove.init_slice_state(rng, x0_dev, log_prob_fn)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
     next_tau_iter = iteration
     last_tau_iter = iteration
     if state_blob is not None and "_next_tau_iter" in state_blob:
@@ -494,9 +494,8 @@ def run_ensemble(
         # a chain that stopped converged is re-tested under the current
         # criteria before anything is sampled, and returned untouched if it
         # still passes
-        t_tc = time.perf_counter()
-        already_done, _ = _tau_check()
-        ps["tau_checks"] += time.perf_counter() - t_tc
+        with span("sampler.tau_checks", ps):
+            already_done, _ = _tau_check()
         if already_done:
             converged_flag = True
             _finish_trace()
@@ -592,32 +591,32 @@ def run_ensemble(
     # same order on every rank.
     last_blob = None
     worker = ThreadPoolExecutor(1, thread_name_prefix="linna-consumer") if shard is None else None
-    t_loop, capture_before = time.perf_counter(), ps["capture"]
-    try:
-        pending = None
-        while iteration < max_iterations:
-            t0 = time.perf_counter()
-            if pending is None:
-                pending = _advance(state)
-            state, chain, lps = pending
-            if method == "zeus" and n_chunks_done < tune_chunks:
-                state = slicemove.tune_mu(state)
-            snap = _snapshot(state, chain, lps)
-            more = iteration + check_every < max_iterations
-            iteration += check_every
-            n_chunks_done += 1
-            job = worker.submit(_consume, snap) if worker is not None else None
-            pending = _advance(state) if more else None
-            ps["dispatch"] += time.perf_counter() - t0
-            stop = job.result() if job is not None else _consume(snap)
-            if stop:
-                break
-    finally:
-        if worker is not None:
-            worker.shutdown(wait=True)
+    capture_before = ps["capture"]
+    with span("sampler.loop", ps):
+        try:
+            pending = None
+            while iteration < max_iterations:
+                with span("sampler.dispatch", ps):
+                    if pending is None:
+                        pending = _advance(state)
+                    state, chain, lps = pending
+                    if method == "zeus" and n_chunks_done < tune_chunks:
+                        state = slicemove.tune_mu(state)
+                    snap = _snapshot(state, chain, lps)
+                    more = iteration + check_every < max_iterations
+                    iteration += check_every
+                    n_chunks_done += 1
+                    job = worker.submit(_consume, snap) if worker is not None else None
+                    pending = _advance(state) if more else None
+                stop = job.result() if job is not None else _consume(snap)
+                if stop:
+                    break
+        finally:
+            if worker is not None:
+                worker.shutdown(wait=True)
     # the graphs captured at the first chunk are timed under capture alone
     captured = ps["capture"] - capture_before
-    ps["loop"] += time.perf_counter() - t_loop - captured
+    ps["loop"] -= captured
     ps["dispatch"] -= captured
     if graphed is not None and trace_rec is not None:
         trace_rec["graphs"] = graphed.record()

@@ -42,11 +42,13 @@ and are summed over the ranks once per chunk (one all-reduce).
 
 from __future__ import annotations
 
+import time
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from ..parallel import multihost as MH
+from ..utils.trace import span
 
 __all__ = ["SliceState", "init_slice_state", "slice_chunk", "tune_mu"]
 
@@ -100,7 +102,13 @@ CONDITION_LAG = 0
 class LateFlags:
     """A ring of ``lag + 1`` loop conditions copied to the host: on a card
     into pinned memory behind an event each, read after the event; on the
-    CPU the copy has finished when it returns."""
+    CPU the copy has finished when it returns.
+
+    ``reads`` counts the reads and ``seconds["cond_wait"]`` sums the time
+    they blocked (each a ``sampler.cond_wait`` span).  ``turnaround_s``
+    sums the host's time from each read having the flag to the next
+    :meth:`launched`, which the caller calls as a replay returns: at lag 0
+    the card has nothing queued in it."""
 
     def __init__(self, device, lag: int):
         device = torch.device(device)
@@ -108,6 +116,10 @@ class LateFlags:
         cuda = device.type == "cuda"
         self.host = torch.zeros(self.lag + 1, dtype=torch.bool, pin_memory=cuda)
         self.events = [torch.cuda.Event() for _ in range(self.lag + 1)] if cuda else None
+        self.reads = 0
+        self.seconds = {"cond_wait": 0.0}
+        self.turnaround_s = 0.0
+        self._read_at: Optional[float] = None
 
     def post(self, it: int, flag: torch.Tensor) -> None:
         slot = it % len(self.host)
@@ -117,9 +129,18 @@ class LateFlags:
 
     def read(self, it: int) -> bool:
         slot = it % len(self.host)
-        if self.events is not None:
-            self.events[slot].synchronize()
-        return bool(self.host[slot])
+        with span("sampler.cond_wait", self.seconds):
+            if self.events is not None:
+                self.events[slot].synchronize()
+            flag = bool(self.host[slot])
+            self._read_at = time.perf_counter()
+        self.reads += 1
+        return flag
+
+    def launched(self) -> None:
+        if self._read_at is not None:
+            self.turnaround_s += time.perf_counter() - self._read_at
+            self._read_at = None
 
 
 def late_loop(body: Callable[[int], torch.Tensor], max_steps: int, flags: LateFlags) -> int:

@@ -71,7 +71,6 @@ spec refuses it, as in the JAX package.
 from __future__ import annotations
 
 import os
-import time
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -85,6 +84,7 @@ from .parallel import multihost as MH
 from .transforms import TransformSet
 from .utils import checkpoint as ckpt
 from .utils import plots
+from .utils.trace import span
 
 __all__ = [
     "EarlyStopping",
@@ -829,12 +829,13 @@ class _MemberStack:
         memory out again only after the copy has run."""
         bs = self._batch_size
         keep = max(n // bs, 1) * bs
-        host = torch.empty((n_epochs, len(self.local), min(keep, n)), dtype=torch.int64,
-                           pin_memory=self.device.type == "cuda")
-        for e in range(n_epochs):
-            for j, m in enumerate(self.local):
-                host[e, j] = torch.randperm(n, generator=self.gens[m])[:keep]
-        return host.to(self.device, non_blocking=True)
+        with span("trainer.draw_perms"):
+            host = torch.empty((n_epochs, len(self.local), min(keep, n)), dtype=torch.int64,
+                               pin_memory=self.device.type == "cuda")
+            for e in range(n_epochs):
+                for j, m in enumerate(self.local):
+                    host[e, j] = torch.randperm(n, generator=self.gens[m])[:keep]
+            return host.to(self.device, non_blocking=True)
 
     def _lr_sweep(self, data: _Data, order: np.ndarray, lrs: np.ndarray) -> np.ndarray:
         """The range test's raw loss traces f32[K, num_iter] (as float64):
@@ -1032,9 +1033,8 @@ class _MemberStack:
         }
         self.graphs = {}
         if auto_lr:
-            t0 = time.perf_counter()
-            self.lrs = self._auto_lr(data)
-            ps["auto_lr"] += time.perf_counter() - t0
+            with span("trainer.auto_lr", ps):
+                self.lrs = self._auto_lr(data)
         self.lrs = self.lrs * lr_scale
         if initfrombest:
             for m in range(k_members):
@@ -1044,9 +1044,8 @@ class _MemberStack:
                 t.zero_()
         self._set_hypers()
         # this call's chunk program, its graphs captured now on a card
-        t0 = time.perf_counter()
-        self._epoch_program(data, nb, self.epochs_per_dispatch)
-        ps["capture"] += time.perf_counter() - t0
+        with span("trainer.capture", ps):
+            self._epoch_program(data, nb, self.epochs_per_dispatch)
 
         sups = [
             Supervisor(self.lrs[m], self.wds[m], verbose=verbose,
@@ -1065,33 +1064,29 @@ class _MemberStack:
         while i < num_epochs and not all(s.stopped for s in sups):
             if pending is None:
                 k = sched.k_at(i, num_epochs)
-                t0 = time.perf_counter()
-                outs = self._epochs_tracked(self._draw_perms(k, n), data)
-                ps["dispatch"] += time.perf_counter() - t0
+                with span("trainer.dispatch", ps):
+                    outs = self._epochs_tracked(self._draw_perms(k, n), data)
             else:
                 (k, outs), pending = pending, None
             losses_k, vms_k, corrs_k, best_val, best_flat = outs
             # one fetch of every member's chunk metrics (the only host sync
             # of a chunk; a gather over the ranks with a mesh), started
             # before chunk k+1 is enqueued
-            t1 = time.perf_counter()
-            parts = [losses_k, vms_k, best_val] + ([corrs_k] if corrs_k is not None else [])
-            fetch = self._fetch_start(parts, [1, 1, 0, 1][:len(parts)])
-            ps["wait_fetch"] += time.perf_counter() - t1
+            with span("trainer.wait_fetch", ps):
+                parts = [losses_k, vms_k, best_val] + ([corrs_k] if corrs_k is not None else [])
+                fetch = self._fetch_start(parts, [1, 1, 0, 1][:len(parts)])
 
             # speculate only after a quiet chunk, with chunk k assumed quiet
             k2 = sched.k_at(i + k, num_epochs, quiet=sched.quiet + 1)
             restore = None
             if k2 > 0 and self.speculative_dispatch and sched.quiet >= 1:
-                t0 = time.perf_counter()
-                restore = (self.flat.clone(), AdamWState(*(t.clone() for t in self.opt)))
-                outs2 = self._epochs_tracked(self._draw_perms(k2, n), data)
-                self.speculation["speculated"] += 1
-                ps["dispatch"] += time.perf_counter() - t0
+                with span("trainer.dispatch", ps):
+                    restore = (self.flat.clone(), AdamWState(*(t.clone() for t in self.opt)))
+                    outs2 = self._epochs_tracked(self._draw_perms(k2, n), data)
+                    self.speculation["speculated"] += 1
 
-            t1 = time.perf_counter()
-            pieces = fetch()
-            ps["wait_fetch"] += time.perf_counter() - t1
+            with span("trainer.wait_fetch", ps):
+                pieces = fetch()
             losses_k = pieces[0]
             vms_k = pieces[1].astype(np.float64)
             cbv = pieces[2].astype(np.float64)
@@ -1124,60 +1119,55 @@ class _MemberStack:
                     restore = None
                     self.speculation["dropped"] += 1
 
-            t0 = time.perf_counter()
-            intervened = [False] * k_members
-            hyper_changed = False
-            for j in range(k):
-                for m in range(k_members):
-                    batch_losses = losses_k[j, m]
-                    train_losses[m].extend(batch_losses.tolist())
-                    vm = vms_k[j, m]
-                    val_metrics[m].append(vm)
-                    action = sups[m].step(i + j, vm, float(batch_losses[-1]), float(eigs_k[j, m]),
-                                          suppressed=intervened[m])
-                    if action in ("reinit", "reload", "hyper"):
-                        drop_speculation()
-                    if action == "reinit":
-                        self.lrs[m] = sups[m].lr
-                        self._reinit_member(m)
-                        hyper_changed = intervened[m] = True
-                    elif action == "reload":
-                        self.lrs[m] = sups[m].lr
-                        if not self._load_best_member(m):
+            with span("trainer.supervisor", ps):
+                intervened = [False] * k_members
+                hyper_changed = False
+                for j in range(k):
+                    for m in range(k_members):
+                        batch_losses = losses_k[j, m]
+                        train_losses[m].extend(batch_losses.tolist())
+                        vm = vms_k[j, m]
+                        val_metrics[m].append(vm)
+                        action = sups[m].step(i + j, vm, float(batch_losses[-1]),
+                                              float(eigs_k[j, m]), suppressed=intervened[m])
+                        if action in ("reinit", "reload", "hyper"):
+                            drop_speculation()
+                        if action == "reinit":
+                            self.lrs[m] = sups[m].lr
                             self._reinit_member(m)
-                        self._reset_optimizer(m)
-                        hyper_changed = intervened[m] = True
-                    elif action == "hyper":
-                        self.lrs[m], self.wds[m] = sups[m].lr, sups[m].wd
-                        hyper_changed = True
-            if hyper_changed:
-                self._set_hypers()
-            if all(s.stopped for s in sups):
-                drop_speculation()
-            if restore is not None:
-                pending = (k2, outs2)
-            ps["supervisor"] += time.perf_counter() - t0
+                            hyper_changed = intervened[m] = True
+                        elif action == "reload":
+                            self.lrs[m] = sups[m].lr
+                            if not self._load_best_member(m):
+                                self._reinit_member(m)
+                            self._reset_optimizer(m)
+                            hyper_changed = intervened[m] = True
+                        elif action == "hyper":
+                            self.lrs[m], self.wds[m] = sups[m].lr, sups[m].wd
+                            hyper_changed = True
+                if hyper_changed:
+                    self._set_hypers()
+                if all(s.stopped for s in sups):
+                    drop_speculation()
+                if restore is not None:
+                    pending = (k2, outs2)
             sched.observe(any(intervened))
 
             i += k
-            t0 = time.perf_counter()
-            self._save(i - 1)
-            ps["save"] += time.perf_counter() - t0
+            with span("trainer.save", ps):
+                self._save(i - 1)
             if (self._plot_first_chunk and last_plot == 0) or i - last_plot >= 500:
                 last_plot = i
-                t0 = time.perf_counter()
-                self._plot("training_progress.png", train_losses, val_metrics, nb)
-                ps["plot"] += time.perf_counter() - t0
+                with span("trainer.plot", ps):
+                    self._plot("training_progress.png", train_losses, val_metrics, nb)
 
         self.epochs_run = i
         self.graphs["epochs"] = self._program.record()
         self._program = None
-        t0 = time.perf_counter()
-        self._save(num_epochs - 1, force=True)
-        ps["save"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        self._plot("trainniing.png", train_losses, val_metrics, nb)
-        ps["plot"] += time.perf_counter() - t0
+        with span("trainer.save", ps):
+            self._save(num_epochs - 1, force=True)
+        with span("trainer.plot", ps):
+            self._plot("trainniing.png", train_losses, val_metrics, nb)
         return train_losses, val_metrics
 
 

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from .samplers.graphs import StepGraph
+from .utils.trace import ChunkTimes
 
 __all__ = ["EpochProgram", "lr_sweep"]
 
@@ -110,6 +111,7 @@ class EpochProgram(_Program):
         self.step_i = self.zeros(dtype=torch.int64)
         self.epoch_i = self.zeros(dtype=torch.int64)
         self.chunks = self.epochs = 0
+        self.times = ChunkTimes() if graphed else None
 
         def step():
             idx = self.perm_rows.index_select(0, self.step_i)[0]
@@ -147,6 +149,9 @@ class EpochProgram(_Program):
         if not 0 < n_ep <= self.capacity or tuple(perms.shape[1:]) != (k, nb * bs):
             raise ValueError(f"perms {tuple(perms.shape)}; the program holds {self.capacity} "
                              f"epochs of ({k}, {nb * bs})")
+        times = self.times
+        if times is not None:
+            times.start()
         with torch.no_grad():
             self.perm_rows[:n_ep * nb].view(n_ep, nb, k, bs).copy_(
                 perms.reshape(n_ep, k, nb, bs).transpose(1, 2))
@@ -154,10 +159,14 @@ class EpochProgram(_Program):
             self.epoch_i.zero_()
             self.best_val.fill_(torch.inf)
             self.best_flat.copy_(self.stack.flat)
-        for _ in range(n_ep):
+        for e in range(n_ep):
             for _ in range(nb):
                 self.step()
+            if times is not None and e == n_ep - 1:
+                times.mark()
             self.end()
+        if times is not None:
+            times.stop()
         self.chunks += 1
         self.epochs += n_ep
         losses = self.losses[:n_ep * nb].view(n_ep, nb, k).transpose(1, 2)
@@ -166,10 +175,15 @@ class EpochProgram(_Program):
             _copy(self.best_flat)
 
     def record(self) -> dict:
-        """Graphs, capture seconds, replays, chunks and epochs run."""
-        return {"graphed": self.graphed, "graphs": len(self.graphs), "capture_s": self.capture_s,
-                "replays": self.replays, "chunks": self.chunks, "epochs": self.epochs,
-                "minibatches_per_epoch": self.nb}
+        """Replays, chunks and epochs run; graphed, the card's seconds in
+        the chunks and between them (``chunk_s``, ``between_chunks_s``) and
+        each chunk's last epoch end (``epoch_end_s``), from
+        :class:`~linna_tpu_torch.utils.trace.ChunkTimes`."""
+        rec = {"graphed": self.graphed, "replays": self.replays, "chunks": self.chunks,
+               "epochs": self.epochs, "minibatches_per_epoch": self.nb}
+        if self.times is not None:
+            rec.update(self.times.record(), epoch_end_s=list(self.times.split_s))
+        return rec
 
 
 def lr_sweep(stack, data, order: np.ndarray, lrs: np.ndarray, opt, graphed: bool,

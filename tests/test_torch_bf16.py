@@ -180,6 +180,8 @@ def test_train_emulator_in_bf16_records_it_and_saves_a_float32_moment(tmp_path):
                       {"num_epochs": 4, "batch_size": 16, "nensemble": 2,
                        "train_compute_dtype": "bfloat16"}, trace_rec=rec, device="cpu")
     assert rec["compute_dtype"] == "torch.bfloat16"
+    # the trainer's chunk record, as trace.json holds it (eager: no device times)
+    assert rec["graphs"]["epochs"] == rec["epochs_run"] and not rec["graphs"]["graphed"]
     _, opt, _ = ckpt.load_checkpoint(os.path.join(d, "last.ckpt.npz"), device="cpu")
     mu = dict(_walk(opt["mu"]))
     assert all(v.dtype == torch.float32 for v in mu.values())
