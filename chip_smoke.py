@@ -19,18 +19,20 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    in both; ypositive), both gradients, and the device time per launch with
    each kernel's launch shape and its bounds: ``fused_apply`` at 128, 256
    and 4096 rows (one cooperative launch of 64 x 64 output tiles),
-   ``fused_log_prob`` at the sampler's 128 and 256 (clusters of 8 blocks,
-   and how many the card holds at once).  Both kernels also against their
-   plain versions at the LSST-Y10 width (40 -> 1560): ``fused_apply`` at
-   128, 256 and 4096 rows, ``fused_log_prob`` at 1, 37, 128 and 256 (every
-   row count 13b launches it at), where a block's shared memory holds 8
-   walkers of its cluster, not 16; both timed there too (``fused_log_prob``
-   at 128 and 256), with their bounds at that width.  Each
-   kernel's time counts its own device events in torch.profiler and fails
-   unless it saw one per launch (shown once on a deliberate mismatch).
-   The same 16 rows inside 16-, 128- and 256-row batches (8, 16 and 24
-   walkers per cluster) must give the same ``fused_log_prob`` values bit
-   for bit (the plain composition's shown beside them).
+   ``fused_log_prob`` at the sampler's 128 and 256 (its cluster design at
+   this width: clusters of 8 blocks, and how many the card holds at once).
+   Both kernels also against their plain versions at the LSST-Y10 width
+   (40 -> 1560): ``fused_apply`` at 128, 256 and 4096 rows,
+   ``fused_log_prob`` at 1, 37, 128 and 256 (every row count 13b launches
+   it at) in its tiled design (one cooperative launch of tensor-core tiles;
+   a cluster block there holds 8 walkers, not the 16 the cluster design
+   asks for: ops/fused.py, log_prob_design); both timed there too
+   (``fused_log_prob`` at 128 and 256), with their bounds at that width.
+   Each kernel's time counts its own device events in torch.profiler and
+   fails unless it saw one per launch (shown once on a deliberate
+   mismatch).  The same 16 rows inside 16-, 128- and 256-row batches must
+   give the same ``fused_log_prob`` values bit for bit at both widths (the
+   plain composition's shown beside them).
 4. The sampling stage of one ``ml_sampler_core`` iteration on a DES-width
    iteration directory written with the port's own writers:
    ``retrieve_model`` -> ``make_log_prob(use_fused=True, temperature=16)``
@@ -379,8 +381,11 @@ REPLACES = {
     "fused_apply": "linna_tpu/ops/fused.py:138",
     "fused_log_prob": "linna_tpu/ops/fused.py:250",
 }
-# each kernel's name in the compiler's report and the profiler's events
-KERNEL_NAMES = {"fused_apply": "fused_apply_kernel", "fused_log_prob": "fused_log_prob_kernel"}
+# each kernel's name in the compiler's report and the profiler's events:
+# fused_log_prob's tiled design, and its cluster design for narrow models
+# (ops/fused.py, log_prob_design; launch_shape names the one a width runs)
+KERNEL_NAMES = {"fused_apply": "fused_apply_kernel", "fused_log_prob": "fused_log_prob_kernel",
+                "fused_log_prob_cluster": "fused_log_prob_cluster_kernel"}
 
 
 def log(*a) -> None:
@@ -688,7 +693,8 @@ def phase_kernels(device, batches=BATCHES, timed=TIMED_ROWS, ndim=NDIM, ndata=ND
             r = rec[k]
             for b in rows:
                 x = torch.randn((b, ndim), generator=gen).to(device)
-                r["ms"][b], r["method"] = device_ms(lambda: kern(x), KERNEL_NAMES[k])
+                name = F.launch_shape(spec, b, k).get("kernel", KERNEL_NAMES[k])
+                r["ms"][b], r["method"] = device_ms(lambda: kern(x), name)
                 r["plain_ms"][b], r["plain_method"] = device_ms(lambda: plain(x))
                 r["call_ms"][b] = call_ms(lambda: kern(x))
                 r["plain_call_ms"][b] = call_ms(lambda: plain(x))
@@ -708,7 +714,8 @@ def phase_kernels(device, batches=BATCHES, timed=TIMED_ROWS, ndim=NDIM, ndata=ND
             r = rec[k]["wide"]
             for b in rows:
                 x = torch.randn((b, wide[0]), generator=gen).to(device)
-                r["ms"][b], _ = device_ms(lambda: kern(x), KERNEL_NAMES[k])
+                name = F.launch_shape(wspec, b, k).get("kernel", KERNEL_NAMES[k])
+                r["ms"][b], _ = device_ms(lambda: kern(x), name)
                 r["plain_ms"][b], _ = device_ms(lambda: plain(x))
                 r["bound"][b] = bound_ms(k, wspec, wparams, b)
                 bd = r["bound"][b]
@@ -718,7 +725,11 @@ def phase_kernels(device, batches=BATCHES, timed=TIMED_ROWS, ndim=NDIM, ndata=ND
                     f"{bd['tf32x3_tensor_core_ms']:.4f}, bytes {bd['bytes_ms']:.4f})")
     wide_shapes = rec["fused_log_prob"]["wide"]["shape"]
     for b, shape in [*rec["fused_log_prob"]["shape"].items(), *wide_shapes.items()]:
-        if shape["cluster_size"] != 8 or shape["max_active_clusters"] < 1:
+        if shape["design"] == "cluster":
+            fits = shape["cluster_size"] == 8 and shape["max_active_clusters"] >= 1
+        else:  # one cooperative launch: every block resident at once
+            fits = 1 <= shape["blocks"] <= shape["capacity"] == shape["sms"] * shape["blocks_per_sm"]
+        if not fits:
             raise AssertionError(f"fused_log_prob B={b}: launch shape {shape}")
     return rec
 
@@ -727,7 +738,7 @@ def row_dependence(device, rows=16, batches=(16, 128, 256), ndim=NDIM, ndata=NDA
     """The same ``rows`` walkers evaluated first in a batch of their own and
     then as the first rows of larger ``batches`` (the rest random), through
     ``fused_log_prob`` and through the plain composition: for each batch,
-    the kernel's walkers per cluster and each route's largest difference
+    the kernel's design and blocks and each route's largest difference
     from the ``rows``-row batch (0 where a row's value does not depend on
     the rows launched beside it).  On a card the kernel's differences must
     be 0: its sums follow the model's width, not the launch's rows."""
@@ -744,8 +755,8 @@ def row_dependence(device, rows=16, batches=(16, 128, 256), ndim=NDIM, ndata=NDA
     with torch.no_grad():
         first = {r: lp(x[:rows]) for r, lp in lps.items()}
         for b in batches:
-            rec = {"walkers_per_cluster": F.launch_shape(spec, b, "fused_log_prob")[
-                "walkers_per_cluster"] if device.type == "cuda" else None}
+            shape = F.launch_shape(spec, b, "fused_log_prob") if device.type == "cuda" else {}
+            rec = {"design": shape.get("design"), "blocks": shape.get("blocks")}
             for r, lp in lps.items():
                 rec[f"{r}_max_abs_diff"] = _apart(lp(x[:b])[:rows], first[r])
             res["batches"][b] = rec
@@ -3780,6 +3791,8 @@ def main() -> int:
     t0 = time.perf_counter()
     rec = phase_kernels(device)
     rec["fused_log_prob"]["row_dependence"] = row_dependence(device)
+    rec["fused_log_prob"]["row_dependence_lsst"] = row_dependence(device, ndim=WIDE[0],
+                                                                  ndata=WIDE[1])
     seconds[3] = time.perf_counter() - t0
 
     log("== 4. sampling slice")
@@ -3987,8 +4000,10 @@ def main() -> int:
             "lsst_plain_ms_by_rows": r["wide"]["plain_ms"],
             "lsst_bound_by_rows": r["wide"]["bound"],
             "lsst_launch_shape_by_rows": r["wide"]["shape"],
-            **({"row_dependence": r["row_dependence"]} if "row_dependence" in r else {}),
+            **{key: r[key] for key in ("row_dependence", "row_dependence_lsst") if key in r},
             **resources.get(k, {}),
+            **({"cluster_design": resources.get("fused_log_prob_cluster", {})}
+               if k == "fused_log_prob" else {}),
             "check": "pass",
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,79 +6,78 @@
 //
 // What bounds them: per walker 2.52 MFLOP for the trunk (+0.42 MFLOP for the
 // 457x457 chi^2 product) against 5.03 MB (+0.84 MB) of weights per launch at
-// the DES width (27 -> 457, hidden 1000), so operations bound the work, not
-// bytes.  On the TPU every weight sits in VMEM for the whole launch.  Here
-// the weights are far above one SM's 227 KB of shared memory, so they stream
-// from global memory (they stay resident in the 50 MB L2 across blocks and
-// launches).
+// the DES width (27 -> 457, hidden 1000); 8.10 MFLOP (+4.87) against 16.2 MB
+// (+9.73) at the LSST width (40 -> 1560).  On the TPU every weight sits in
+// VMEM for the whole launch.  Here the weights are far above one SM's 227 KB
+// of shared memory, so they stream from global memory (they stay resident in
+// the 50 MB L2 across blocks and launches).
 //
-// fused_apply_kernel, on the tensor cores.  Its f32 work at 4096 rows is
-// 10.3 GFLOP: 0.154 ms at the 67 TFLOP/s of the CUDA cores.  f32 accuracy on
-// the TF32 tensor cores takes three products per product (3xTF32: each
-// operand split into a TF32 big part and the remainder; a_small*b_big +
-// a_big*b_small, then a_big*b_big, summed in f32), so its bound there is
-// 3 x FLOPs / 494.7 TFLOP/s: 0.0625 ms at 4096 rows, 0.0039 ms at 256.  The
-// design: one cooperative launch of SMs x 4 blocks, which walk the work
-// items of the trunk's 10 products in turn, with a grid barrier after each
+// fused_log_prob has two designs, and the host picks one by the model's
+// widths alone (ops/fused.py, log_prob_design): the tiled design, on the
+// tensor cores like fused_apply, and the cluster design, on the CUDA cores,
+// where a cluster of 8 blocks holds 16 or more walkers' activations (the
+// DES width: 24; the LSST width: 8).
+//
+// The tiled designs (fused_apply_kernel, fused_log_prob_kernel): f32
+// accuracy on the TF32 tensor cores takes three products per product
+// (3xTF32: each operand split into a TF32 big part and the remainder;
+// a_small*b_big + a_big*b_small, then a_big*b_big, summed in f32).  The
+// trunk's f32 work at 4096 rows is 10.3 GFLOP at the DES width: 0.154 ms at
+// the 67 TFLOP/s of the CUDA cores, 3 x FLOPs / 494.7 TFLOP/s = 0.0625 ms in
+// 3xTF32, 0.0039 ms at 256 rows.  One cooperative launch, whose blocks walk
+// the work items of the products in turn, with a grid barrier after each
 // product.  lin1 and skip of a residual block read the same input and form
 // one product of two segments.  The activations live in a global scratch
 // (two ping-pong buffers and the inner-channel buffer, row strides
-// multiples of 4 floats; ~33 MB at 4096 rows, so they stay in L2 beside
-// the weights).  A work item is a 64 x 64 output tile: 4 warps of
-// mma.sync.m16n8k8 TF32, each warp a 32 x 32 quarter; K runs in chunks of
-// 32 staged by cp.async into a 3-stage ring in shared memory, so the next
-// chunks' copies overlap this chunk's products.  Each weight is thus read
-// from L2 once per 64-row tile, and each value staged in shared memory
-// feeds a whole fragment.  The epilogue runs on the accumulators in
-// registers: bias, alpha, the skip output a residual block's lin2 adds,
-// relu per segment, and stores of rows < nrows only, every load before any
-// store.  At the sampler's 128-256 rows a product has only 4-64 tiles, and
-// one block walks a tile's k-chunks in sequence, so a product with fewer
-// tiles than blocks splits its k-chunks over more blocks (at least 2
-// chunks each); their partial tiles go to the scratch, and after one more
-// grid barrier every block sums a share of them in a fixed order and
-// applies the epilogue.  The scratch is written by other SMs before a
-// barrier, so it is read only through L2 (cp.async.cg, ld.global.cg),
-// never through the read-only or L1 path.  On the card (PERF.md) the
-// k-loop is bound by L2 bandwidth for the tiles that each block re-reads
-// and by the instructions that feed mma.sync (the splits, the fragment
-// loads), not by the tensor cores.
+// multiples of 4 floats), small enough to stay in L2 beside the weights.  A
+// work item is a 64 x 64 output tile: 4 warps of mma.sync.m16n8k8 TF32,
+// each warp a 32 x 32 quarter; K runs in chunks of 32 staged by cp.async
+// into a ring of stages in shared memory, so the next chunks' copies
+// overlap this chunk's products.  Each weight is thus read from L2 once per
+// 64-row tile, and each value staged in shared memory feeds a whole
+// fragment.  The epilogue runs on the accumulators in registers: bias,
+// alpha, the skip output a residual block's lin2 adds, relu per segment,
+// and stores of rows < nrows only, every load before any store.  At the
+// sampler's 128-256 rows a product has only 4-100 tiles, and one block
+// walks a tile's k-chunks in sequence, so a product with few tiles splits
+// its k-chunks over blocks (at least 2 chunks each); after one more grid
+// barrier all threads of the grid sum the partial tiles in the order 0, 1,
+// ... and apply the epilogue.  The scratch is written by other SMs before a
+// barrier, so it is read only through L2 (cp.async.cg, ld.global.cg), never
+// through the read-only or L1 path.  On the card (PERF.md) the k-loop is
+// bound by the instructions that feed mma.sync (the splits, the fragment
+// loads) and by L2, not by the tensor cores; a launch at the sampler's rows
+// is bound by the chain of products, each a few rounds of L2 latency and
+// one or two grid barriers (about 6 us a product at 128 rows).
 //
-// fused_log_prob_kernel: thread-block clusters of 8 blocks (the portable
-// cluster size).  A cluster takes R walkers and block rank q computes
-// columns [q N/8, (q+1) N/8) (edges rounded to multiples of 4) of every
-// product for all R walkers, so each weight is read from L2 once per
-// cluster.  Every block keeps the full-width activations of its cluster's
-// walkers; each product's epilogue writes its values into the destination
-// buffer of all 8 blocks through distributed shared memory, and one cluster
-// barrier per product completes them (it is the block barrier too, and
-// orders the ping-pong buffers' reuse).  lin1 and skip of a residual block
-// read the same input and run as one product.  The chi^2 product gives each
-// block its columns of C^-1 delta and their part of delta . C^-1 delta,
-// which rank 0 sums in a fixed order.  Every sum a row's value takes (each
-// product's k ranges, their partials in order, the chi^2 partials) follows
-// the model's width alone, never R: the k split is planned for the most
-// walkers a cluster can take at that width, so a row's value does not
-// depend on the rows launched beside it.
+// fused_apply_kernel: the trunk's 10 products, 4 blocks an SM; the split
+// follows the launch's tiles (it is the trunk on its own, with no promise
+// about rows launched together).
 //
-// What bounds it at the sampler's 128-256 walkers is latency, not the FMA
-// rate: a launch is a chain of 11 products, each a round of weight loads,
-// a split-K reduction, an epilogue and a cluster barrier (on-chip timings in
-// PERF.md).  So the 11 products run as one loop over a table in shared
-// memory (one code path, so the instruction cache stays warm); a thread task
-// is a tile of 8 walkers x 4 columns (each activation word read from shared
-// memory feeds 4 FMAs, each weight 8); the epilogue constants of a block's
-// columns are copied to shared memory once per launch; and the epilogue
-// does all its loads before any store into a peer.  R is 8, 16 or 24, the
-// fewest that let all of a launch's clusters be resident at once (a cluster
-// must fit in one GPC, and the H100's GPCs hold 15 clusters of 8 one-block
-// SMs, so 16 clusters of 8 walkers at 128 rows would take two waves), or
-// the most that fit a block's shared memory, in more than one wave.
+// fused_log_prob_kernel: a pass for layer 1's input (the prior transform of
+// the whitened walkers, the log10 lanes, standardized), then 11 products,
+// the trunk and the chi^2 product C^-1 delta; layer 8's epilogue gives
+// delta = destandardize(y) (exp when ypositive) * sigma - data.  The last
+// pass, one block a row, sums the chi^2 product's partial tiles, takes
+// delta . C^-1 delta, the unit-normal prior and the bad-row flag, and
+// writes the tempered log-posterior (-inf for a bad row or a NaN).  Every
+// sum a row's value takes follows the model's width alone, never nrows:
+// each product's k split is planned on the host from the widths
+// (ops/fused.py, log_prob_plan), its parts are summed in order, every
+// rounding of the epilogue is explicit, and where a launch has as many
+// tiles as the grid has blocks one block sums a tile's k ranges in the same
+// order (the `local` products: no partial tiles), to the same bits.  2
+// blocks an SM of 5 stages and up to 255 registers a thread: at the
+// sampler's rows the launch waits on L2 and barriers more than on issue,
+// and the larger ring and the spill-free registers ran faster than 3 or 4
+// blocks of 3 or 4 stages (PERF.md).  At the LSST width it reads each
+// weight once per 64-row tile in one wave, where the cluster design reads
+// them once per 8 walkers in 2-3 waves.
 //
 // Semantics kept from the TPU kernels: f32 accumulation; log10 lanes take
 // log10(max(x, 1e-30)) and flag the row when any masked physical value is
 // <= 0; such a row, or a NaN log-posterior, gives -inf.  Rows past the batch
-// are computed on zeros and never stored (no padding by repeating row 0).
+// are staged as zeros and never stored (no padding by repeating row 0).
 
 #include <algorithm>
 #include <cooperative_groups.h>
@@ -90,13 +89,14 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;  // threads per block of fused_log_prob_kernel
 constexpr int kWeights = 23;  // layer1 (2) + 3 resblocks (5 each) + layers 6/7/8 (2 each)
-constexpr int kCluster = 8;    // blocks per cluster of fused_log_prob_kernel
-// linna_fused_log_prob's return values when no cluster fits on the card, and
-// when the model is too wide for one block's threads or shared memory
-constexpr int kNoCluster = 1 << 20;
-constexpr int kTooWide = kNoCluster + 1;
+// linna_fused_log_prob's return value when the plan it is given does not
+// match the model's widths or the scratch; linna_fused_log_prob_cluster's
+// when no cluster of the launch's shape fits on the card, and when the
+// model is too wide for one block's threads or shared memory
+constexpr int kBadPlan = 1 << 20;
+constexpr int kNoCluster = kBadPlan + 1;
+constexpr int kTooWide = kBadPlan + 2;
 
 struct TrunkWeights {
   const float* w[kWeights];
@@ -106,7 +106,7 @@ struct TrunkDims {
   int in, h, h2, h4, h8, c1, c2, c3, l6, out;
   int width;  // row stride of the two activation buffers (>= every trunk width, multiple of 4)
   int hmax;   // row stride of the inner-channel buffer (multiple of 4)
-  int ldx;    // row stride of the whitened-input buffer (multiple of 4)
+  int ldx;    // row stride of a whitened-input buffer (multiple of 4)
 };
 
 struct LikeArgs {
@@ -125,30 +125,43 @@ struct LikeArgs {
   int ypositive;
 };
 
-// ------------------------------------------- fused_apply on the tensor cores
+// ------------------------------------------------- products on the tensor cores
 
 constexpr int kBM = 64;             // rows of an output tile
 constexpr int kBN = 64;             // columns of an output tile
 constexpr int kBK = 32;             // k of one stage of the ring
-constexpr int kStages = 3;          // stages of the cp.async ring
 constexpr int kWarpsM = 2;          // warps down a tile's rows
 constexpr int kWarpsN = 2;          // warps across its columns
 constexpr int kApplyThreads = 32 * kWarpsM * kWarpsN;
 constexpr int kMT = kBM / kWarpsM / 16;  // m16 fragments of a warp's part of the tile
 constexpr int kNT = kBN / kWarpsN / 8;   // n8 fragments
+constexpr int kTile = kBM * kBN;
 // Row strides of a stage's tiles in shared memory, padded so that the 32
 // lanes' fragment loads fall in 32 different banks.
 constexpr int kLdA = kBK + 4;
 constexpr int kLdW = kBN + 8;
 constexpr int kStageFloats = kBM * kLdA + kBK * kLdW;
-constexpr size_t kApplySmem = sizeof(float) * kStages * kStageFloats;
+// Stages of the cp.async ring and blocks an SM holds: fused_apply at 4
+// blocks of 3 stages (128 registers a thread); fused_log_prob at 3 blocks
+// of 4 stages (168 registers, almost no spill), whose launches at the
+// sampler's rows wait on L2 more than on the issue of the products.
+constexpr int kApplyStages = 3;
+constexpr int kApplyBlocksPerSM = 4;
+constexpr int kLikeStages = 5;
+constexpr int kLikeBlocksPerSM = 2;
+constexpr size_t kApplySmem = sizeof(float) * kApplyStages * kStageFloats;
+constexpr size_t kLikeSmem = sizeof(float) * kLikeStages * kStageFloats;
 // layer1, 3 x (lin1 | skip, lin2), layers 6, 7, 8
 constexpr int kApplyProducts = 10;
+// the same, then the chi^2 product
+constexpr int kLikeProducts = 11;
 // the fewest k-chunks of one part of a product split over blocks
 constexpr int kMinSplitChunks = 2;
 
 // One output segment of a product: out[r, c] = relu?((in[r, :] @ W[:, c] +
-// bias[c]) * alpha (+ out[r, c] when accum)) for c < n.
+// bias[c]) * alpha (+ out[r, c] when accum)) for c < n; when delta, that
+// value y then becomes (y * y_std[c] + y_mean[c], exp'd when ypositive) *
+// sigma[c] - data[c].
 struct ApplySeg {
   const float* W;     // [K, n], row-major
   const float* bias;  // [n] or nullptr
@@ -159,15 +172,19 @@ struct ApplySeg {
   float alpha;
   bool relu, accum;
   bool vec;           // W's rows are 16-byte aligned: 16-byte copies
+  bool delta;         // fused_log_prob's layer 8
 };
 
 // One product: segments that read the same input (a residual block's lin1
 // and skip; other products leave seg[1] empty).  Its k-chunks are split
-// into `split` ranges, each a work item of its own (plan_apply).
+// into `split` ranges, each a work item of its own whose partial tiles are
+// summed after a grid barrier, or, when `local`, all summed in order by the
+// block of the tile (run_product).
 struct ApplyProduct {
   const float* in;  // [nrows, K], row stride ld
   int ld, K;
   bool vec;         // in's rows are 16-byte aligned
+  bool local;
   int split;
   ApplySeg seg[2];
 };
@@ -226,6 +243,22 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "{%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The physical value of whitened lane k: the prior transform.
+__device__ __forceinline__ float physical(const LikeArgs& a, float xw, int k) {
+  const float lo = __ldg(a.arg1 + k), hi = __ldg(a.arg2 + k);
+  if (a.is_gauss[k]) return xw * hi + lo;
+  const float u = 0.5f * (1.f + erff(xw / 1.41421356237309515f));
+  return u * (hi - lo) + lo;
+}
+
+// Layer 1's input at lane k: the physical value, log10(max(v, 1e-30)) on a
+// log10 lane, standardized.
+__device__ __forceinline__ float standardized(const LikeArgs& a, float xw, int k) {
+  float v = physical(a, xw, k);
+  if (a.x_log10[k]) v = log10f(fmaxf(v, 1e-30f));
+  return (v - __ldg(a.x_mean + k)) / __ldg(a.x_std + k);
 }
 
 // What one tile reads: rows [row0, row0 + kBM) of `in` and columns
@@ -321,18 +354,48 @@ __device__ __forceinline__ void mma_chunk(const float* sa, const float* sw, int 
   }
 }
 
-// The output value of segment s from its sum v over k; skip: the output
-// lin2 adds to (0 for other segments).
-__device__ __forceinline__ float epilogue(const ApplySeg& s, float v, float bias, float skip) {
-  const float y = (v + bias) * s.alpha + skip;
-  return s.relu ? fmaxf(y, 0.f) : y;
+// The output value of segment s at column c from its sum v over k; skip:
+// the output lin2 adds to (0 for other segments); kLike: fused_log_prob's
+// kernel, whose layer 8 gives delta.  Rounded op by op (no contraction left
+// to the compiler), so that the two places that apply it to a product give
+// the same bits.
+template <bool kLike>
+__device__ __forceinline__ float epilogue(const ApplySeg& s, const LikeArgs* like, float v,
+                                          float bias, float skip, int c) {
+  float y = __fmaf_rn(__fadd_rn(v, bias), s.alpha, skip);
+  if (s.relu) y = fmaxf(y, 0.f);
+  if (kLike && s.delta) {
+    float m = __fmaf_rn(y, __ldg(like->y_std + c), __ldg(like->y_mean + c));
+    if (like->ypositive) m = expf(m);
+    y = __fmaf_rn(m, __ldg(like->sigma + c), -__ldg(like->data + c));
+  }
+  return y;
+}
+
+// How apply_tile sums a tile's k-chunks.
+enum class Sum {
+  kWhole,  // chunks [c0, c1) in one sum, then the epilogue, or the raw sums into `part`
+  kLocal,  // chunks [0, c1) in `split` parts, each from zero, added in order to a running
+           // total kept in `part` (this block's slab) between them: the sum the split
+           // products' partial tiles are given after a grid barrier, in one block
+};
+
+// The element (r, c) of a tile that fragment (i, j) half h of this lane
+// holds: acc[i][j][2h] at column c and acc[i][j][2h + 1] at c + 1.
+__device__ __forceinline__ int frag_at(int wm, int wn, int g, int q, int i, int j, int h) {
+  return (wm * kMT * 16 + i * 16 + g + h * 8) * kBN + wn * kNT * 8 + j * 8 + 2 * q;
 }
 
 // One 64 x 64 output tile of segment s of product P over k-chunks [c0, c1)
-// through the ring.  Then the epilogue from the accumulators, or, when P is
-// split, the raw sums into `part` ([kBM][kBN]).
-__device__ void apply_tile(const ApplyProduct& P, const ApplySeg& s, int nrows, int row0, int col0,
-                           int c0, int c1, float* part, float* smem) {
+// through the ring, summed as kHow says; then the epilogue from the
+// accumulators, or, for kWhole with `part`, the raw sums into it
+// ([kBM][kBN]).  kLocal gives the bits of a split product's partial tiles
+// summed in run_product: a part's sum starts from zero, and the parts add
+// to a total from zero in the order 0, 1, ..., rounded op by op.
+template <Sum kHow, int kStages, bool kLike>
+__device__ __forceinline__ void apply_tile(const ApplyProduct& P, const ApplySeg& s, int nrows,
+                                           int row0, int col0, int c0, int c1, int split,
+                                           float* part, float* smem, const LikeArgs* like) {
   const TileSrc t{P.in, s.W, P.ld, P.K, s.n, nrows, row0, col0, P.vec, s.vec};
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / kWarpsN, wn = warp % kWarpsN, g = lane / 4, q = lane % 4;
@@ -345,6 +408,8 @@ __device__ void apply_tile(const ApplyProduct& P, const ApplySeg& s, int nrows, 
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
     }
   }
+  // kLocal: the chunk that starts the next part (part r from r c1 / split)
+  int range = 0, range_end = kHow == Sum::kLocal ? c1 / split : c1;
   // chunk c goes to stage (c - c0) % kStages
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
@@ -362,22 +427,53 @@ __device__ void apply_tile(const ApplyProduct& P, const ApplySeg& s, int nrows, 
       load_chunk(t, (c + kStages - 1) * kBK, st, st + kBM * kLdA);
     }
     copy_commit();
+    if (kHow == Sum::kLocal && c == range_end) {
+      // the total so far (from zero at the first part) plus this part, kept
+      // in the slab; the next part starts from zero
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float2* at = reinterpret_cast<float2*>(part + frag_at(wm, wn, g, q, i, j, h));
+            const float2 v = range > 0 ? __ldcg(at) : make_float2(0.f, 0.f);
+            __stcg(at, make_float2(__fadd_rn(v.x, acc[i][j][2 * h]),
+                                   __fadd_rn(v.y, acc[i][j][2 * h + 1])));
+            acc[i][j][2 * h] = acc[i][j][2 * h + 1] = 0.f;
+          }
+        }
+      }
+      ++range;
+      range_end = (range + 1) * c1 / split;
+    }
     const float* st = smem + ((c - c0) % kStages) * kStageFloats;
     mma_chunk(st, st + kBM * kLdA, wm, wn, g, q, acc);
   }
   copy_wait<0>();
   __syncthreads();  // the ring is free for the next tile
 
-  if (part != nullptr) {
+  if (kHow == Sum::kLocal) {
 #pragma unroll
     for (int i = 0; i < kMT; ++i) {
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int r = wm * kMT * 16 + i * 16 + g + h * 8;
-          const int c = wn * kNT * 8 + j * 8 + 2 * q;
-          *reinterpret_cast<float2*>(part + r * kBN + c) =
+          const float2 v = __ldcg(reinterpret_cast<const float2*>(part + frag_at(wm, wn, g, q, i, j, h)));
+          acc[i][j][2 * h] = __fadd_rn(v.x, acc[i][j][2 * h]);
+          acc[i][j][2 * h + 1] = __fadd_rn(v.y, acc[i][j][2 * h + 1]);
+        }
+      }
+    }
+  } else if (part != nullptr) {
+#pragma unroll
+    for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          *reinterpret_cast<float2*>(part + frag_at(wm, wn, g, q, i, j, h)) =
               make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
         }
       }
@@ -419,7 +515,9 @@ __device__ void apply_tile(const ApplyProduct& P, const ApplySeg& s, int nrows, 
     for (int j = 0; j < kNT; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        acc[i][j][e] = epilogue(s, acc[i][j][e], bias[j][e % 2], skip[i][j][e]);
+        const int c = col0 + wn * kNT * 8 + j * 8 + 2 * q + e % 2;
+        acc[i][j][e] = epilogue<kLike>(s, like, acc[i][j][e], bias[j][e % 2], skip[i][j][e],
+                                       min(c, n - 1));
       }
     }
   }
@@ -446,59 +544,208 @@ __device__ __forceinline__ const ApplySeg& tile_of(const ApplyProduct& P, int ro
   return P.seg[ct < n0 ? 0 : 1];
 }
 
-// The trunk on nrows rows (ApplyPlan: make_apply_plan, plan_apply).  Each
-// product's work items (its tiles, or tiles x k ranges when it is split)
-// go round the grid's blocks; a grid barrier then makes the product's
-// outputs visible to every block before the next product reads them.  A
-// split product has one more barrier, after which its partial tiles are
-// summed in a fixed order and the epilogue applied, by all threads of the
-// grid.  4 blocks an SM (at most 128 registers a thread, ~100 bytes
-// spilled) ran faster at 4096 rows than 3 blocks without the spill.
-__global__ void __launch_bounds__(kApplyThreads, 4)
+// One product on nrows rows: its work items (its tiles, or tiles x k
+// ranges when it is split) go round the grid's blocks; `rank` is this
+// block's first.  A split product then waits at one more grid barrier,
+// after which all threads of the grid sum its partial tiles (`part`,
+// [tile][range][kBM][kBN]) in the order 0, 1, ... and apply the epilogue.
+// A local product's tiles each sum their ranges in one block, in the same
+// order, through the block's slab of `part`.  `reduce` false leaves a split product's partial tiles to the
+// caller.  kLike: fused_log_prob's kernel (local products, delta).
+template <int kStages, bool kLike>
+__device__ __forceinline__ void run_product(const ApplyProduct& P, int row_tiles, int nrows,
+                                            float* part, int rank, float* smem,
+                                            const LikeArgs* like, cg::grid_group& grid,
+                                            bool reduce = true) {
+  const int tiles = row_tiles * (P.seg[0].col_tiles + P.seg[1].col_tiles);
+  const int split = P.split, nk = (P.K + kBK - 1) / kBK;
+  if (kLike && P.local) {
+    for (int tile = rank; tile < tiles; tile += gridDim.x) {
+      int row0, col0;
+      const ApplySeg& s = tile_of(P, row_tiles, tile, row0, col0);
+      apply_tile<Sum::kLocal, kStages, kLike>(P, s, nrows, row0, col0, 0, nk, split,
+                                       part + (size_t)blockIdx.x * kTile, smem, like);
+    }
+    return;
+  }
+  for (int item = rank; item < tiles * split; item += gridDim.x) {
+    const int tile = item / split, range = item % split;
+    int row0, col0;
+    const ApplySeg& s = tile_of(P, row_tiles, tile, row0, col0);
+    apply_tile<Sum::kWhole, kStages, kLike>(P, s, nrows, row0, col0, range * nk / split,
+                                     (range + 1) * nk / split, split,
+                                     split > 1 ? part + (size_t)item * kTile : nullptr, smem, like);
+  }
+  if (split == 1 || !reduce) return;
+  grid.sync();
+  for (int e = rank * kApplyThreads + threadIdx.x; e < tiles * kTile;
+       e += gridDim.x * kApplyThreads) {
+    const int tile = e / kTile, at = e % kTile;
+    int row0, col0;
+    const ApplySeg& s = tile_of(P, row_tiles, tile, row0, col0);
+    const int r = row0 + at / kBN, c = col0 + at % kBN;
+    if (r >= nrows || c >= s.n) continue;
+    const float* sums = part + (size_t)tile * split * kTile + at;
+    float v = 0.f;
+#pragma unroll 4
+    for (int q = 0; q < split; ++q) v = __fadd_rn(v, __ldcg(sums + (size_t)q * kTile));
+    float* dst = s.out + (size_t)r * s.ld + c;
+    const float bias = s.bias != nullptr ? __ldg(s.bias + c) : 0.f;
+    *dst = epilogue<kLike>(s, like, v, bias, s.accum ? __ldcg(dst) : 0.f, c);
+  }
+}
+
+// The trunk on nrows rows (ApplyPlan: make_apply_plan, plan_apply), a grid
+// barrier after each product.  4 blocks an SM (at most 128 registers a
+// thread, ~100 bytes spilled) ran faster at 4096 rows than 3 blocks without
+// the spill.
+__global__ void __launch_bounds__(kApplyThreads, kApplyBlocksPerSM)
 fused_apply_kernel(const __grid_constant__ ApplyPlan plan) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   cg::grid_group grid = cg::this_grid();
-  constexpr int kTile = kBM * kBN;
   // the first work item of this block (plan_apply: a product with few
   // items spreads them over many SMs)
   const int rank = (int)((long long)blockIdx.x * plan.deal % gridDim.x);
 #pragma unroll 1
   for (int p = 0; p < kApplyProducts; ++p) {
-    const ApplyProduct& P = plan.prod[p];
-    const int tiles = plan.row_tiles * (P.seg[0].col_tiles + P.seg[1].col_tiles);
-    const int split = P.split, nk = (P.K + kBK - 1) / kBK;
-    for (int item = rank; item < tiles * split; item += gridDim.x) {
-      const int tile = item / split, part = item % split;
-      int row0, col0;
-      const ApplySeg& s = tile_of(P, plan.row_tiles, tile, row0, col0);
-      apply_tile(P, s, plan.nrows, row0, col0, part * nk / split, (part + 1) * nk / split,
-                 split > 1 ? plan.part + (size_t)item * kTile : nullptr, smem);
-    }
-    if (split > 1) {
-      grid.sync();
-      for (int e = rank * kApplyThreads + threadIdx.x; e < tiles * kTile;
-           e += gridDim.x * kApplyThreads) {
-        const int tile = e / kTile, at = e % kTile;
-        int row0, col0;
-        const ApplySeg& s = tile_of(P, plan.row_tiles, tile, row0, col0);
-        const int r = row0 + at / kBN, c = col0 + at % kBN;
-        if (r >= plan.nrows || c >= s.n) continue;
-        const float* sums = plan.part + (size_t)tile * split * kTile + at;
-        float v = 0.f;
-#pragma unroll 4
-        for (int q = 0; q < split; ++q) v += __ldcg(sums + (size_t)q * kTile);
-        float* dst = s.out + (size_t)r * s.ld + c;
-        const float bias = s.bias != nullptr ? __ldg(s.bias + c) : 0.f;
-        *dst = epilogue(s, v, bias, s.accum ? __ldcg(dst) : 0.f);
-      }
-    }
+    run_product<kApplyStages, false>(plan.prod[p], plan.row_tiles, plan.nrows, plan.part, rank,
+                                     smem, nullptr, grid);
     if (p + 1 < kApplyProducts) grid.sync();
   }
 }
 
-// ------------------------------------------------ fused_log_prob on clusters
+// ------------------------------------------------------- fused_log_prob
 
+// One launch of fused_log_prob_kernel (make_like_plan, from the host's plan).
+struct LikePlan {
+  ApplyProduct prod[kLikeProducts];
+  LikeArgs a;
+  const float* x;     // [nrows, D], the whitened walkers
+  float* xin;         // [nrows, ldx]: layer 1's input
+  const float* delta; // [nrows, ld]: layer 8's output
+  const float* cd;    // [nrows, ld]: C^-1 delta
+  float* lp;          // [nrows]
+  float* part;        // the split products' partial tiles, [tile][range][kBM][kBN], or the
+                      // local products' slabs, [block][kBM][kBN]
+  int nrows, row_tiles, deal, ld, ldx, D, N;
+};
+
+// The walker log-posterior on nrows rows: layer 1's input (the prior
+// transform of the whitened walkers, log10 lanes, standardized) by all
+// threads of the grid, then the products as in fused_apply_kernel, a grid
+// barrier after each.  The chi^2 product's partial tiles are summed in the
+// last pass, one block a row: C^-1 delta column by column (in the order of
+// run_product's sum, or from A where the product is not split over
+// blocks), its dot with delta, the prior and the bad-row flag, then lp.
+__global__ void __launch_bounds__(kApplyThreads, kLikeBlocksPerSM)
+fused_log_prob_kernel(const __grid_constant__ LikePlan plan) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  cg::grid_group grid = cg::this_grid();
+  const int rank = (int)((long long)blockIdx.x * plan.deal % gridDim.x);
+  for (int i = blockIdx.x * kApplyThreads + threadIdx.x; i < plan.nrows * plan.D;
+       i += gridDim.x * kApplyThreads) {
+    const int r = i / plan.D, k = i % plan.D;
+    plan.xin[(size_t)r * plan.ldx + k] = standardized(plan.a, __ldg(plan.x + i), k);
+  }
+  grid.sync();
+#pragma unroll 1
+  for (int p = 0; p < kLikeProducts; ++p) {
+    run_product<kLikeStages, true>(plan.prod[p], plan.row_tiles, plan.nrows, plan.part, rank,
+                                   smem, &plan.a, grid, p + 1 < kLikeProducts);
+    grid.sync();
+  }
+  const ApplyProduct& C = plan.prod[kLikeProducts - 1];
+  const int parts = C.split > 1 && !C.local ? C.split : 0;
+  __shared__ float sums[2][kApplyThreads / 32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = blockIdx.x; r < plan.nrows; r += gridDim.x) {
+    const float* dr = plan.delta + (size_t)r * plan.ld;
+    // row r's partial sums of column c: tile (c / kBN, r / kBM), element
+    // (r % kBM, c % kBN) of each part (run_product's layout)
+    const float* pr = plan.part + (size_t)(r / kBM) * parts * kTile + (r % kBM) * kBN;
+    float chi2 = 0.f, xx = 0.f;
+#pragma unroll 2
+    for (int c = threadIdx.x; c < plan.N; c += kApplyThreads) {
+      float y;
+      if (parts) {
+        const float* at = pr + (size_t)(c / kBN) * plan.row_tiles * parts * kTile + c % kBN;
+        float v = 0.f;
+#pragma unroll 4
+        for (int q = 0; q < parts; ++q) v = __fadd_rn(v, __ldcg(at + (size_t)q * kTile));
+        y = epilogue<true>(C.seg[0], &plan.a, v, 0.f, 0.f, c);
+      } else {
+        y = __ldcg(plan.cd + (size_t)r * plan.ld + c);
+      }
+      chi2 = fmaf(__ldcg(dr + c), y, chi2);
+    }
+    int bad = 0;
+    for (int k = threadIdx.x; k < plan.D; k += kApplyThreads) {
+      const float xw = __ldg(plan.x + (size_t)r * plan.D + k);
+      xx = fmaf(xw, xw, xx);
+      if (plan.a.x_log10[k] && physical(plan.a, xw, k) <= 0.f) bad = 1;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      chi2 += __shfl_xor_sync(0xffffffffu, chi2, off);
+      xx += __shfl_xor_sync(0xffffffffu, xx, off);
+    }
+    if (lane == 0) {
+      sums[0][warp] = chi2;
+      sums[1][warp] = xx;
+    }
+    bad = __syncthreads_or(bad);
+    if (threadIdx.x == 0) {
+      chi2 = xx = 0.f;
+      for (int w = 0; w < kApplyThreads / 32; ++w) {
+        chi2 = __fadd_rn(chi2, sums[0][w]);
+        xx = __fadd_rn(xx, sums[1][w]);
+      }
+      const float v = __fadd_rn(__fmul_rn(__fmul_rn(-0.5f, chi2), 1.f / __ldg(plan.a.temperature)),
+                                __fmul_rn(-0.5f, xx));
+      plan.lp[r] = (isnan(v) || bad) ? -INFINITY : v;
+    }
+    __syncthreads();
+  }
+}
+
+// ------------------------------------- fused_log_prob on clusters (narrow models)
+//
+// fused_log_prob_cluster_kernel: thread-block clusters of 8 blocks (the portable
+// cluster size).  A cluster takes R walkers and block rank q computes
+// columns [q N/8, (q+1) N/8) (edges rounded to multiples of 4) of every
+// product for all R walkers, so each weight is read from L2 once per
+// cluster.  Every block keeps the full-width activations of its cluster's
+// walkers; each product's epilogue writes its values into the destination
+// buffer of all 8 blocks through distributed shared memory, and one cluster
+// barrier per product completes them (it is the block barrier too, and
+// orders the ping-pong buffers' reuse).  lin1 and skip of a residual block
+// read the same input and run as one product.  The chi^2 product gives each
+// block its columns of C^-1 delta and their part of delta . C^-1 delta,
+// which rank 0 sums in a fixed order.  Every sum a row's value takes (each
+// product's k ranges, their partials in order, the chi^2 partials) follows
+// the model's width alone, never R: the k split is planned for the most
+// walkers a cluster can take at that width, so a row's value does not
+// depend on the rows launched beside it.
+//
+// What bounds it at the sampler's 128-256 walkers is latency, not the FMA
+// rate: a launch is a chain of 11 products, each a round of weight loads,
+// a split-K reduction, an epilogue and a cluster barrier (on-chip timings in
+// PERF.md).  So the 11 products run as one loop over a table in shared
+// memory (one code path, so the instruction cache stays warm); a thread task
+// is a tile of 8 walkers x 4 columns (each activation word read from shared
+// memory feeds 4 FMAs, each weight 8); the epilogue constants of a block's
+// columns are copied to shared memory once per launch; and the epilogue
+// does all its loads before any store into a peer.  R is 8, 16 or 24, the
+// fewest that let all of a launch's clusters be resident at once (a cluster
+// must fit in one GPC, and the H100's GPCs hold 15 clusters of 8 one-block
+// SMs, so 16 clusters of 8 walkers at 128 rows would take two waves), or
+// the most that fit a block's shared memory, in more than one wave (the
+// LSST width: 8, so the host takes the tiled design there).
+
+constexpr int kThreads = 512;  // threads per block of fused_log_prob_cluster_kernel
+constexpr int kCluster = 8;    // blocks per cluster of fused_log_prob_cluster_kernel
 constexpr int kRowTile = 8;    // walkers of one thread task
 constexpr int kColTile = 4;    // columns of one thread task: each activation read feeds 4 FMAs
 constexpr int kMaxGroups = 3;  // row groups of kRowTile walkers per cluster: at most 24 walkers
@@ -663,7 +910,7 @@ __host__ __device__ inline size_t cluster_smem_bytes(const TrunkDims& d, int R) 
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
-fused_log_prob_kernel(const float* __restrict__ x, int nrows, int R, int Rs, TrunkWeights w,
+fused_log_prob_cluster_kernel(const float* __restrict__ x, int nrows, int R, int Rs, TrunkWeights w,
                       TrunkDims d, LikeArgs a, float* __restrict__ lp) {
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -751,20 +998,8 @@ fused_log_prob_kernel(const float* __restrict__ x, int nrows, int R, int Rs, Tru
     const int r = i / D, k = i % D;
     const float xw = row0 + r < nrows ? x[(size_t)(row0 + r) * D + k] : 0.f;
     X[r * d.ldx + k] = xw;
-    const float lo = a.arg1[k], hi = a.arg2[k];
-    float phys;
-    if (a.is_gauss[k]) {
-      phys = xw * hi + lo;
-    } else {
-      const float u = 0.5f * (1.f + erff(xw / 1.41421356237309515f));
-      phys = u * (hi - lo) + lo;
-    }
-    float xin = phys;
-    if (a.x_log10[k]) {
-      if (phys <= 0.f) atomicOr(&bad[r], 1);
-      xin = log10f(fmaxf(phys, 1e-30f));
-    }
-    A[r * la + k] = (xin - a.x_mean[k]) / a.x_std[k];
+    if (a.x_log10[k] && physical(a, xw, k) <= 0.f) atomicOr(&bad[r], 1);
+    A[r * la + k] = standardized(a, xw, k);
   }
   // every block of the cluster has started, and holds its input, before any
   // block writes into a peer
@@ -918,6 +1153,24 @@ TrunkDims make_dims(const int* dims) {
   return d;
 }
 
+LikeArgs make_like(const void* const* like, int ypositive) {
+  LikeArgs a;
+  a.is_gauss = static_cast<const uint8_t*>(like[0]);
+  a.arg1 = static_cast<const float*>(like[1]);
+  a.arg2 = static_cast<const float*>(like[2]);
+  a.x_mean = static_cast<const float*>(like[3]);
+  a.x_std = static_cast<const float*>(like[4]);
+  a.x_log10 = static_cast<const uint8_t*>(like[5]);
+  a.y_mean = static_cast<const float*>(like[6]);
+  a.y_std = static_cast<const float*>(like[7]);
+  a.sigma = static_cast<const float*>(like[8]);
+  a.data = static_cast<const float*>(like[9]);
+  a.inv_cov = static_cast<const float*>(like[10]);
+  a.temperature = static_cast<const float*>(like[11]);
+  a.ypositive = ypositive;
+  return a;
+}
+
 TrunkWeights make_weights(const void* const* ptrs) {
   TrunkWeights w;
   for (int i = 0; i < kWeights; ++i) w.w[i] = static_cast<const float*>(ptrs[i]);
@@ -942,20 +1195,52 @@ bool rows_aligned16(const void* p, int ld) {
 }
 
 ApplySeg apply_seg(const float* W, const float* bias, float* out, int ld, int n, float alpha,
-                   bool relu, bool accum) {
+                   bool relu, bool accum, bool delta = false) {
   return ApplySeg{W, bias, out, ld, n, (n + kBN - 1) / kBN, alpha, relu, accum,
-                  rows_aligned16(W, n)};
+                  rows_aligned16(W, n), delta};
 }
 
 ApplyProduct apply_product(const float* in, int ld, int K, ApplySeg s0,
                            ApplySeg s1 = ApplySeg{}) {
-  return ApplyProduct{in, ld, K, rows_aligned16(in, ld), 1, {s0, s1}};
+  return ApplyProduct{in, ld, K, rows_aligned16(in, ld), false, 1, {s0, s1}};
 }
 
-// The 10 products of the trunk on nrows rows of x, through the scratch:
-// layer1 (x -> B), residual blocks (B -> A, A -> B, B -> A; lin1 into H and
-// skip as one product, then lin2 adds to the skip's output), layers 6
-// (A -> B), 7 (B -> A) and 8 (A -> out).
+// The trunk's products on nrows rows of `in` (ld `ld_in`), through the
+// activation buffers A, B (row stride d.width) and H: layer1 (in -> B),
+// residual blocks (B -> A, A -> B, B -> A; lin1 into H and skip as one
+// product, then lin2 adds to the skip's output), layers 6 (A -> B), 7
+// (B -> A) and 8 (A -> out, row stride ld_out).  Returns the count (10).
+int trunk_products(ApplyProduct* prod, const float* in, int ld_in, const TrunkWeights& w,
+                   const TrunkDims& d, float* A, float* B, float* H, float* out, int ld_out,
+                   bool delta) {
+  const int ld = d.width;
+  int p = 0;
+  prod[p++] = apply_product(in, ld_in, d.in, apply_seg(w.w[0], w.w[1], B, ld, d.h, 1.f, true, false));
+  const int in_w[3] = {d.h, d.h2, d.h4};
+  const int ch[3] = {d.c1, d.c2, d.c3};
+  const int out_w[3] = {d.h2, d.h4, d.h8};
+  float* src = B;
+  float* dst = A;
+  for (int i = 0; i < 3; ++i) {
+    const float* const* q = w.w + 2 + 5 * i;  // lin1 w, lin1 b, lin2 w, lin2 b, skip w
+    prod[p++] = apply_product(src, ld, in_w[i],
+                              apply_seg(q[0], q[1], H, d.hmax, ch[i], 1.f, true, false),
+                              apply_seg(q[4], nullptr, dst, ld, out_w[i], 1.f, false, false));
+    prod[p++] = apply_product(H, d.hmax, ch[i],
+                              apply_seg(q[2], q[3], dst, ld, out_w[i], 0.1f, true, true));
+    float* t = src;
+    src = dst;
+    dst = t;
+  }
+  // after three blocks the activation is in A (src)
+  prod[p++] = apply_product(A, ld, d.h8, apply_seg(w.w[17], w.w[18], B, ld, d.l6, 1.f, true, false));
+  prod[p++] = apply_product(B, ld, d.l6, apply_seg(w.w[19], w.w[20], A, ld, d.out, 1.f, true, false));
+  prod[p++] = apply_product(A, ld, d.out,
+                            apply_seg(w.w[21], w.w[22], out, ld_out, d.out, 1.f, false, false, delta));
+  return p;
+}
+
+// The 10 products of the trunk on nrows rows of x, through the scratch.
 ApplyPlan make_apply_plan(const float* x, int nrows, const TrunkWeights& w, const TrunkDims& d,
                           float* out, float* scratch) {
   ApplyPlan P{};
@@ -964,30 +1249,7 @@ ApplyPlan make_apply_plan(const float* x, int nrows, const TrunkWeights& w, cons
   float* A = scratch;
   float* B = A + (size_t)nrows * d.width;
   float* H = B + (size_t)nrows * d.width;
-  const int ld = d.width;
-  int p = 0;
-  P.prod[p++] = apply_product(x, d.in, d.in, apply_seg(w.w[0], w.w[1], B, ld, d.h, 1.f, true, false));
-  const int in_w[3] = {d.h, d.h2, d.h4};
-  const int ch[3] = {d.c1, d.c2, d.c3};
-  const int out_w[3] = {d.h2, d.h4, d.h8};
-  float* src = B;
-  float* dst = A;
-  for (int i = 0; i < 3; ++i) {
-    const float* const* q = w.w + 2 + 5 * i;  // lin1 w, lin1 b, lin2 w, lin2 b, skip w
-    P.prod[p++] = apply_product(src, ld, in_w[i],
-                                apply_seg(q[0], q[1], H, d.hmax, ch[i], 1.f, true, false),
-                                apply_seg(q[4], nullptr, dst, ld, out_w[i], 1.f, false, false));
-    P.prod[p++] = apply_product(H, d.hmax, ch[i],
-                                apply_seg(q[2], q[3], dst, ld, out_w[i], 0.1f, true, true));
-    float* t = src;
-    src = dst;
-    dst = t;
-  }
-  // after three blocks the activation is in A (src)
-  P.prod[p++] = apply_product(A, ld, d.h8, apply_seg(w.w[17], w.w[18], B, ld, d.l6, 1.f, true, false));
-  P.prod[p++] = apply_product(B, ld, d.l6, apply_seg(w.w[19], w.w[20], A, ld, d.out, 1.f, true, false));
-  P.prod[p++] = apply_product(A, ld, d.out,
-                              apply_seg(w.w[21], w.w[22], out, d.out, d.out, 1.f, false, false));
+  trunk_products(P.prod, x, d.in, w, d, A, B, H, out, d.out, false);
   return P;
 }
 
@@ -1001,6 +1263,35 @@ struct ApplyLaunch {
   size_t part_floats; // the split products' partial tiles
 };
 
+// A cooperative launch of `grid` blocks of kApplyThreads on the stream.
+void cooperative(cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg, int grid, size_t smem,
+                 cudaStream_t stream) {
+  attr->id = cudaLaunchAttributeCooperative;
+  attr->val.cooperative = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(grid);
+  cfg->blockDim = dim3(kApplyThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+// The card's SMs and the blocks of `kernel` (`smem` bytes of dynamic shared
+// memory a block) one SM holds at once; sets the kernel's dynamic
+// shared-memory limit.
+template <typename Kernel>
+cudaError_t capacity(Kernel kernel, size_t smem, int* sms, int* per_sm) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = prepare(kernel, smem);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kApplyThreads, smem);
+  }
+  return err;
+}
+
 // Sets the kernel's dynamic shared-memory limit, sizes the grid (every
 // block the card holds at once: a cooperative launch may have no more) and
 // splits the k-chunks of each product whose tiles are fewer than the
@@ -1008,14 +1299,7 @@ struct ApplyLaunch {
 // its work items within the grid.  At the sampler's 128-256 rows a product
 // has 4-64 tiles, and one block walks a tile's k-chunks in sequence.
 cudaError_t plan_apply(ApplyPlan& P, cudaStream_t stream, ApplyLaunch* L) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&L->sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = prepare(fused_apply_kernel, kApplySmem);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&L->per_sm, fused_apply_kernel,
-                                                        kApplyThreads, kApplySmem);
-  }
+  const cudaError_t err = capacity(fused_apply_kernel, kApplySmem, &L->sms, &L->per_sm);
   if (err != cudaSuccess) return err;
   // a grid the card cannot hold at once is refused at launch
   // (cudaErrorCooperativeLaunchTooLarge)
@@ -1029,10 +1313,7 @@ cudaError_t plan_apply(ApplyPlan& P, cudaStream_t stream, ApplyLaunch* L) {
     L->max_items = std::max(L->max_items, tiles * p.split);
     if (p.split > 1) L->part_floats = std::max(L->part_floats, (size_t)tiles * p.split * kBM * kBN);
   }
-  L->attr.id = cudaLaunchAttributeCooperative;
-  L->attr.val.cooperative = 1;
-  L->cfg = cudaLaunchConfig_t{};
-  L->cfg.gridDim = dim3(grid);
+  cooperative(&L->attr, &L->cfg, grid, kApplySmem, stream);
   // Work item i goes to block i * 37 mod grid (deal is 37's inverse mod
   // grid; 37 is prime, and a grid that 37 divides keeps items in block
   // order).  The card places consecutive blocks on the few SMs of one GPC
@@ -1042,15 +1323,78 @@ cudaError_t plan_apply(ApplyPlan& P, cudaStream_t stream, ApplyLaunch* L) {
   if (grid % 37 != 0) {
     while ((long long)P.deal * 37 % grid != 1) ++P.deal;
   }
-  L->cfg.blockDim = dim3(kApplyThreads);
-  L->cfg.dynamicSmemBytes = kApplySmem;
-  L->cfg.stream = stream;
-  L->cfg.attrs = &L->attr;
-  L->cfg.numAttrs = 1;
   return cudaSuccess;
 }
 
-// The launch of fused_log_prob_kernel over nrows walkers, groups x 8 of
+// The host's plan of one fused_log_prob launch (ops/fused.py,
+// log_prob_plan): kPlanHead values, then kPlanProduct for each product.
+constexpr int kPlanHead = 11;
+constexpr int kPlanProduct = 5;
+constexpr int kPlanLength = kPlanHead + kPlanProduct * kLikeProducts;
+
+// The 11 products of fused_log_prob over the scratch as the plan lays it
+// out: layer 1 (the whitened walkers -> B, staged through the prior
+// transform), the residual blocks and layers 6 and 7 as in the trunk,
+// layer 8 (A -> B, delta) and the chi^2 product (B -> A, with C^-1 as its
+// weights).  Checks the plan against the widths and the scratch; false
+// where they differ.
+bool make_like_plan(LikePlan& L, const float* x, int nrows, const TrunkWeights& w,
+                    const TrunkDims& d, const LikeArgs& a, const long long* plan, float* scratch,
+                    long long scratch_floats, float* lp) {
+  L = LikePlan{};
+  const long long row_tiles = plan[0], grid = plan[1], deal = plan[2], width = plan[3];
+  const long long hmax = plan[4], ldx = plan[5], off_a = plan[6], off_b = plan[7];
+  const long long off_h = plan[8], off_x = plan[9], off_part = plan[10];
+  if (row_tiles != (nrows + kBM - 1) / kBM || grid < 1 || deal < 0 || width != d.width ||
+      hmax != d.hmax || ldx != d.ldx) {
+    return false;
+  }
+  const long long act = (long long)nrows * d.width;
+  if (off_a < 0 || off_a + act > off_b || off_b + act > off_h ||
+      off_h + (long long)nrows * d.hmax > off_x || off_x + (long long)nrows * ldx > off_part ||
+      off_a % 4 || off_b % 4 || off_h % 4 || off_x % 4 || off_part % 4) {
+    return false;
+  }
+  float* A = scratch + off_a;
+  float* B = scratch + off_b;
+  float* H = scratch + off_h;
+  float* X = scratch + off_x;
+  trunk_products(L.prod, X, (int)ldx, w, d, A, B, H, B, d.width, true);
+  L.prod[10] = apply_product(B, d.width, d.out,
+                             apply_seg(a.inv_cov, nullptr, A, d.width, d.out, 1.f, false, false));
+  L.a = a;
+  L.x = x;
+  L.xin = X;
+  L.delta = B;
+  L.cd = A;
+  L.lp = lp;
+  L.part = scratch + off_part;
+  L.nrows = nrows;
+  L.row_tiles = (int)row_tiles;
+  L.deal = (int)deal;
+  L.ld = d.width;
+  L.ldx = (int)ldx;
+  L.D = d.in;
+  L.N = d.out;
+  long long part_end = off_part;
+  for (int p = 0; p < kLikeProducts; ++p) {
+    const long long* q = plan + kPlanHead + kPlanProduct * p;
+    ApplyProduct& P = L.prod[p];
+    const long long nk = (P.K + kBK - 1) / kBK;
+    const long long tiles = row_tiles * (P.seg[0].col_tiles + P.seg[1].col_tiles);
+    const long long split = q[3];
+    if (q[0] != P.K || q[1] != P.seg[0].col_tiles || q[2] != P.seg[1].col_tiles || split < 1 ||
+        (split > 1 && split > nk / kMinSplitChunks)) {
+      return false;
+    }
+    P.split = (int)split;
+    P.local = split > 1 && q[4] != 0;
+    if (split > 1) part_end = std::max(part_end, off_part + (P.local ? grid : tiles * split) * kTile);
+  }
+  return part_end <= scratch_floats;
+}
+
+// The launch of fused_log_prob_cluster_kernel over nrows walkers, groups x 8 of
 // them per cluster.
 struct ClusterLaunch {
   cudaLaunchAttribute attr;
@@ -1063,9 +1407,9 @@ struct ClusterLaunch {
 // Sets the kernel's dynamic shared-memory limit to the launch's and asks how
 // many clusters of the launch's shape the card holds at once.
 cudaError_t prepare_cluster(ClusterLaunch* L) {
-  const cudaError_t err = prepare(fused_log_prob_kernel, L->cfg.dynamicSmemBytes);
+  const cudaError_t err = prepare(fused_log_prob_cluster_kernel, L->cfg.dynamicSmemBytes);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(&L->max_clusters, (const void*)fused_log_prob_kernel,
+  return cudaOccupancyMaxActiveClusters(&L->max_clusters, (const void*)fused_log_prob_cluster_kernel,
                                         &L->cfg);
 }
 
@@ -1092,7 +1436,7 @@ bool fits_block(const TrunkDims& d, int R, int smem_max) {
 // (the LSST width, 40 -> 1560, fits 8 walkers in the 227 KB of shared memory
 // a block may have, not 16).  Returns kTooWide when not even one row group
 // fits a block.
-int plan_log_prob(int nrows, const TrunkDims& d, cudaStream_t stream, ClusterLaunch* L) {
+int plan_cluster(int nrows, const TrunkDims& d, cudaStream_t stream, ClusterLaunch* L) {
   int dev = 0, smem_max = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
@@ -1168,75 +1512,125 @@ long long linna_apply_scratch_floats(int nrows, const int* dims) {
 }
 
 // like: is_gauss, arg1, arg2, x_mean, x_std, x_log10, y_mean, y_std, sigma,
-// data, inv_cov, temperature (12 device pointers).
-// Returns a cudaError_t, or kNoCluster / kTooWide when no cluster of the
-// launch's shape fits on the card or the model is too wide for the kernel
+// data, inv_cov, temperature (12 device pointers).  plan: the host's plan
+// of the launch (kPlanLength values, ops/fused.py log_prob_plan); scratch:
+// scratch_floats floats, 16-byte aligned.  Returns a cudaError_t, or
+// kBadPlan when the plan does not match the widths or the scratch
 // (linna_error_string says which); the launch does not synchronise.
 int linna_fused_log_prob(const float* x, int nrows, const void* const* weights, const int* dims,
-                         const void* const* like, int ypositive, float* lp, void* stream) {
+                         const void* const* like, int ypositive, const long long* plan,
+                         float* scratch, long long scratch_floats, float* lp, void* stream) {
   if (nrows <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(scratch) % 16 != 0) return cudaErrorMisalignedAddress;
   const TrunkDims d = make_dims(dims);
-  const TrunkWeights w = make_weights(weights);
-  LikeArgs a;
-  a.is_gauss = static_cast<const uint8_t*>(like[0]);
-  a.arg1 = static_cast<const float*>(like[1]);
-  a.arg2 = static_cast<const float*>(like[2]);
-  a.x_mean = static_cast<const float*>(like[3]);
-  a.x_std = static_cast<const float*>(like[4]);
-  a.x_log10 = static_cast<const uint8_t*>(like[5]);
-  a.y_mean = static_cast<const float*>(like[6]);
-  a.y_std = static_cast<const float*>(like[7]);
-  a.sigma = static_cast<const float*>(like[8]);
-  a.data = static_cast<const float*>(like[9]);
-  a.inv_cov = static_cast<const float*>(like[10]);
-  a.temperature = static_cast<const float*>(like[11]);
-  a.ypositive = ypositive;
-  ClusterLaunch L;
-  const int planned = plan_log_prob(nrows, d, static_cast<cudaStream_t>(stream), &L);
-  if (planned != 0) return planned;
-  if (L.max_clusters < 1) return kNoCluster;
-  const cudaError_t err =
-      cudaLaunchKernelEx(&L.cfg, fused_log_prob_kernel, x, nrows, L.walkers, L.split_walkers,
-                         w, d, a, lp);
+  const LikeArgs a = make_like(like, ypositive);
+  LikePlan L;
+  if (!make_like_plan(L, x, nrows, make_weights(weights), d, a, plan, scratch, scratch_floats,
+                      lp)) {
+    return kBadPlan;
+  }
+  cudaError_t err = prepare(fused_log_prob_kernel, kLikeSmem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cooperative(&attr, &cfg, (int)plan[1], kLikeSmem, static_cast<cudaStream_t>(stream));
+  err = cudaLaunchKernelEx(&cfg, fused_log_prob_kernel, L);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// The launch shape of a kernel (0: fused_apply, 1: fused_log_prob) over
-// nrows walkers, for the record; smem: dynamic shared memory per block.
-// shape (9 + 10 ints), fused_apply: tile rows, tile columns, blocks,
-// threads per block, blocks per SM, SMs, tile k, stages, the most work
-// items of a product, then each product's k split; fused_log_prob:
-// walkers per cluster, blocks per cluster, blocks, threads per block, the
-// most clusters the card holds at once, the walkers per cluster the k split
-// is planned for, then zeros.  Returns a cudaError_t.
-int linna_launch_shape(int kernel, int nrows, const int* dims, int* shape, long long* smem) {
+// The cluster design of fused_log_prob (narrow models: ops/fused.py,
+// log_prob_design), with linna_fused_log_prob's arguments but the plan and
+// the scratch.  Returns a cudaError_t, or kNoCluster / kTooWide when no
+// cluster of the launch's shape fits on the card or the model is too wide
+// for the kernel (linna_error_string says which); the launch does not
+// synchronise.
+int linna_fused_log_prob_cluster(const float* x, int nrows, const void* const* weights,
+                                 const int* dims, const void* const* like, int ypositive,
+                                 float* lp, void* stream) {
+  if (nrows <= 0) return 0;
   const TrunkDims d = make_dims(dims);
-  for (int i = 0; i < 9 + kApplyProducts; ++i) shape[i] = 0;
-  if (kernel == 0) {
-    ApplyPlan P = make_apply_plan(nullptr, nrows, TrunkWeights{}, d, nullptr, nullptr);
-    ApplyLaunch L{};
-    const cudaError_t err = plan_apply(P, 0, &L);
-    const int v[9] = {kBM, kBN, (int)L.cfg.gridDim.x, kApplyThreads, L.per_sm, L.sms, kBK,
-                      kStages, L.max_items};
-    for (int i = 0; i < 9; ++i) shape[i] = v[i];
-    for (int p = 0; p < kApplyProducts; ++p) shape[9 + p] = P.prod[p].split;
-    *smem = (long long)kApplySmem;
-    return err;
-  }
+  const TrunkWeights w = make_weights(weights);
+  const LikeArgs a = make_like(like, ypositive);
   ClusterLaunch L;
-  const int err = plan_log_prob(nrows, d, 0, &L);
-  shape[0] = L.walkers;
-  shape[1] = kCluster;
-  shape[2] = (int)L.cfg.gridDim.x;
-  shape[3] = kThreads;
-  shape[4] = L.max_clusters;
-  shape[5] = L.split_walkers;
+  const int planned = plan_cluster(nrows, d, static_cast<cudaStream_t>(stream), &L);
+  if (planned != 0) return planned;
+  if (L.max_clusters < 1) return kNoCluster;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&L.cfg, fused_log_prob_cluster_kernel, x, nrows, L.walkers,
+                         L.split_walkers, w, d, a, lp);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The cluster design's launch shape over nrows walkers, for the record;
+// smem: dynamic shared memory per block.  shape (6 ints): walkers per
+// cluster, blocks per cluster, blocks, threads per block, the most clusters
+// the card holds at once, the walkers per cluster the k split is planned
+// for.  Returns a cudaError_t, or kTooWide.
+int linna_cluster_launch_shape(int nrows, const int* dims, int* shape, long long* smem) {
+  ClusterLaunch L;
+  const int err = plan_cluster(nrows, make_dims(dims), 0, &L);
+  if (err != 0) return err;
+  const int v[6] = {L.walkers, kCluster, (int)L.cfg.gridDim.x, kThreads, L.max_clusters,
+                    L.split_walkers};
+  for (int i = 0; i < 6; ++i) shape[i] = v[i];
   *smem = (long long)L.cfg.dynamicSmemBytes;
+  return 0;
+}
+
+// The most walkers a cluster of the cluster design takes at these widths on
+// the current card (a block's shared memory and threads bound it; 0 where
+// not even one row group of 8 fits), or minus a cudaError_t.
+int linna_cluster_walkers(const int* dims) {
+  int dev = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err != cudaSuccess) return -(int)err;
+  const TrunkDims d = make_dims(dims);
+  int walkers = 0;
+  while (walkers < kMaxGroups * kRowTile && fits_block(d, walkers + kRowTile, smem_max)) {
+    walkers += kRowTile;
+  }
+  return walkers;
+}
+
+// What the current device holds of fused_log_prob_kernel at once: its SMs
+// and the blocks an SM holds; smem: dynamic shared memory per block.
+// Returns a cudaError_t.
+int linna_log_prob_capacity(int* sms, int* per_sm, long long* smem) {
+  *smem = (long long)kLikeSmem;
+  return capacity(fused_log_prob_kernel, kLikeSmem, sms, per_sm);
+}
+
+// fused_apply's launch shape over nrows rows, for the record; smem: dynamic
+// shared memory per block.  shape (9 + 10 ints): tile rows, tile columns,
+// blocks, threads per block, blocks per SM, SMs, tile k, stages, the most
+// work items of a product, then each product's k split.  Returns a
+// cudaError_t.
+int linna_apply_launch_shape(int nrows, const int* dims, int* shape, long long* smem) {
+  const TrunkDims d = make_dims(dims);
+  ApplyPlan P = make_apply_plan(nullptr, nrows, TrunkWeights{}, d, nullptr, nullptr);
+  ApplyLaunch L{};
+  const cudaError_t err = plan_apply(P, 0, &L);
+  const int v[9] = {kBM, kBN, (int)L.cfg.gridDim.x, kApplyThreads, L.per_sm, L.sms, kBK,
+                    kApplyStages, L.max_items};
+  for (int i = 0; i < 9; ++i) shape[i] = v[i];
+  for (int p = 0; p < kApplyProducts; ++p) shape[9 + p] = P.prod[p].split;
+  *smem = (long long)kApplySmem;
   return err;
 }
 
+// The length of linna_fused_log_prob's plan.
+int linna_log_prob_plan_length() { return kPlanLength; }
+
 const char* linna_error_string(int err) {
+  if (err == kBadPlan) {
+    return "the launch plan does not match the model's widths or the scratch "
+           "(ops/fused.py log_prob_plan)";
+  }
   if (err == kNoCluster) {
     return "no cluster of 8 blocks of this shape fits on the card "
            "(cudaOccupancyMaxActiveClusters gave 0)";

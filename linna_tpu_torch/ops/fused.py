@@ -12,10 +12,15 @@ become hand-written CUDA C++ for Hopper (``csrc/fused_mlp.cu``, built for
   ``ypositive``) -> sigma scale -> chi^2 against the data with the inverse
   covariance -> tempered posterior + unit-normal prior, one f32 per walker.
 
-``fused_log_prob``'s kernel runs on thread-block clusters of 8 blocks that
-split every product's columns and exchange activations through distributed
-shared memory; it raises when no cluster of its shape fits on the card.
-``launch_shape`` reports each kernel's launch.
+``fused_log_prob`` has two designs, chosen by the model's widths alone
+(:func:`log_prob_design`): thread-block clusters of 8 blocks that keep the
+activations in distributed shared memory, where a cluster holds 16 walkers
+or more (the DES width), and elsewhere (the LSST width) one cooperative
+launch of the same tiled tensor-core products as ``fused_apply``, planned
+here, on the host, by :func:`log_prob_plan`: a pure function of the widths
+and the rows (and of what the card holds at once), whose k split of every
+product follows the widths alone.  In both a row's value does not depend on
+the rows launched beside it.  ``launch_shape`` reports each kernel's launch.
 
 Each wrapper launches its kernel for a CUDA tensor and raises if the build or
 the launch fails; for a CPU tensor it runs the plain PyTorch version beside
@@ -51,7 +56,10 @@ __all__ = [
     "build",
     "build_dir",
     "launch_shape",
+    "log_prob_design",
+    "log_prob_plan",
     "launches",
+    "designs",
     "plain_calls",
     "launch_shapes",
     "plain_shapes",
@@ -69,6 +77,8 @@ NVCC_FLAGS = (
 # (linna_tpu_torch.samplers.graphs.LaunchLedger)
 launches: Dict[str, int] = {"fused_apply": 0, "fused_log_prob": 0}
 plain_calls: Dict[str, int] = {"fused_apply": 0, "fused_log_prob": 0}
+# fused_log_prob's launches by design (log_prob_design), counted as launches are
+designs: Dict[str, int] = {"tiled": 0, "cluster": 0}
 # the shapes each ran at, (rows, in width, out width); a graph's replays run
 # the shapes of its capture, so the sets are whole without them
 launch_shapes: Dict[str, set] = {"fused_apply": set(), "fused_log_prob": set()}
@@ -76,7 +86,7 @@ plain_shapes: Dict[str, set] = {"fused_apply": set(), "fused_log_prob": set()}
 
 
 def reset_counts() -> None:
-    for d in (launches, plain_calls):
+    for d in (launches, plain_calls, designs):
         for k in d:
             d[k] = 0
     for d in (launch_shapes, plain_shapes):
@@ -101,6 +111,8 @@ class _Library:
     # wait for it, so its launches are counted apart
     busy: bool = False
     stats: Dict[str, float] = {"nvcc_s": 0.0, "foreground_wait_s": 0.0}
+    # fused_log_prob_kernel on this card: (SMs, blocks an SM holds, shared bytes a block)
+    capacity: Optional[tuple] = None
 
 
 # one build at a time in a process (the warm thread and the foreground);
@@ -121,10 +133,6 @@ def _nvcc() -> str:
             "CUDA kernels are built from source at first use"
         )
     return found
-
-
-# linna_launch_shape's kernel ids
-_KERNEL_IDS = {"fused_apply": 0, "fused_log_prob": 1}
 
 
 def build_dir() -> Path:
@@ -192,12 +200,26 @@ def _load() -> None:
     lib.linna_fused_apply.restype = ci
     lib.linna_apply_scratch_floats.argtypes = [ci, ints]
     lib.linna_apply_scratch_floats.restype = ctypes.c_longlong
-    lib.linna_fused_log_prob.argtypes = [vp, ci, ptrs, ints, ptrs, ci, vp, vp]
+    lib.linna_fused_log_prob.argtypes = [vp, ci, ptrs, ints, ptrs, ci, vp, vp, ctypes.c_longlong,
+                                         vp, vp]
     lib.linna_fused_log_prob.restype = ci
-    lib.linna_launch_shape.argtypes = [ci, ci, ints, ints, ctypes.POINTER(ctypes.c_longlong)]
-    lib.linna_launch_shape.restype = ci
+    lib.linna_log_prob_capacity.argtypes = [ints, ints, ctypes.POINTER(ctypes.c_longlong)]
+    lib.linna_log_prob_capacity.restype = ci
+    lib.linna_log_prob_plan_length.argtypes = []
+    lib.linna_log_prob_plan_length.restype = ci
+    lib.linna_apply_launch_shape.argtypes = [ci, ints, ints, ctypes.POINTER(ctypes.c_longlong)]
+    lib.linna_apply_launch_shape.restype = ci
+    lib.linna_fused_log_prob_cluster.argtypes = [vp, ci, ptrs, ints, ptrs, ci, vp, vp]
+    lib.linna_fused_log_prob_cluster.restype = ci
+    lib.linna_cluster_launch_shape.argtypes = [ci, ints, ints, ctypes.POINTER(ctypes.c_longlong)]
+    lib.linna_cluster_launch_shape.restype = ci
+    lib.linna_cluster_walkers.argtypes = [ints]
+    lib.linna_cluster_walkers.restype = ci
     lib.linna_error_string.argtypes = [ci]
     lib.linna_error_string.restype = ctypes.c_char_p
+    if lib.linna_log_prob_plan_length() != PLAN_LENGTH:
+        raise RuntimeError(f"{so.name}: its fused_log_prob plan has "
+                           f"{lib.linna_log_prob_plan_length()} values, this module's {PLAN_LENGTH}")
     _Library.log = log_path.read_text() if log_path.is_file() else ""
     _Library.lib = lib
 
@@ -265,42 +287,200 @@ def _ptrs(tensors: Sequence[torch.Tensor]):
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
+# ------------------------------------------------ fused_log_prob's launch plan
+
+# csrc/fused_mlp.cu: an output tile's rows, columns and k-chunk, its threads,
+# the fewest k-chunks of a part of a split product
+TILE_ROWS, TILE_COLS, TILE_K, TILE_THREADS = 64, 64, 32, 128
+MIN_SPLIT_CHUNKS = 2
+# Each product's k split is planned for this many row tiles (128 rows,
+# zeus's half-ensemble) to give about SPLIT_ITEMS work items, two an SM of
+# the H100; it follows the widths alone, whatever the rows of a launch.
+SPLIT_ROW_TILES = 2
+SPLIT_ITEMS = 264
+# the H100 SXM: SMs and blocks of the kernel an SM holds (255 registers a
+# thread, 92,160 bytes of shared memory a block); the card's own numbers
+# replace them on a card (log_prob_capacity)
+H100 = (132, 2)
+PLAN_HEAD, PLAN_PRODUCT, LIKE_PRODUCTS = 11, 5, 11
+PLAN_LENGTH = PLAN_HEAD + PLAN_PRODUCT * LIKE_PRODUCTS
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def log_prob_products(dims: Sequence[int]) -> List[tuple]:
+    """``fused_log_prob``'s 11 products on the kernel's widths (``_dims``):
+    (K, the output widths of its segments): layer 1, the residual blocks'
+    lin1 | skip and lin2, layers 6, 7 and 8, then the chi^2 product."""
+    i, h, h2, h4, h8, c1, c2, c3, l6, out = dims
+    return [(i, (h,)), (h, (c1, h2)), (c1, (h2,)), (h2, (c2, h4)), (c2, (h4,)),
+            (h4, (c3, h8)), (c3, (h8,)), (h8, (l6,)), (l6, (out,)), (out, (out,)),
+            (out, (out,))]
+
+
+def log_prob_splits(dims: Sequence[int]) -> List[int]:
+    """Each product's k split: the parts of at least ``MIN_SPLIT_CHUNKS``
+    chunks that bring its tiles at ``SPLIT_ROW_TILES`` row tiles nearest
+    ``SPLIT_ITEMS`` work items.  A function of the widths alone."""
+    out = []
+    for k, widths in log_prob_products(dims):
+        col_tiles = sum(_cdiv(n, TILE_COLS) for n in widths)
+        most = _cdiv(k, TILE_K) // MIN_SPLIT_CHUNKS
+        out.append(max(1, min(SPLIT_ITEMS // (SPLIT_ROW_TILES * col_tiles), most)))
+    return out
+
+
+def log_prob_plan(dims: Sequence[int], nrows: int, sms: int = H100[0],
+                  per_sm: int = H100[1]) -> dict:
+    """The launch of ``fused_log_prob_kernel`` over ``nrows`` rows on a card
+    of ``sms`` SMs that hold ``per_sm`` blocks each.
+
+    Every product's tiles (64 x 64, ``row_tiles`` down the rows, its
+    segments' ``col_tiles`` across) and k split (:func:`log_prob_splits`,
+    part q of a split product takes k-chunks [q nk / split, (q + 1) nk /
+    split)).  The grid is as many blocks as the product with the most work
+    items (tiles x split) has, at most all that the card holds at once (a
+    cooperative launch); so its size tells the sampler's launches of 1, 128
+    and 256 rows apart.  A split product whose tiles alone fill the grid is
+    ``local``: one block sums a tile's parts in order, as the partial tiles
+    of the others are summed after a grid barrier, to the same bits.
+    ``floats``: the scratch's layout in floats (the activation buffers A, B,
+    H, layer 1's input X, the partial tiles or the local products' slabs,
+    one a block); ``array`` the plan as the kernel takes it."""
+    dims = [int(v) for v in dims]
+    i, h, h2, h4, h8, c1, c2, c3, l6, out = dims
+    row_tiles = _cdiv(nrows, TILE_ROWS)
+    capacity = sms * per_sm
+    products = []
+    for (k, widths), split in zip(log_prob_products(dims), log_prob_splits(dims)):
+        col_tiles = [_cdiv(n, TILE_COLS) for n in widths] + [0] * (2 - len(widths))
+        nk = _cdiv(k, TILE_K)
+        tiles = row_tiles * sum(col_tiles)
+        products.append({"K": k, "chunks": nk, "col_tiles": col_tiles, "tiles": tiles,
+                         "split": split,
+                         "ranges": [(q * nk // split, (q + 1) * nk // split) for q in range(split)]})
+    blocks = max(1, min(capacity, max(p["tiles"] * p["split"] for p in products)))
+    width = _round4(max(i, h, h2, l6, out, h4))
+    hmax = _round4(max(c1, c2, c3))
+    ldx = _round4(i)
+    part_floats = 0
+    for p in products:
+        p["local"] = p["split"] > 1 and p["tiles"] >= blocks
+        p["items"] = p["tiles"] if p["local"] else p["tiles"] * p["split"]
+        if p["split"] > 1:
+            part_floats = max(part_floats, (blocks if p["local"] else p["items"]) * TILE_ROWS * TILE_COLS)
+    floats = {"A": 0, "B": nrows * width, "H": 2 * nrows * width}
+    floats["X"] = floats["H"] + nrows * hmax
+    floats["part"] = _round4(floats["X"] + nrows * ldx)
+    floats["total"] = floats["part"] + part_floats
+    # work item i goes to block i * 37 mod blocks (csrc/fused_mlp.cu, plan_apply)
+    deal = pow(37, -1, blocks) if blocks % 37 else 1
+    head = [row_tiles, blocks, deal, width, hmax, ldx, floats["A"], floats["B"], floats["H"],
+            floats["X"], floats["part"]]
+    array = head + [v for p in products for v in (p["K"], *p["col_tiles"], p["split"],
+                                                   int(p["local"]))]
+    return {"rows": nrows, "row_tiles": row_tiles, "blocks": blocks, "deal": deal,
+            "capacity": capacity, "sms": sms, "blocks_per_sm": per_sm, "products": products,
+            "max_items": max(p["items"] for p in products), "floats": floats, "array": array}
+
+
+def log_prob_capacity() -> tuple:
+    """(SMs, blocks an SM holds, shared bytes a block) of ``fused_log_prob_kernel``
+    on the current card, asked once per process."""
+    build()
+    if _Library.capacity is None:
+        sms, per_sm, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+        _check(_Library.lib.linna_log_prob_capacity(ctypes.byref(sms), ctypes.byref(per_sm),
+                                                    ctypes.byref(smem)), "fused_log_prob")
+        _Library.capacity = (sms.value, per_sm.value, smem.value)
+    return _Library.capacity
+
+
+# the fewest walkers a cluster of the cluster design must take at a width
+# for it to run there (log_prob_design)
+CLUSTER_WALKERS = 16
+
+
+def log_prob_design(cluster_walkers: int) -> str:
+    """The design of ``fused_log_prob`` at a model's widths, from the most
+    walkers a cluster of 8 blocks holds there (``cluster_walkers``: the
+    card's shared memory a block over the activations of a walker, a
+    function of the widths alone; :func:`cluster_walkers`).
+
+    ``"cluster"`` where a cluster holds ``CLUSTER_WALKERS`` or more: its
+    8-block clusters keep the activations on chip and a 128-row launch is
+    one wave (the DES width, 27 -> 457: 24 walkers a cluster; faster than
+    the tiled design there at 128 rows, PERF.md).  ``"tiled"`` elsewhere:
+    one cooperative launch of 64 x 64 tensor-core tiles that reads each
+    weight once per row tile (the LSST width, 40 -> 1560: 8 walkers a
+    cluster, 16 clusters at 128 rows where the card holds 15).  Never a
+    function of the rows, so a row's value does not depend on the rows
+    launched beside it."""
+    return "cluster" if cluster_walkers >= CLUSTER_WALKERS else "tiled"
+
+
+def cluster_walkers(dims: Sequence[int]) -> int:
+    """The most walkers a cluster of the cluster design takes at the
+    kernel's widths ``dims`` on the current card (0 where not one row group
+    of 8 fits)."""
+    build()
+    n = _Library.lib.linna_cluster_walkers((ctypes.c_int * 10)(*dims))
+    if n < 0:
+        _check(-n, "fused_log_prob")
+    return n
+
+
 def launch_shape(spec: N.ModelSpec, nrows: int, kernel: str) -> Dict[str, int]:
     """The launch shape of ``kernel`` over ``nrows`` walkers (its occupancy
-    record).  ``fused_apply`` is one cooperative launch: the output tile
-    (rows, columns, k per stage, stages), blocks, threads, blocks per SM,
-    the card's SMs, each product's k split over blocks, the most work items
-    (tiles x split) of any product, and dynamic shared memory per block.  ``fused_log_prob`` runs on clusters: walkers per
-    cluster, the walkers per cluster its k split is planned for (the most
-    at this width, so that a row's value does not depend on the rows
-    launched beside it), blocks per cluster, clusters, blocks, threads,
-    shared memory, and the most clusters of that shape the card holds at
-    once."""
+    record).  ``fused_apply`` and the tiled design of ``fused_log_prob``
+    are one cooperative launch: the output tile (rows, columns, k per
+    stage), blocks, threads, blocks per SM, the card's SMs, each product's k
+    split over blocks, the most work items (tiles x split) of any product,
+    and dynamic shared memory per block; ``fused_apply`` adds its ring's
+    stages, the tiled design which products sum their parts in one block
+    (``local``) and the blocks the card holds at once (``capacity``).  The
+    cluster design of ``fused_log_prob``: walkers per cluster, the walkers
+    per cluster its k split is planned for, blocks per cluster, clusters,
+    blocks, threads, shared memory, and the most clusters of that shape the
+    card holds at once.  ``fused_log_prob``'s record names its ``design``
+    (:func:`log_prob_design`) and its CUDA ``kernel``."""
     build()
+    if kernel == "fused_log_prob":
+        dims = _dims(spec)
+        design = log_prob_design(cluster_walkers(dims))
+        if design == "cluster":
+            shape, smem = (ctypes.c_int * 6)(), ctypes.c_longlong()
+            _check(_Library.lib.linna_cluster_launch_shape(
+                nrows, (ctypes.c_int * 10)(*dims), shape, ctypes.byref(smem)),
+                "fused_log_prob launch-shape query")
+            walkers, cluster, blocks, threads, max_clusters, split_walkers = shape
+            return {"design": design, "kernel": "fused_log_prob_cluster_kernel",
+                    "walkers_per_cluster": walkers, "split_walkers": split_walkers,
+                    "cluster_size": cluster, "clusters": blocks // cluster, "blocks": blocks,
+                    "threads_per_block": threads, "smem_bytes": smem.value,
+                    "max_active_clusters": max_clusters}
+        sms, per_sm, smem = log_prob_capacity()
+        plan = log_prob_plan(dims, nrows, sms, per_sm)
+        return {"design": design, "kernel": "fused_log_prob_kernel",
+                "tile": [TILE_ROWS, TILE_COLS, TILE_K], "blocks": plan["blocks"],
+                "threads_per_block": TILE_THREADS, "blocks_per_sm": per_sm, "sms": sms,
+                "capacity": plan["capacity"], "split": [p["split"] for p in plan["products"]],
+                "local": [int(p["local"]) for p in plan["products"]],
+                "max_items": plan["max_items"], "smem_bytes": smem}
     dims = (ctypes.c_int * 10)(*_dims(spec))
     shape, smem = (ctypes.c_int * 19)(), ctypes.c_longlong()
-    err = _Library.lib.linna_launch_shape(
-        _KERNEL_IDS[kernel], nrows, dims, shape, ctypes.byref(smem)
-    )
-    if err != 0:
-        msg = _Library.lib.linna_error_string(err).decode()
-        raise RuntimeError(f"{kernel} launch-shape query failed: {msg} (cudaError {err})")
-    if kernel == "fused_apply":
-        tile_rows, tile_cols, blocks, threads, per_sm, sms, tile_k, stages, items = shape[:9]
-        return {"tile": [tile_rows, tile_cols, tile_k], "stages": stages, "blocks": blocks,
-                "threads_per_block": threads, "blocks_per_sm": per_sm, "sms": sms,
-                "split": list(shape[9:]), "max_items": items, "smem_bytes": smem.value}
-    walkers, cluster, blocks, threads, max_clusters, split_walkers = shape[:6]
-    return {
-        "walkers_per_cluster": walkers,
-        "split_walkers": split_walkers,
-        "cluster_size": cluster,
-        "clusters": blocks // cluster,
-        "blocks": blocks,
-        "threads_per_block": threads,
-        "smem_bytes": smem.value,
-        "max_active_clusters": max_clusters,
-    }
+    _check(_Library.lib.linna_apply_launch_shape(nrows, dims, shape, ctypes.byref(smem)),
+           "fused_apply launch-shape query")
+    tile_rows, tile_cols, blocks, threads, per_sm, sms, tile_k, stages, items = shape[:9]
+    return {"tile": [tile_rows, tile_cols, tile_k], "stages": stages, "blocks": blocks,
+            "threads_per_block": threads, "blocks_per_sm": per_sm, "sms": sms,
+            "split": list(shape[9:]), "max_items": items, "smem_bytes": smem.value}
 
 
 def _recompute_grads(fn: Callable, inputs: Sequence, needs: Sequence[bool], grad_out):
@@ -436,6 +616,8 @@ class _LaunchArgs:
     def __init__(self, spec: N.ModelSpec):
         self.spec = spec
         self.key = None
+        self.plans: Dict[int, tuple] = {}
+        self.design: Optional[str] = None
 
     def get(self, env):
         weights = _flatten_params(env["params"])
@@ -457,6 +639,23 @@ class _LaunchArgs:
             self.key = key
         return self.arrays
 
+    def design_of(self) -> str:
+        """The model's design (:func:`log_prob_design`), asked once."""
+        if self.design is None:
+            self.design = log_prob_design(cluster_walkers(_dims(self.spec)))
+        return self.design
+
+    def plan(self, nrows: int):
+        """(scratch floats, the plan as a ctypes array) of a launch over
+        ``nrows`` rows, planned once per row count."""
+        got = self.plans.get(nrows)
+        if got is None:
+            sms, per_sm, _ = log_prob_capacity()
+            plan = log_prob_plan(_dims(self.spec), nrows, sms, per_sm)
+            got = (plan["floats"]["total"], (ctypes.c_longlong * PLAN_LENGTH)(*plan["array"]))
+            self.plans[nrows] = got
+        return got
+
 
 def _launch_log_prob(spec: N.ModelSpec, x: torch.Tensor, env, ypositive: bool,
                      args: _LaunchArgs) -> torch.Tensor:
@@ -464,14 +663,27 @@ def _launch_log_prob(spec: N.ModelSpec, x: torch.Tensor, env, ypositive: bool,
     weights, dims, like = args.get(env)
     _require(x, "x", torch.float32, (x.shape[0], spec.in_size), args.device)
     lp = torch.empty((x.shape[0],), dtype=torch.float32, device=x.device)
+    design = args.design_of()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _Library.lib.linna_fused_log_prob(
-            x.data_ptr(), x.shape[0], weights, dims, like, int(bool(ypositive)),
-            lp.data_ptr(), stream,
-        )
+        if design == "cluster":
+            err = _Library.lib.linna_fused_log_prob_cluster(
+                x.data_ptr(), x.shape[0], weights, dims, like, int(bool(ypositive)),
+                lp.data_ptr(), stream,
+            )
+        elif x.shape[0] > 0:
+            floats, plan = args.plan(x.shape[0])
+            # the activations and the split products' partial tiles
+            scratch = torch.empty((floats,), dtype=torch.float32, device=x.device)
+            err = _Library.lib.linna_fused_log_prob(
+                x.data_ptr(), x.shape[0], weights, dims, like, int(bool(ypositive)), plan,
+                scratch.data_ptr(), floats, lp.data_ptr(), stream,
+            )
+        else:
+            err = 0
     _check(err, "fused_log_prob")
     launches["fused_log_prob"] += 1
+    designs[design] += 1
     launch_shapes["fused_log_prob"].add((x.shape[0], spec.in_size, spec.out_size))
     return lp
 

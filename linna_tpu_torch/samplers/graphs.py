@@ -31,8 +31,8 @@ The eager chunk functions (``stretch_chunk``, ``hmc_chunk``, ``nuts_chunk``,
 ``chip_smoke.py`` holds the graphs against them.  A capture or replay error
 propagates; nothing falls back to the eager step.
 
-The kernels' counters (``ops.fused.launches`` and ``ops.fused.plain_calls``)
-tick in Python, so a replay would not move them: :class:`LaunchLedger`
+The kernels' counters (``ops.fused.launches``, ``ops.fused.plain_calls`` and
+``ops.fused.designs``) tick in Python, so a replay would not move them: :class:`LaunchLedger`
 takes back what a capture counted and adds it on every replay.
 """
 
@@ -129,7 +129,7 @@ class StepGraph:
         self.graph = torch.cuda.CUDAGraph()
         for g in generators:
             self.graph.register_generator_state(g)
-        self.ledger = LaunchLedger(fused.launches, fused.plain_calls)
+        self.ledger = LaunchLedger(fused.launches, fused.plain_calls, fused.designs)
         # thread_local: the kernel warm-up thread (parallel/precompile) may
         # still be running
         with self.ledger.capturing(), collector_paused(), \

@@ -191,7 +191,8 @@ def run_ensemble(
     ps = {"precond": 0.0, "init": 0.0, "setup": 0.0, "capture": 0.0, "dispatch": 0.0,
           "device_wait": 0.0, "host": 0.0, "tau_checks": 0.0, "loop": 0.0}
     t_setup0 = time.perf_counter()
-    counts0 = {"launches": dict(fused.launches), "plain_calls": dict(fused.plain_calls)}
+    counts0 = {"launches": dict(fused.launches), "plain_calls": dict(fused.plain_calls),
+               "designs": dict(fused.designs)}
     if not tau_walkers or tau_walkers <= 0:
         tau_walkers = None
     primary = MH.is_primary()
@@ -481,7 +482,8 @@ def run_ensemble(
             trace_rec["kernels"] = {
                 kind: {k: now[k] - counts0[kind][k] for k in now}
                 for kind, now in (("launches", fused.launches),
-                                  ("plain_calls", fused.plain_calls))}
+                                  ("plain_calls", fused.plain_calls),
+                                  ("designs", fused.designs))}
 
     ps["setup"] = (time.perf_counter() - t_setup0 - ps["precond"] - ps["init"]
                    - ps["capture"])

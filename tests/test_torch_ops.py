@@ -165,3 +165,83 @@ def test_fused_log_prob_autograd_function_gradient(monkeypatch):
     j_lp = JLK.make_log_prob(p.spec, p.params_j, p.ts_j, p.pack_j, p.data, p.inv_cov)
     g_ref = np.asarray(JLK.make_grad_log_prob(j_lp)(x))
     np.testing.assert_allclose(xt.grad.numpy(), g_ref, rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------- fused_log_prob's launch plan
+
+# the kernel's widths (fused._dims) of the DES-Y1 3x2pt and LSST-Y10 6x2pt+N
+# emulators; every row count a sampling path launches (the MAP search's one
+# row, a ragged 37, zeus's half-ensemble, NUTS's whole one, bench_fused's
+# large batches)
+PLAN_DIMS = {"des": [27, 1000, 500, 250, 125, 16, 32, 64, 500, 457],
+             "lsst": [40, 1000, 500, 250, 125, 16, 32, 64, 500, 1560]}
+PLAN_ROWS = (1, 37, 64, 128, 192, 256, 512, 4096, 16384)
+
+
+@pytest.mark.parametrize("rows", PLAN_ROWS)
+@pytest.mark.parametrize("width", sorted(PLAN_DIMS))
+def test_log_prob_plan_covers_every_k_chunk_once(width, rows):
+    plan = TF.log_prob_plan(PLAN_DIMS[width], rows)
+    for p in plan["products"]:
+        ranges = p["ranges"]
+        assert len(ranges) == p["split"]
+        assert ranges[0][0] == 0 and ranges[-1][1] == p["chunks"] == -(-p["K"] // TF.TILE_K)
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        if p["split"] > 1:
+            assert all(k1 - k0 >= TF.MIN_SPLIT_CHUNKS for k0, k1 in ranges)
+
+
+@pytest.mark.parametrize("width", sorted(PLAN_DIMS))
+def test_log_prob_split_follows_the_widths_alone(width):
+    dims = PLAN_DIMS[width]
+    want = TF.log_prob_splits(dims)
+    for rows in PLAN_ROWS:
+        for sms, per_sm in ((132, 2), (132, 3), (66, 4), (8, 1)):
+            plan = TF.log_prob_plan(dims, rows, sms, per_sm)
+            assert [p["split"] for p in plan["products"]] == want
+            assert [p["ranges"] for p in plan["products"]] == \
+                [p["ranges"] for p in TF.log_prob_plan(dims, 1)["products"]]
+
+
+@pytest.mark.parametrize("width", sorted(PLAN_DIMS))
+def test_log_prob_plan_blocks_tell_the_sampler_row_counts_apart(width):
+    # the benchmark tells a traced launch's rows by its grid: 128 and 256
+    # (zeus's half-ensemble and whole one), and the MAP search's one row
+    blocks = {rows: TF.log_prob_plan(PLAN_DIMS[width], rows)["blocks"] for rows in (1, 128, 256)}
+    assert len(set(blocks.values())) == 3, blocks
+    # and the grid grows with the rows until the card is full
+    grids = [TF.log_prob_plan(PLAN_DIMS[width], rows)["blocks"] for rows in PLAN_ROWS]
+    assert grids == sorted(grids) and grids[-1] == TF.H100[0] * TF.H100[1]
+
+
+@pytest.mark.parametrize("rows", PLAN_ROWS)
+@pytest.mark.parametrize("width", sorted(PLAN_DIMS))
+def test_log_prob_plan_grid_fits_the_card_and_the_scratch(width, rows):
+    for sms, per_sm in (TF.H100, (132, 3), (8, 1)):
+        plan = TF.log_prob_plan(PLAN_DIMS[width], rows, sms, per_sm)
+        assert 1 <= plan["blocks"] <= plan["capacity"] == sms * per_sm
+        fl = plan["floats"]
+        tile = TF.TILE_ROWS * TF.TILE_COLS
+        for p in plan["products"]:
+            assert p["tiles"] == plan["row_tiles"] * sum(p["col_tiles"])
+            # a local product's tiles alone fill the grid; the others' items
+            # (tiles x split) each have a partial tile in the scratch
+            assert p["local"] == (p["split"] > 1 and p["tiles"] >= plan["blocks"])
+            if p["split"] > 1:
+                need = plan["blocks"] if p["local"] else p["tiles"] * p["split"]
+                assert fl["part"] + need * tile <= fl["total"]
+        order = [fl[k] for k in ("A", "B", "H", "X", "part", "total")]
+        assert order == sorted(order) and all(v % 4 == 0 for v in order)
+        assert len(plan["array"]) == TF.PLAN_LENGTH
+        assert plan["array"][:3] == [plan["row_tiles"], plan["blocks"], plan["deal"]]
+        # block b takes work item b * deal mod blocks first: a permutation
+        assert sorted(b * plan["deal"] % plan["blocks"] for b in range(plan["blocks"])) == \
+            list(range(plan["blocks"]))
+
+
+@pytest.mark.parametrize("walkers,design", [(0, "tiled"), (8, "tiled"), (16, "cluster"),
+                                            (24, "cluster")])
+def test_log_prob_design_follows_the_walkers_a_cluster_holds(walkers, design):
+    # the cluster design where a cluster holds 16 walkers or more at the
+    # widths (the DES width holds 24 on the H100, the LSST width 8)
+    assert TF.log_prob_design(walkers) == design
