@@ -9,7 +9,7 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    limit, and which chain store the run uses (HDF5, or npz without h5py).
 2. Build: compile ``linna_tpu_torch/ops/csrc/fused_mlp.cu`` with nvcc for
    sm_90a and print the seconds and the compiler's register/shared-memory
-   report.
+   report; then ``ops/csrc/adamw.cu``, the trainer's AdamW kernel.
 3. Kernels against their plain PyTorch versions at the DES-Y1-3x2pt width
    (27 -> 457, hidden 1000) for B in {1, 37, 128, 200, 256, 4096} (200
    leaves a ragged last cluster of ``fused_log_prob`` and a ragged row tile
@@ -153,8 +153,14 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    pre-model, 12d the range test's 100 steps, 12e ``train`` with a hyper, a
    reinit and a reload planted in speculated chunks; ms an epoch both ways,
    a traced chunk's busy share, replays and kernels an epoch, capture
-   seconds, and no launch of either CUDA kernel.  Phases 5, 7, 8 and 10
-   train through the graphs too: ``_train`` replays every chunk on a card.
+   seconds, no launch of either likelihood kernel, and one launch of the
+   AdamW kernel (``ops/adamw.py``) a minibatch step both ways.  12f: the
+   AdamW kernel against its plain version bit for bit over
+   ``ADAMW_STEPS`` steps at both widths, K = 2, both first-moment types,
+   a member reset on the way; its device time a launch, the plain
+   version's (the PyTorch ops it replaced), and its share of the HBM
+   roofline.  Phases 5, 7, 8 and 10 train through the graphs too:
+   ``_train`` replays every chunk on a card.
 13. The user scripts on the card.  13a: ``examples/walkthrough_torch.py``
    (the artifact tree; a finite prediction, Jacobian and gradient).  13b:
    ``bench_full_torch.py`` on the LSST-Y10 class (``examples.lsst_theory``,
@@ -347,6 +353,10 @@ K4_RTOL = 1e-5
 # against eager (5-epoch chunks: PLANTED_EPOCHS epochs, each planted epoch
 # in a chunk that speculates its successor)
 TRAIN_PROGRAM_EPOCHS = {"12a": 10, "12b": 5, "12c": 10}
+# 12f: the AdamW kernel's steps against its plain version, and its members
+ADAMW_STEPS = 5
+ADAMW_MEMBERS = 2
+WIDTHS_ADAMW = {"des": (NDIM, NDATA), "lsst": WIDE}
 TRAIN_PROGRAM_TRACED = {"12a": 3, "12b": 2, "12c": 3}
 FLAGSHIP_ROWS, FLAGSHIP_VAL = 40000, 2000
 PLANTED = {12: "hyper", 27: "reinit", 42: "reload"}
@@ -891,7 +901,7 @@ def phase_slice(device, outdir, nwalkers=NWALKERS, steps=STEPS, ndim=NDIM, ndata
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t3 = time.perf_counter()
-    launches, plain = dict(F.launches), dict(F.plain_calls)
+    launches, plain = _likelihood_counts(F.launches), _likelihood_counts(F.plain_calls)
 
     samples, lps = reader.get_chain(), reader.get_log_prob()
     if samples.shape != (steps, nwalkers, ndim) or lps.shape != (steps, nwalkers):
@@ -1356,7 +1366,7 @@ def phase_gradient(device, outdir, nwalkers=NWALKERS, nuts_steps=NUTS_STEPS,
                                  convergence_check=False, seed=0, device=device,
                                  trace_rec=trace)
         wall = time.perf_counter() - t0
-        launches, plain = dict(F.launches), dict(F.plain_calls)
+        launches, plain = _likelihood_counts(F.launches), _likelihood_counts(F.plain_calls)
         chain, lps = backend.get_chain(), backend.get_log_prob()
         if chain.shape != (steps, nwalkers, ndim) or not (np.isfinite(chain).all()
                                                           and np.isfinite(lps).all()):
@@ -1384,7 +1394,7 @@ def phase_gradient(device, outdir, nwalkers=NWALKERS, nuts_steps=NUTS_STEPS,
     res["emcee"], _ = run("emcee", emcee_steps)
     launches = {
         "gradient": {k: res["nuts"]["launches"][k] + res["hmc"]["launches"][k]
-                     for k in F.launches},
+                     for k in F.LIKELIHOOD_KERNELS},
         "emcee": res["emcee"]["launches"],
     }
 
@@ -1527,10 +1537,26 @@ def phase_driver(device, outdir, epochs=DRIVER_EPOCHS, timeout=DRIVER_TIMEOUT,
 # ------------------------------------------- pre-model and bf16 inference
 
 
+def _likelihood_counts(counter: dict) -> dict:
+    """A kernel counter of ``ops.fused`` cut to the two likelihood kernels:
+    the trainer's AdamW kernel counts beside them on every path that
+    trains."""
+    from linna_tpu_torch.ops import fused as F
+
+    return {k: counter[k] for k in F.LIKELIHOOD_KERNELS}
+
+
+def _adamw_counts() -> dict:
+    from linna_tpu_torch.ops import fused as F
+
+    return {"launches": F.launches["adamw"], "plain_calls": F.plain_calls["adamw"]}
+
+
 def _launch_counts():
     from linna_tpu_torch.ops import fused as F
 
-    return {"launches": dict(F.launches), "plain_calls": dict(F.plain_calls)}
+    return {"launches": _likelihood_counts(F.launches),
+            "plain_calls": _likelihood_counts(F.plain_calls)}
 
 
 def _no_kernel(counts: dict, what: str) -> None:
@@ -1918,7 +1944,8 @@ def sample(log_prob, x0, outdir, method, steps, device) -> dict:
                              max_iterations=steps, convergence_check=False, seed=0,
                              device=device, trace_rec=trace)
     MH.barrier("sampled")
-    rec = {"launches": dict(F.launches), "plain_calls": dict(F.plain_calls),
+    rec = {"launches": _likelihood_counts(F.launches),
+           "plain_calls": _likelihood_counts(F.plain_calls),
            "collectives": MH.collective_counts(), "steps": steps,
            "s_per_100_steps": _sampler_rate(trace, steps)["s_per_100_steps"],
            "sampler_s": trace["sampler"]}
@@ -3142,14 +3169,15 @@ def _chunk_pairs(graphed: dict, eager: dict) -> dict:
 def _program_chunk(tr, prog, n_epochs: int, n: int, device) -> dict:
     """One chunk of ``prog`` on fresh draws: its outputs, the state after,
     seconds between synchronizes and the program's replays."""
-    replays = prog.replays
+    replays, adamw = prog.replays, _adamw_counts()
     perms = tr._draw_perms(n_epochs, n)
     _sync(device)
     t0 = time.perf_counter()
     out = prog(perms)
     _sync(device)
     return {"out": out, "s": time.perf_counter() - t0, "state": _train_state(tr),
-            "replays": prog.replays - replays}
+            "replays": prog.replays - replays,
+            "adamw": {k: v - adamw[k] for k, v in _adamw_counts().items()}}
 
 
 def _traced_chunk(tr, prog, n_epochs: int, n: int, device) -> dict:
@@ -3192,7 +3220,16 @@ def program_case(tr, data, n: int, epochs: int, traced: int, device, what: str) 
            "graphed_ms_per_epoch": g["s"] / epochs * 1e3,
            "eager_ms_per_epoch": e["s"] / epochs * 1e3,
            "replays_per_epoch": g["replays"] / epochs,
+           "adamw_per_epoch": {"graphed": {k: v / epochs for k, v in g["adamw"].items()},
+                               "eager": {k: v / epochs for k, v in e["adamw"].items()}},
            **_held_training(_chunk_pairs(g, e), what)}
+    # one AdamW step a minibatch: the kernel on a card, its plain version here
+    ran, idle = ("launches", "plain_calls") if device.type == "cuda" else ("plain_calls",
+                                                                           "launches")
+    for way, r in (("graphed", g), ("eager", e)):
+        if r["adamw"][ran] != nb * epochs or r["adamw"][idle]:
+            raise AssertionError(f"{what}: the {way} chunk's AdamW steps {r['adamw']} for "
+                                 f"{nb * epochs} minibatch steps")
     rec["graphed_traced"] = _traced_chunk(tr, graphed, traced, n, device)
     rec["eager_traced"] = _traced_chunk(tr, eager, traced, n, device)
     log(f"  {what}: {json.dumps(rec, default=float)}")
@@ -3362,10 +3399,88 @@ def phase_train_programs(device, outdir, ndim=NDIM, ndata=NDATA, ntrain=NTRAIN, 
     res["12b"] = program_case(tr, data, len(big["tx"]), epochs["12b"], traced["12b"], device,
                               f"12b K={PREMODEL_ENSEMBLE} bf16 at {len(big['tx'])} rows")
     del tr, data
-    res["launches"], res["plain_calls"] = dict(F.launches), dict(F.plain_calls)
-    log(f"  12: kernel launches {res['launches']}, plain calls {res['plain_calls']}")
+    res["launches"] = _likelihood_counts(F.launches)
+    res["plain_calls"] = _likelihood_counts(F.plain_calls)
+    res["adamw"] = _adamw_counts()
+    log(f"  12: likelihood kernel launches {res['launches']}, plain calls "
+        f"{res['plain_calls']}; AdamW {res['adamw']}")
     if any(res["launches"].values()) or any(res["plain_calls"].values()):
-        raise AssertionError("training reached a CUDA kernel or its plain version")
+        raise AssertionError("training reached a likelihood kernel or its plain version")
+    return res
+
+
+def adamw_inputs(device, ndim: int, ndata: int, k: int, mu_dtype, steps: int, seed: int = 0):
+    """chto_v2's (K, P) parameters at the widths, an AdamW state with its
+    first moment in ``mu_dtype``, each step's leaf gradients in the Layout's
+    order and in that type (the trainer's: bf16 leaves beside a bf16
+    moment), the even leaves contiguous as autograd leaves them and the odd
+    ones views of a (K, P) tensor, and lr and wd per member."""
+    from linna_tpu_torch import nn as N
+    from linna_tpu_torch import train as TR
+
+    layout = TR.Layout(N.make_model_spec("chto_v2", ndim, ndata))
+    gen = torch.Generator().manual_seed(seed)
+    flat = (0.05 * torch.randn(k, layout.size, generator=gen)).to(device)
+    grads = []
+    for s in range(steps):
+        full = (torch.randn(k, layout.size, generator=gen) * (0.5 + s)).to(device, mu_dtype)
+        grads.append([v.contiguous() if i % 2 == 0 else v
+                      for i, v in enumerate(layout.stacked_views(full))])
+    lr = torch.tensor([[1e-3 * (1 + m)] for m in range(k)], device=device)
+    wd = torch.tensor([[1e-4 * (1 + 3 * m)] for m in range(k)], device=device)
+    return flat, TR.adamw_init(flat, mu_dtype), grads, lr, wd
+
+
+def adamw_bytes(flat, state, grads) -> int:
+    """The bytes one step must move: the parameters, first and second moment
+    read and written, the gradient read."""
+    k, p = flat.shape
+    per = 2 * (4 + state.mu.element_size() + 4) + grads[0].element_size()
+    return k * p * per
+
+
+def phase_adamw(device, widths=WIDTHS_ADAMW, k=ADAMW_MEMBERS, steps=ADAMW_STEPS) -> dict:
+    """12f: the AdamW kernel (``ops.adamw.adamw_``) against its plain
+    version (``adamw_plain_``, the PyTorch ops) on the same device, bit for
+    bit over ``steps`` steps (member 1's state reset after step 2) at each
+    width, with a bfloat16 and a float32 first moment; on a card, the
+    kernel's device time a launch beside the bytes it moves, its share of
+    the HBM roofline, the whole call's device time (the count and the two
+    bias corrections too) and the plain version's."""
+    from linna_tpu_torch import train as TR
+    from linna_tpu_torch.ops import adamw as AW
+
+    card = device.type == "cuda"
+    res = {}
+    for name, (ndim, ndata) in widths.items():
+        for mu_dtype in (torch.bfloat16, torch.float32):
+            key = f"{name}_{str(mu_dtype).split('.')[-1]}"
+            flat, st, grads, lr, wd = adamw_inputs(device, ndim, ndata, k, mu_dtype, steps)
+            flat_p, st_p = flat.clone(), TR.AdamWState(*(t.clone() for t in st))
+            for s, g in enumerate(grads):
+                AW.adamw_(flat, g, st, lr, wd)
+                AW.adamw_plain_(flat_p, g, st_p, lr, wd)
+                pairs = {"params": (flat, flat_p), **{n: (a, b) for n, a, b in zip(
+                    ("count", "mu", "nu"), st, st_p)}}
+                bad = {n: _apart(a, b) for n, (a, b) in pairs.items() if not torch.equal(a, b)}
+                if bad:
+                    raise AssertionError(f"12f {key} step {s}: kernel and plain apart: {bad}")
+                if s == 2:
+                    TR.adamw_reset_(st, 1)
+                    TR.adamw_reset_(st_p, 1)
+            rec = {"members": k, "params_per_member": flat.shape[1], "steps": steps,
+                   "bit_for_bit": True, "bytes": adamw_bytes(flat, st, grads[0])}
+            if card:
+                call = lambda: AW.adamw_(flat, grads[0], st, lr, wd)
+                rec["kernel_ms"], rec["timing"] = device_ms(call, kernel="adamw_kernel")
+                rec["call_ms"], _ = device_ms(call)
+                rec["plain_ms"], rec["plain_timing"] = device_ms(
+                    lambda: AW.adamw_plain_(flat_p, grads[0], st_p, lr, wd))
+                rec["kernel_us"] = rec["kernel_ms"] * 1e3
+                rec["bound_ms"] = rec["bytes"] / PEAK_BYTES * 1e3
+                rec["hbm_roofline_pct"] = 100.0 * rec["bound_ms"] / rec["kernel_ms"]
+            res[key] = rec
+            log(f"  12f AdamW {key}: {json.dumps(rec, default=float)}")
     return res
 
 
@@ -3785,6 +3900,16 @@ def main() -> int:
             log("  " + line.strip())
     resources = kernel_resources(report)
     log(f"  registers and spills: {resources}")
+    from linna_tpu_torch.ops import adamw as AW
+
+    t0 = time.perf_counter()
+    adamw_report = AW.build()
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", adamw_report)]
+    spills = sum(int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", adamw_report))
+    log(f"  the AdamW kernel's library built in {time.perf_counter() - t0:.1f} s: "
+        f"{len(regs)} instantiations, at most {max(regs, default=0)} registers, "
+        f"{spills} bytes spilled")
 
     seconds = {}
     log("== 3. kernels against their plain versions")
@@ -3895,6 +4020,7 @@ def main() -> int:
         train_programs = phase_train_programs(device, RUN_DIR)
     finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
+    adamw_rec = phase_adamw(device)
     seconds[12] = time.perf_counter() - t0
     log(f"  phase 12: {seconds[12]:.1f} s")
 
@@ -4007,6 +4133,9 @@ def main() -> int:
             "check": "pass",
         })
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"adamw": {"source": "linna_tpu_torch/ops/csrc/adamw.cu",
+                                "launches": train_programs["adamw"]["launches"],
+                                "by_case": adamw_rec}}, default=float), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -26,9 +26,12 @@ Each wrapper launches its kernel for a CUDA tensor and raises if the build or
 the launch fails; for a CPU tensor it runs the plain PyTorch version beside
 it (``fused_apply_plain``, ``fused_log_prob_plain``).  ``launches`` counts
 kernel launches and ``plain_calls`` plain-version calls, so a run can show
-which one its main path took; ``launch_shapes`` and ``plain_shapes`` hold
-the shapes they ran at.  Gradients recompute the plain composition
-under autograd (``torch.autograd.Function``), as the JAX custom VJPs do.
+which one its main path took (they count the trainer's AdamW kernel of
+:mod:`linna_tpu_torch.ops.adamw` too, under ``adamw``); ``launch_shapes``
+and ``plain_shapes`` hold the shapes the two likelihood kernels ran at.
+Gradients recompute the plain composition under autograd
+(``torch.autograd.Function``), as the JAX custom VJPs do.
+:func:`compile_library` is the ``nvcc`` build both modules' libraries take.
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ __all__ = [
     "fused_log_prob_plain",
     "build",
     "build_dir",
+    "compile_library",
     "launch_shape",
     "log_prob_design",
     "log_prob_plan",
@@ -74,9 +78,11 @@ NVCC_FLAGS = (
 )
 
 # a launch or a plain call from a CUDA graph counts at every replay
-# (linna_tpu_torch.samplers.graphs.LaunchLedger)
-launches: Dict[str, int] = {"fused_apply": 0, "fused_log_prob": 0}
-plain_calls: Dict[str, int] = {"fused_apply": 0, "fused_log_prob": 0}
+# (linna_tpu_torch.samplers.graphs.LaunchLedger); ``adamw`` counts the
+# trainer's optimizer kernel (ops/adamw.py), which training alone reaches
+LIKELIHOOD_KERNELS = ("fused_apply", "fused_log_prob")
+launches: Dict[str, int] = {"fused_apply": 0, "fused_log_prob": 0, "adamw": 0}
+plain_calls: Dict[str, int] = {"fused_apply": 0, "fused_log_prob": 0, "adamw": 0}
 # fused_log_prob's launches by design (log_prob_design), counted as launches are
 designs: Dict[str, int] = {"tiled": 0, "cluster": 0}
 # the shapes each ran at, (rows, in width, out width); a graph's replays run
@@ -169,30 +175,38 @@ def build() -> str:
     return _Library.log
 
 
-def _load() -> None:
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+def compile_library(source: Path, stats: Dict[str, float]) -> tuple:
+    """``source`` built by ``nvcc`` into :func:`build_dir` as
+    ``lib<stem>_<hash>.so``, unless a build of the same source and flags is
+    there; returns (the loaded library, the compiler output).  The
+    compiler's seconds are added to ``stats["nvcc_s"]``.  Raises with the
+    compiler output when ``nvcc`` fails."""
+    tag = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     where = build_dir()
     where.mkdir(parents=True, exist_ok=True)
-    so = where / f"libfused_mlp_{tag}.so"
+    so = where / f"lib{source.stem}_{tag}.so"
     log_path = so.with_suffix(".log")
     if not so.is_file():
         tmp = where / f".{so.name}.{os.getpid()}.tmp"
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
             capture_output=True, text=True,
         )
-        _Library.stats["nvcc_s"] += time.perf_counter() - t0
+        stats["nvcc_s"] += time.perf_counter() - t0
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {SOURCE.name}:\n"
+                f"nvcc failed ({proc.returncode}) building {source.name}:\n"
                 f"{proc.stdout}\n{proc.stderr}"
             )
         log_path.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    return ctypes.CDLL(str(so)), log_path.read_text() if log_path.is_file() else ""
+
+
+def _load() -> None:
+    lib, log = compile_library(SOURCE, _Library.stats)
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     ints = ctypes.POINTER(ctypes.c_int)
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -218,9 +232,9 @@ def _load() -> None:
     lib.linna_error_string.argtypes = [ci]
     lib.linna_error_string.restype = ctypes.c_char_p
     if lib.linna_log_prob_plan_length() != PLAN_LENGTH:
-        raise RuntimeError(f"{so.name}: its fused_log_prob plan has "
+        raise RuntimeError(f"{Path(lib._name).name}: its fused_log_prob plan has "
                            f"{lib.linna_log_prob_plan_length()} values, this module's {PLAN_LENGTH}")
-    _Library.log = log_path.read_text() if log_path.is_file() else ""
+    _Library.log = log
     _Library.lib = lib
 
 
@@ -260,14 +274,17 @@ def _reject_bypass(spec: N.ModelSpec, what: str, instead: str) -> None:
         )
 
 
-def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+def _require(t: torch.Tensor, name: str, dtype, shape, device, contiguous: bool = True) -> None:
+    """``t`` of the type ``dtype`` (or one of a tuple of types), ``shape``
+    and ``device``, and contiguous unless ``contiguous`` is False."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: expected {' or '.join(map(str, dtypes))}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if t.device != device:
         raise ValueError(f"{name}: expected device {device}, got {t.device}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
 
 

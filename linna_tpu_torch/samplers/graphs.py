@@ -32,8 +32,9 @@ The eager chunk functions (``stretch_chunk``, ``hmc_chunk``, ``nuts_chunk``,
 propagates; nothing falls back to the eager step.
 
 The kernels' counters (``ops.fused.launches``, ``ops.fused.plain_calls`` and
-``ops.fused.designs``) tick in Python, so a replay would not move them: :class:`LaunchLedger`
-takes back what a capture counted and adds it on every replay.
+``ops.fused.designs``; the trainer's AdamW kernel counts there too) tick in
+Python, so a replay would not move them: :class:`LaunchLedger` takes back
+what a capture counted and adds it on every replay.
 """
 
 from __future__ import annotations

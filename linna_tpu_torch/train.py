@@ -80,6 +80,7 @@ from . import losses as L
 from . import nn as N
 from . import train_graphs as TG
 from .device import DeviceLike, resolve_device
+from .ops import adamw as AW
 from .parallel import multihost as MH
 from .transforms import TransformSet
 from .utils import checkpoint as ckpt
@@ -103,8 +104,6 @@ __all__ = [
 LAST_CKPT = "last.ckpt.npz"
 BEST_CKPT = "best.ckpt.npz"
 MIN_LR = 2e-6
-# optax's injected hyperparameters are float32, so 1 - b is taken in float32
-ADAM_B1, ADAM_B2, ADAM_EPS = np.float32(0.9), np.float32(0.999), np.float32(1e-8)
 
 
 class EarlyStopping:
@@ -383,29 +382,19 @@ def adamw_init(flat: torch.Tensor, mu_dtype: Optional[torch.dtype] = None) -> Ad
     )
 
 
-@torch.no_grad()
-def adamw_step_(
-    flat: torch.Tensor, grad: torch.Tensor, state: AdamWState, lr: torch.Tensor, wd: torch.Tensor
-) -> None:
+def adamw_step_(flat: torch.Tensor, grad, state: AdamWState, lr: torch.Tensor,
+                wd: torch.Tensor) -> None:
     """One AdamW update of the (K, P) parameters in place; ``lr`` and ``wd``
-    are (K, 1) tensors.  The arithmetic follows ``optax.adamw`` op for op.
+    are (K, 1) tensors.  ``grad`` is the (K, P) gradient, or the leaves'
+    gradients in :class:`Layout` order as autograd left them (each (K, ...),
+    in the compute type).  The arithmetic follows ``optax.adamw`` op for op.
     A first moment stored in a narrower type is updated in float32, the
     update uses that float32 moment, and only the stored copy is rounded
-    (optax's order under ``mu_dtype``)."""
-    state.count.add_(1)
-    # no fused multiply-adds: each product rounds on its own, as in optax
-    one = np.float32(1.0)
-    if state.mu.dtype == torch.float32:
-        mu = state.mu.mul_(float(ADAM_B1)).add_(float(one - ADAM_B1) * grad)
-    else:
-        mu = state.mu.to(torch.float32) * float(ADAM_B1) + float(one - ADAM_B1) * grad
-        state.mu.copy_(mu)
-    state.nu.mul_(float(ADAM_B2)).add_(float(one - ADAM_B2) * (grad * grad))
-    count = state.count.to(torch.float32)[:, None]
-    mu_hat = mu / (1.0 - torch.pow(float(ADAM_B1), count))
-    nu_hat = state.nu / (1.0 - torch.pow(float(ADAM_B2), count))
-    update = mu_hat / (torch.sqrt(nu_hat) + float(ADAM_EPS)) + wd * flat
-    flat.add_(update * -lr)
+    (optax's order under ``mu_dtype``).  On a card this is one launch of
+    :mod:`linna_tpu_torch.ops.adamw`'s kernel, which reads the leaves in
+    place; on the CPU its plain version concatenates them and runs the
+    PyTorch ops, to the same bits."""
+    AW.adamw_(flat, grad, state, lr, wd)
 
 
 @torch.no_grad()
@@ -732,9 +721,16 @@ class _MemberStack:
             return torch.mean(per_row, dim=-1), leaves
         return per_row.sum(dim=-1) / bs, leaves
 
+    def _leaf_grads(self, loss: torch.Tensor, leaves: List[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, ...]:
+        """The gradients of the members' summed ``loss`` by leaf, as
+        autograd leaves them: (K, ...) in the leaves' type, in
+        :class:`Layout` order."""
+        return torch.autograd.grad(loss.sum(), leaves)
+
     def _grad(self, loss: torch.Tensor, leaves: List[torch.Tensor]) -> torch.Tensor:
         """The float32 gradient (K, P) of the members' summed ``loss``."""
-        grads = torch.autograd.grad(loss.sum(), leaves)
+        grads = self._leaf_grads(loss, leaves)
         return torch.cat([g.reshape(self.flat.shape[0], -1) for g in grads], dim=1).to(
             torch.float32)
 
@@ -749,19 +745,21 @@ class _MemberStack:
         pre-model's float32 output on the float32 inputs is already in the
         residual target, in either type.  The views
         are the autograd leaves, so their gradients arrive without being
-        scattered into full-size tensors; concatenated and cast to float32
-        they are the gradient of the float32 parameters, as the cast's
-        backward gives it.
+        scattered into full-size tensors; widened to float32 they are the
+        gradient of the float32 parameters, as the cast's backward gives
+        it.  :func:`adamw_step_` takes them as autograd left them (the
+        kernel reads each leaf in place).
 
         With a data group this rank takes its share of each minibatch; the
         ranks' sums of their rows' losses over the whole minibatch size add
-        up, in one ``all_reduce`` of the gradient with the loss beside it,
-        to the minibatch's mean loss and its gradient."""
+        up, in one ``all_reduce`` of the float32 gradient (K, P) with the
+        loss beside it, to the minibatch's mean loss and its gradient."""
         loss, leaves = self._loss(data, idx)
-        grad = self._grad(loss, leaves)
-        loss = loss.detach()
-        if self._group is not None:
-            both = MH.all_reduce(torch.cat([grad, loss[:, None]], dim=1), group=self._group)
+        if self._group is None:
+            grad, loss = self._leaf_grads(loss, leaves), loss.detach()
+        else:
+            both = MH.all_reduce(torch.cat([self._grad(loss, leaves), loss.detach()[:, None]],
+                                           dim=1), group=self._group)
             grad, loss = both[:, :-1], both[:, -1]
         adamw_step_(self.flat, grad, opt, lr, wd)
         return loss

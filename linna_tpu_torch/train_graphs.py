@@ -31,9 +31,12 @@ optimizer reset, reinit, reload, the speculative restore), and a program
 refuses to run once one of them has been replaced.  A chunk returns copies
 of its outputs, taken before the next chunk's replays, so speculative
 dispatch (chunk k+1 enqueued before chunk k's results are read) overwrites
-nothing it returned.  Training reaches neither CUDA kernel of
-``ops/fused``; each graph's :class:`~linna_tpu_torch.samplers.graphs.LaunchLedger`
-still adds its capture's counts per replay.  A capture or replay error
+nothing it returned.  Training reaches neither likelihood kernel of
+``ops/fused``; on a card each minibatch step launches the AdamW kernel of
+``ops/adamw`` once, each graph's
+:class:`~linna_tpu_torch.samplers.graphs.LaunchLedger` adds its capture's
+counts (``ops.fused.launches["adamw"]``) per replay, and the records
+(``trainer.graphs``) hold the launches and plain calls of their steps.  A capture or replay error
 propagates; nothing falls back to the eager bodies on a card.
 """
 
@@ -45,6 +48,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .ops import fused
 from .samplers.graphs import StepGraph
 from .utils.trace import ChunkTimes
 
@@ -54,6 +58,12 @@ __all__ = ["EpochProgram", "lr_sweep"]
 def _copy(t: torch.Tensor) -> torch.Tensor:
     """A contiguous copy that shares no storage with a static buffer."""
     return t.clone(memory_format=torch.contiguous_format)
+
+
+def _adamw_counts() -> dict:
+    """The AdamW kernel's launches and its plain version's calls so far
+    (``ops.fused``'s counters, which a graph's replays advance)."""
+    return {"launches": fused.launches["adamw"], "plain_calls": fused.plain_calls["adamw"]}
 
 
 class _Program:
@@ -111,6 +121,7 @@ class EpochProgram(_Program):
         self.step_i = self.zeros(dtype=torch.int64)
         self.epoch_i = self.zeros(dtype=torch.int64)
         self.chunks = self.epochs = 0
+        self.adamw = {"launches": 0, "plain_calls": 0}
         self.times = ChunkTimes() if graphed else None
 
         def step():
@@ -149,7 +160,7 @@ class EpochProgram(_Program):
         if not 0 < n_ep <= self.capacity or tuple(perms.shape[1:]) != (k, nb * bs):
             raise ValueError(f"perms {tuple(perms.shape)}; the program holds {self.capacity} "
                              f"epochs of ({k}, {nb * bs})")
-        times = self.times
+        times, adamw = self.times, _adamw_counts()
         if times is not None:
             times.start()
         with torch.no_grad():
@@ -167,6 +178,8 @@ class EpochProgram(_Program):
             self.end()
         if times is not None:
             times.stop()
+        for key, v in _adamw_counts().items():
+            self.adamw[key] += v - adamw[key]
         self.chunks += 1
         self.epochs += n_ep
         losses = self.losses[:n_ep * nb].view(n_ep, nb, k).transpose(1, 2)
@@ -175,12 +188,15 @@ class EpochProgram(_Program):
             _copy(self.best_flat)
 
     def record(self) -> dict:
-        """Replays, chunks and epochs run; graphed, the card's seconds in
-        the chunks and between them (``chunk_s``, ``between_chunks_s``) and
-        each chunk's last epoch end (``epoch_end_s``), from
+        """Replays, chunks and epochs run, the AdamW kernel's launches and
+        its plain version's calls in them (``adamw``: one a minibatch
+        step); graphed, the card's seconds in the chunks and between them
+        (``chunk_s``, ``between_chunks_s``) and each chunk's last epoch end
+        (``epoch_end_s``), from
         :class:`~linna_tpu_torch.utils.trace.ChunkTimes`."""
         rec = {"graphed": self.graphed, "replays": self.replays, "chunks": self.chunks,
-               "epochs": self.epochs, "minibatches_per_epoch": self.nb}
+               "epochs": self.epochs, "minibatches_per_epoch": self.nb,
+               "adamw": dict(self.adamw)}
         if self.times is not None:
             rec.update(self.times.record(), epoch_end_s=list(self.times.split_s))
         return rec
