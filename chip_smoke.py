@@ -139,10 +139,11 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    and the same launches counted (the graphs' from the replays), and a
    second chunk of each from its end state the same way; s / 100
    steps, the busy share of a traced chunk of each, graph replays and
-   launches a step; zeus at each condition lag of ``PROGRAM_LAGS``; the
-   K=4 ensemble's batched likelihood against a copy of the per-member loop
-   it replaced (``K4_RTOL``), and zeus through the loop eager, batched
-   eager and batched graphed, the graphed one at each lag too.  Phases 4-10 sample through the graphs too:
+   launches a step; zeus's loop iterations a step, which the card ends
+   (CUDA while nodes), and its host condition reads (none); the K=4
+   ensemble's batched likelihood against a copy of the per-member loop it
+   replaced (``K4_RTOL``), and zeus through the loop eager, batched eager
+   and batched graphed.  Phases 4-10 sample through the graphs too:
    ``run_ensemble`` replays every unsharded chunk on a card.
 12. The training programs (``train_graphs``) at the DES width: one chunk
    replayed from CUDA graphs and one eager from the same parameters, AdamW
@@ -325,14 +326,13 @@ RTOL = ATOL = 2e-4
 # phase 11: the sampler programs at the DES width through fused_log_prob
 # (T^2 = 16): one chunk of each method replayed from CUDA graphs and one
 # eager, from the same state and generator state (steps a chunk), a traced
-# chunk of each (steps), zeus's condition lags, and the K=4 ensemble's
+# chunk of each (steps), zeus's loop iterations, and the K=4 ensemble's
 # batched likelihood against the per-member loop it replaced
 PROGRAM_STEPS = {"emcee": 100, "zeus": 100, "hmc": 10, "nuts": 10}
 PROGRAM_TRACED = {"emcee": 50, "zeus": 20, "hmc": 2, "nuts": 2}
 # graphed against eager where they are not equal bit for bit (the same
 # kernels on the same inputs: any difference is a fault of the graphs)
 PROGRAM_ATOL = 1e-6
-PROGRAM_LAGS = (0, 1, 2, 3)
 # each sampler's step options, the same for the graphed and the eager chunks
 # (run_ensemble's defaults)
 PROGRAM_OPTIONS = {"a": 2.0, "n_leapfrog": 10, "max_depth": 5, "max_steps": 100}
@@ -2893,7 +2893,10 @@ def _chunk_run(chunk, state, n, rng_state, device) -> dict:
     t0 = time.perf_counter()
     out = chunk(state, n)
     _sync(device)
-    return {"out": out, "s": time.perf_counter() - t0, "launches": F.launches["fused_log_prob"],
+    s = time.perf_counter() - t0
+    if hasattr(chunk, "settle"):  # a graphed runner: the loops the card ran
+        chunk.settle()
+    return {"out": out, "s": s, "launches": F.launches["fused_log_prob"],
             "rng_after": state.rng.get_state()}
 
 
@@ -2920,26 +2923,14 @@ def _held(graphed: dict, eager: dict, what: str, calls=None) -> dict:
     return {"bit_for_bit": equal, "max_abs_diff": diff}
 
 
-def _lag_sweep(runner, state, n, rng_state, device, lags) -> dict:
-    """A graphed zeus runner at each condition lag in turn, up and down,
-    from one state and generator state: s / 100 steps (two readings each)
-    and likelihood calls a step, and the chains, equal bit for bit at every
-    lag; the runner is left at its own lag."""
-    from linna_tpu_torch.samplers import slicemove as S
-
-    own = runner.flags.lag
-    rec = {"lag": own, "lag_s_per_100": {lag: [] for lag in lags}, "lag_calls_per_step": {}}
-    first = None
-    for lag in list(lags) + list(lags)[::-1]:
-        runner.flags = S.LateFlags(device, lag)
-        before = runner.record()
-        run = _chunk_run(runner, state, n, rng_state, device)
-        rec["lag_s_per_100"][lag].append(run["s"] / n * 100)
-        rec["lag_calls_per_step"][lag] = (runner.record()["calls"] - before["calls"]) / n
-        first = first or run
-        if not all(torch.equal(a, b) for a, b in zip(run["out"][1:], first["out"][1:])):
-            raise AssertionError(f"zeus at lag {lag} sampled another chain than at lag {lags[0]}")
-    runner.flags = S.LateFlags(device, own)
+def _loop_record(before: dict, after: dict, n: int, what: str) -> dict:
+    """A graphed zeus chunk's loop iterations a step, each loop, which the
+    card ended, and the host's condition reads in it, which must be 0."""
+    rec = {"loop_iters_per_step": {k: (after["loop_iters"][k] - before["loop_iters"][k]) / n
+                                   for k in ("out", "in")},
+           "cond_reads": after["cond_reads"] - before["cond_reads"]}
+    if rec["cond_reads"]:
+        raise AssertionError(f"{what}: the host read {rec['cond_reads']} loop conditions")
     return rec
 
 
@@ -2956,16 +2947,16 @@ def _busy(fn, device) -> dict:
 
 
 def phase_programs(device, ndim=NDIM, ndata=NDATA, nwalkers=NWALKERS, steps=None, traced=None,
-                   lags=PROGRAM_LAGS, k4_steps=K4_STEPS, k4_traced=K4_TRACED,
+                   k4_steps=K4_STEPS, k4_traced=K4_TRACED,
                    nensemble=NENSEMBLE) -> dict:
     """Phase 11: for each sampler one chunk replayed from CUDA graphs and
     one eager from the same state and generator state (equal bit for bit,
     the same launches counted), then a second chunk of each from its end
     state (bit for bit too), s / 100 steps and the busy share of a
-    traced chunk of each, replays and launches a step; zeus at each
-    condition lag; and the K=4 ensemble's batched likelihood against the
-    per-member loop (values, and zeus through the loop eager, batched
-    eager and batched graphed, the graphed one at each condition lag); on a
+    traced chunk of each, replays and launches a step; zeus's loop
+    iterations a step and its host condition reads (none); and the K=4
+    ensemble's batched likelihood against the per-member loop (values, and
+    zeus through the loop eager, batched eager and batched graphed); on a
     card, captures while a dead runner waits for the collector (11f) and
     chunks shorter than the warm-up (11g)."""
     from linna_tpu_torch import likelihood as LK
@@ -2994,6 +2985,8 @@ def phase_programs(device, ndim=NDIM, ndata=NDATA, nwalkers=NWALKERS, steps=None
             rec["likelihood_calls_per_step"] = (after["calls"] - before["calls"]) / n
             rec["graphed_s_per_100"] = graphed["s"] / n * 100
             rec["launches_per_step"] = graphed["launches"] / n
+            if method == "zeus":
+                rec.update(_loop_record(before, after, n, method))
         one = _chunk_run(eager, state, n, g0, device)
         rec["eager_s_per_100"] = one["s"] / n * 100
         rec["eager_launches_per_step"] = one["launches"] / n
@@ -3011,8 +3004,6 @@ def phase_programs(device, ndim=NDIM, ndata=NDATA, nwalkers=NWALKERS, steps=None
             nt = traced[method]
             rec["graphed_traced"] = {"steps": nt, **_busy(lambda: runner(state, nt), device)}
             rec["eager_traced"] = {"steps": nt, **_busy(lambda: eager(state, nt), device)}
-            if method == "zeus":
-                rec.update(_lag_sweep(runner, state, n, g0, device, lags))
         log(f"  11 {method}: {json.dumps(rec, default=float)}")
         res["methods"][method] = rec
 
@@ -3038,14 +3029,16 @@ def phase_programs(device, ndim=NDIM, ndata=NDATA, nwalkers=NWALKERS, steps=None
                                                    **PROGRAM_OPTIONS)
     done = {}
     for name, chunk in runs.items():
+        before = chunk.record() if name == "batched_graphed" else None
         done[name] = _chunk_run(chunk, state, k4_steps, g0, device)
         k4[f"{name}_s_per_100"] = done[name]["s"] / k4_steps * 100
+        if before is not None:
+            k4.update(_loop_record(before, chunk.record(), k4_steps, f"K={nensemble} zeus"))
         if on_card:
             k4[f"{name}_traced"] = {"steps": k4_traced,
                                     **_busy(lambda: chunk(state, k4_traced), device)}
     if on_card:
         k4.update(_held(done["batched_graphed"], done["batched_eager"], f"K={nensemble} zeus"))
-        k4.update(_lag_sweep(runs["batched_graphed"], state, k4_steps, g0, device, lags))
     log(f"  11 K={nensemble}: {json.dumps(k4, default=float)}")
     res["k4"] = k4
     if on_card:

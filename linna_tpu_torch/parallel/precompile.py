@@ -8,21 +8,22 @@ program; what a fresh process pays before its first launch is:
 
 - the ``nvcc`` build of ``ops/csrc/fused_mlp.cu`` (seconds; cached by a
   hash of the source in :func:`compile_cache_dir`), and of
-  ``ops/csrc/adamw.cu``, the trainer's optimizer kernel, on every card run
-  (a run trains);
+  ``ops/csrc/adamw.cu``, the trainer's optimizer kernel, and
+  ``ops/csrc/graph_loops.cu``, the graphed zeus sampler's loops, on every
+  card run (a run trains, and samples with zeus unless told otherwise);
 - the first launch of each kernel the run's path takes, at the run's shapes
   (the library's module load and the launch planner's first queries);
 - cuBLAS's library and handles (the trainer's products).
 
 :func:`warm_pipeline` does these in that order, in one thread, on a side
-stream.  The builds are the ones the foreground uses (``ops.fused.build``
-and ``ops.adamw.build`` are locked, so the two never run ``nvcc`` at once,
-and the foreground waits for the thread's build and first launches rather
-than starting its own).  The thread keeps its exception (:data:`last_error`)
-and does not raise: a build that failed in the thread is tried again by the
-foreground's first launch, which raises the same error, so a broken
-compiler still fails the run, and there is no plain-version fallback on the
-card.
+stream.  The builds are the ones the foreground uses (``ops.fused.build``,
+``ops.adamw.build`` and ``ops.graph_loops.build`` are locked, so the two
+never run ``nvcc`` at once for one library, and the foreground waits for
+the thread's build and first launches rather than starting its own).  The
+thread keeps its exception (:data:`last_error`) and does not raise: a build
+that failed in the thread is tried again by the foreground's first launch,
+which raises the same error, so a broken compiler still fails the run, and
+there is no plain-version fallback on the card.
 
 Gating (``ml_sampler_core``'s call, JAX's conditions): the primary process
 of a single-process run, and none of ``train_subprocess``, ``ypositive``,
@@ -102,10 +103,10 @@ def _warm(model_name: str, ndim: int, ndata: int, nwalkers: int, batch_size: int
     """The warm-up itself (see the module docstring); returns what it did."""
     import time
 
-    from ..ops import adamw, fused
+    from ..ops import adamw, fused, graph_loops
 
     report = {"build_s": 0.0, "launches": {k: 0 for k in fused.launches}, "cublas_s": 0.0,
-              "adamw_build_s": 0.0}
+              "adamw_build_s": 0.0, "loops_build_s": 0.0}
     if use_kernel:
         t0 = time.perf_counter()
         with fused._BUILD_LOCK:
@@ -122,6 +123,9 @@ def _warm(model_name: str, ndim: int, ndata: int, nwalkers: int, batch_size: int
         t0 = time.perf_counter()
         adamw.build()
         report["adamw_build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        graph_loops.build()
+        report["loops_build_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         with torch.cuda.stream(torch.cuda.Stream(device)):
             from .. import nn as N

@@ -11,9 +11,11 @@ a step, so a step costs one launch on the host instead of hundreds:
 - HMC: one sample (``n_leapfrog`` leapfrogs with their gradients);
 - NUTS: one sample (the unrolled depth-``max_depth`` tree, 2^depth - 1
   leapfrogs, and the dual-averaging update);
-- zeus: each half-update's start and end, one stepping-out iteration and
-  one shrink iteration; the host drives the loops with the late condition
-  reads of :func:`linna_tpu_torch.samplers.slicemove.late_loop`.
+- zeus: each half-update's start and end, and one graph of its two loops
+  (:class:`~linna_tpu_torch.ops.graph_loops.WhileLoops`): CUDA while
+  nodes whose bodies are the stepping-out and the shrink iteration, ended
+  on the card, as JAX's ``lax.while_loop``s are, so a step is six launches
+  and the host reads no loop condition.
 
 A chunk takes its step-fixed draws eagerly, exactly as the eager chunk
 functions take them, and copies them and the state into the static
@@ -34,7 +36,11 @@ propagates; nothing falls back to the eager step.
 The kernels' counters (``ops.fused.launches``, ``ops.fused.plain_calls`` and
 ``ops.fused.designs``; the trainer's AdamW kernel counts there too) tick in
 Python, so a replay would not move them: :class:`LaunchLedger` takes back
-what a capture counted and adds it on every replay.
+what a capture counted and adds it on every replay.  zeus's loop bodies
+replay on the card as often as the card decides: it counts their
+iterations, and :meth:`_Chunks.settle` (called by ``record()``, which
+``run_ensemble`` calls as a run ends) reads that count once and adds the
+iterations since its last read to the bodies' replays and ledgers.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ from typing import Callable, Dict, Iterable, List, Sequence
 
 import torch
 
-from ..ops import fused
+from ..ops import fused, graph_loops
 from ..utils.trace import ChunkTimes
 from . import hmc, slicemove, stretch
 
@@ -104,7 +110,9 @@ def collector_paused():
 class StepGraph:
     """``fn()`` captured over static buffers.  ``buffers``: every tensor
     ``fn`` writes (put back after the warm-up); ``generators``: the
-    generators ``fn`` draws from, registered with the graph.
+    generators ``fn`` draws from, registered with the graph; ``keep_graph``:
+    the graph is kept uninstantiated, to be run as another graph's body
+    (its runs are counted by :meth:`replayed`).
 
     The graph holds ``fn``: a replay reads the tensors ``fn``'s closure
     holds (HMC's and NUTS's inverse mass, for one) at the addresses they
@@ -112,7 +120,8 @@ class StepGraph:
     memory handed to the next allocation."""
 
     def __init__(self, fn: Callable[[], None], buffers: Sequence[torch.Tensor],
-                 generators: Iterable[torch.Generator] = (), pool=None):
+                 generators: Iterable[torch.Generator] = (), pool=None,
+                 keep_graph: bool = False):
         self.fn = fn
         generators = list(generators)
         saved = [b.clone() for b in buffers]
@@ -127,7 +136,7 @@ class StepGraph:
             b.copy_(s)
         for g, s in zip(generators, states):
             g.set_state(s)
-        self.graph = torch.cuda.CUDAGraph()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
         for g in generators:
             self.graph.register_generator_state(g)
         self.ledger = LaunchLedger(fused.launches, fused.plain_calls, fused.designs)
@@ -140,8 +149,12 @@ class StepGraph:
 
     def replay(self) -> None:
         self.graph.replay()
-        self.ledger.replayed()
-        self.replays += 1
+        self.replayed()
+
+    def replayed(self, n: int = 1) -> None:
+        """Count ``n`` runs of the graph: its replays and its ledger's."""
+        self.ledger.replayed(n)
+        self.replays += n
 
 
 def _store(bufs: Sequence[torch.Tensor], values: Sequence[torch.Tensor]) -> None:
@@ -161,7 +174,7 @@ class _Chunks:
         # capture advances the step counter, so they hold WARMUP rows at least
         self.rows = max(self.capacity, WARMUP)
         self.g = state.rng
-        self.pool = torch.cuda.graph_pool_handle()
+        self.pool = None  # the graphs' memory pool, made at the first capture
         self.graphs: List[StepGraph] = []
         self.step = torch.zeros((), dtype=torch.int64, device=self.dev)
         self.steps = 0
@@ -171,11 +184,14 @@ class _Chunks:
     def zeros(self, *shape, dtype=torch.float32) -> torch.Tensor:
         return torch.zeros(shape, dtype=dtype, device=self.dev)
 
-    def capture(self, fn, buffers, draws: bool = False, calls: int = 0, rows: int = 0
-                ) -> StepGraph:
+    def capture(self, fn, buffers, draws: bool = False, calls: int = 0, rows: int = 0,
+                body: bool = False) -> StepGraph:
         """``fn`` as a graph; ``draws``: it draws from the generator;
-        ``calls``: the likelihood calls it makes, at ``rows`` rows each."""
-        graph = StepGraph(fn, buffers, [self.g] if draws else (), self.pool)
+        ``calls``: the likelihood calls it makes, at ``rows`` rows each;
+        ``body``: it runs as a loop's body, not by replays."""
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        graph = StepGraph(fn, buffers, [self.g] if draws else (), self.pool, keep_graph=body)
         self.graphs.append(graph)
         if calls:
             self.calls_by_graph.append((graph, calls, rows))
@@ -198,11 +214,17 @@ class _Chunks:
     def replays(self) -> int:
         return sum(g.replays for g in self.graphs)
 
+    def settle(self) -> None:
+        """Bring the graphs' replays and the kernels' counters up to what
+        the card has run.  Here every replay is the host's, counted as it
+        is launched; a runner whose loops the card ends reads their count."""
+
     def record(self) -> dict:
         """Replays, steps, the likelihood calls and rows replayed (a Python
         wrapper of the likelihood runs only while a graph is captured, so
         it cannot count them), and the card's seconds in and between the
-        chunks (:class:`ChunkTimes`)."""
+        chunks (:class:`ChunkTimes`), once :meth:`settle` has counted."""
+        self.settle()
         return {"replays": self.replays, "steps": self.steps,
                 "calls": sum(g.replays * c for g, c, _ in self.calls_by_graph),
                 "rows": sum(g.replays * c * r for g, c, r in self.calls_by_graph),
@@ -311,9 +333,14 @@ def _nuts_sample(log_prob_fn, max_depth: int):
 class _SliceChunks(_Chunks):
     """zeus: per half ``h`` a start and an end graph; one stepping-out and
     one shrink iteration graph serve both halves (the work holds the active
-    walkers twice, in ``x2``).  The start draws the shrink loop's uniforms
-    for all ``max_steps`` iterations; the shrink iteration takes its row at
-    a device counter."""
+    walkers twice, in ``x2``), as the bodies of one graph of two while
+    loops that the card ends (:class:`~linna_tpu_torch.ops.graph_loops.WhileLoops`),
+    each after at most ``max_steps`` iterations, as
+    :func:`~linna_tpu_torch.samplers.slicemove.late_loop` ends them.  The
+    start draws the shrink loop's uniforms for all ``max_steps``
+    iterations; the shrink iteration takes its row at a device counter.
+    The start and end graphs stay torch replays: the start draws, and torch
+    advances the generator's offset only on its own replay."""
 
     def __init__(self, log_prob_fn, state, capacity: int, max_steps: int):
         super().__init__(state, capacity)
@@ -333,8 +360,9 @@ class _SliceChunks(_Chunks):
                                       *(t[0, 0] for t in self.draws))
         self.work = slicemove.SliceWork(*(t.clone() for t in start))
         self.more = self.zeros(dtype=torch.bool)
-        self.flags = slicemove.LateFlags(self.dev, slicemove.CONDITION_LAG)
-        self.shrink_u = self.zeros(self.max_steps, hl)
+        # the shrink iteration's warm-up runs before its capture read rows
+        # 0 .. WARMUP - 1; a half-update draws max_steps of them
+        self.shrink_u = self.zeros(max(self.max_steps, WARMUP), hl)
         self.it = self.zeros(dtype=torch.int64)  # the shrink iteration
         work = list(self.work)
 
@@ -344,8 +372,8 @@ class _SliceChunks(_Chunks):
                 comp = self.c2[1] if h == 0 else self.nx[0]
                 _store(work, slicemove.slice_begin(self.c2[h], self.lp2[h], comp, self.mu,
                                                    l, m, expo, u0))
-                self.shrink_u.copy_(torch.rand(self.max_steps, hl, generator=self.g,
-                                               device=self.dev))
+                u = torch.rand(self.max_steps, hl, generator=self.g, device=self.dev)
+                self.shrink_u[:self.max_steps].copy_(u)
                 self.it.zero_()
             return fn
 
@@ -375,23 +403,15 @@ class _SliceChunks(_Chunks):
         loop_bufs = work + [self.more]
         self.begin = [self.capture(begin(h), work + [self.shrink_u, self.it], draws=True)
                       for h in (0, 1)]
-        self.out = self.capture(out, loop_bufs, calls=1, rows=self.w)
-        self.inward = self.capture(inward, loop_bufs + [self.it], calls=1, rows=hl)
+        self.out = self.capture(out, loop_bufs, calls=1, rows=self.w, body=True)
+        self.inward = self.capture(inward, loop_bufs + [self.it], calls=1, rows=hl, body=True)
         self.end = [self.capture(end(h), [self.nx, self.nlp, self.half_counts, self.c2, self.lp2,
                                           self.counts, self.chain, self.lps, self.step])
                     for h in (0, 1)]
-
-    def _replay(self, graph: StepGraph) -> None:
-        """A replay, which ends the host's turnaround after a condition read."""
-        graph.replay()
-        self.flags.launched()
-
-    def _loop(self, graph: StepGraph) -> None:
-        def body(it: int) -> torch.Tensor:
-            self._replay(graph)
-            return self.more
-
-        slicemove.late_loop(body, self.max_steps, self.flags)
+        self.loops = graph_loops.WhileLoops([self.out.graph, self.inward.graph], self.more,
+                                            self.max_steps)
+        # each body's iterations on the card, as far as its replays count them
+        self.loop_iters = [0, 0]
 
     def __call__(self, state, nsteps: int):
         self.check(state, nsteps)
@@ -405,10 +425,9 @@ class _SliceChunks(_Chunks):
         self.step.zero_()
         for _ in range(nsteps):
             for h in (0, 1):
-                self._replay(self.begin[h])
-                self._loop(self.out)
-                self._loop(self.inward)
-                self._replay(self.end[h])
+                self.begin[h].replay()
+                self.loops.launch()
+                self.end[h].replay()
         self.times.stop()
         self.steps += nsteps
         counts = self.counts.clone()
@@ -417,13 +436,23 @@ class _SliceChunks(_Chunks):
         return (new, self.chain[:nsteps].reshape(nsteps, w, d).clone(),
                 self.lps[:nsteps].reshape(nsteps, w).clone())
 
+    def settle(self) -> None:
+        """The loops' iterations since the last call, read from the card
+        (one wait), added to the bodies' replays and launch ledgers."""
+        totals = self.loops.totals()
+        for body, now, seen in zip((self.out, self.inward), totals, self.loop_iters):
+            body.replayed(now - seen)
+        self.loop_iters = totals
+
     def record(self) -> dict:
-        """:meth:`_Chunks.record` with the loops' condition reads, the
-        host's turnaround after them and the time the reads blocked
-        (:class:`~linna_tpu_torch.samplers.slicemove.LateFlags`)."""
-        return {**super().record(), "cond_reads": self.flags.reads,
-                "turnaround_s": self.flags.turnaround_s,
-                "cond_wait_s": self.flags.seconds["cond_wait"]}
+        """:meth:`_Chunks.record` with the iterations the card ran in each
+        loop (``loop_iters``, ``out`` and ``in``), and the host-driven
+        loops' condition reads, the host's turnaround after them and the
+        time the reads blocked, all 0: the host reads no condition."""
+        rec = super().record()
+        out_iters, in_iters = self.loop_iters
+        return {**rec, "loop_iters": {"out": out_iters, "in": in_iters}, "cond_reads": 0,
+                "turnaround_s": 0.0, "cond_wait_s": 0.0}
 
 
 def graphed_chunks(method: str, log_prob_fn: Callable, state, capacity: int, *, a: float,

@@ -181,7 +181,7 @@ def run_ensemble(
     capture under ``loop``), step count, the kernels' launches and plain
     versions' calls this call made (``kernels``), and on a card the graphs'
     record (``graphs``: replays, likelihood calls, the card's seconds in and
-    between the chunks, and zeus's condition reads).  ``shard_walkers``: over
+    between the chunks, and zeus's loop iterations).  ``shard_walkers``: over
     several ranks, each advances its block of walkers when ``nwalkers``
     divides into two blocks per rank.
     """
@@ -586,8 +586,10 @@ def run_ensemble(
     # tuned on chunk k's state before chunk k+1 is dispatched, and chunk k's
     # results, state and generator state are taken before (_snapshot), so the
     # chain file, the state blob and a resume are those of the serial order,
-    # bit for bit.  A zeus chunk's host drives its loops, so unsharded the
-    # consumer runs on a second thread while this one dispatches; the writes
+    # bit for bit.  An eager zeus chunk's host drives its loops, and a
+    # graphed chunk's launches can block on the card's full queue, so
+    # unsharded the consumer runs on a second thread while this one
+    # dispatches; the writes
     # keep their order (one consumer at a time).  Walker-sharded chunks make
     # collectives, and consume after the dispatch on this thread, in the
     # same order on every rank.
@@ -620,8 +622,11 @@ def run_ensemble(
     captured = ps["capture"] - capture_before
     ps["loop"] -= captured
     ps["dispatch"] -= captured
-    if graphed is not None and trace_rec is not None:
-        trace_rec["graphs"] = graphed.record()
+    if graphed is not None:
+        # also brings the kernels' counters up to the loops the card ran
+        rec = graphed.record()
+        if trace_rec is not None:
+            trace_rec["graphs"] = rec
 
     finished_flag = True
     if last_blob is None:  # nothing sampled (a resume at max_iterations)

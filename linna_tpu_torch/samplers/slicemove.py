@@ -18,14 +18,16 @@ As in the JAX package:
   batch per iteration;
 - walkers that exhaust ``max_steps`` keep their position.
 
-The JAX ``while_loop``s are host loops here (:func:`late_loop`) whose
-condition is copied to the host behind an event and read
-:data:`CONDITION_LAG` iterations late.  On a card
+In :func:`slice_chunk` the JAX ``while_loop``s are host loops
+(:func:`late_loop`) whose condition is copied to the host behind an event
+and read :data:`CONDITION_LAG` iterations late.  On a card
 :func:`linna_tpu_torch.samplers.run.run_ensemble` replays the pieces of a
 half-update (:func:`slice_begin`, one :func:`step_out`, one
 :func:`shrink`, :func:`slice_end`) from CUDA graphs
-(:mod:`linna_tpu_torch.samplers.graphs`); :func:`slice_chunk` runs them
-eagerly.  The draws come from one ``torch.Generator`` on the sampling
+(:mod:`linna_tpu_torch.samplers.graphs`), the two loops as CUDA while
+nodes that the card ends after the same iterations, so the host reads no
+condition there; :func:`slice_chunk` runs the pieces eagerly (the CPU, and
+walker-sharded chunks).  The draws come from one ``torch.Generator`` on the sampling
 device; they are not JAX's bits.
 
 Walker-sharded over ranks (``shard``), a chunk advances this rank's block
@@ -83,19 +85,18 @@ def init_slice_state(
     )
 
 
-# A loop's condition can be read late: the condition after iteration i is
-# waited for only once iterations i+1 .. i+CONDITION_LAG are enqueued, so
-# the card need not idle while the host reads it.  An iteration after a
-# loop's end is a masked no-op (need_l, need_r and done mask every update,
-# and the shrink loop's uniforms are drawn up front), so the lag changes the
-# work done, never the result; each extra iteration costs one likelihood
-# call.  0 is the fastest: chip_smoke.py phase 11's graphed 256-walker zeus
-# chunk on an NVIDIA H100 80GB HBM3 at 700 W took, at lags 0 / 1 / 2 / 3,
-# 0.370 / 0.373 / 0.433 / 0.491 s / 100 steps through fused_log_prob
-# (20.7 / 24.7 / 28.7 / 32.7 calls a step) and 0.773 / 0.882 / 1.028 /
-# 1.175 through the K=4 ensemble (PERF.md).  An eager chunk's host
-# enqueues an iteration more slowly than the card runs it, so there an
-# extra iteration only adds work.
+# The eager chunk's loops (slice_chunk: the CPU, walker-sharded chunks) can
+# read their condition late: the condition after iteration i is waited for
+# only once iterations i+1 .. i+CONDITION_LAG are enqueued, so the device
+# need not idle while the host reads it.  An iteration after a loop's end is
+# a masked no-op (need_l, need_r and done mask every update, and the shrink
+# loop's uniforms are drawn up front), so the lag changes the work done,
+# never the result; each extra iteration costs one likelihood call.  An
+# eager chunk's host enqueues an iteration more slowly than the device runs
+# it, so there an extra iteration only adds work: 0.  The graphed chunks on
+# a card read no condition (samplers/graphs.py); when they still did, lag 0
+# was fastest there too (chip_smoke.py phase 11 on an NVIDIA H100 80GB HBM3
+# at 700 W, PERF.md).
 CONDITION_LAG = 0
 
 
