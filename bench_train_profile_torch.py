@@ -126,7 +126,7 @@ class Variant:
     minibatch steps) and an epoch end, each a CUDA graph on a card."""
 
     def __init__(self, stack, data, perms: torch.Tensor, name: str, graphed: bool):
-        from linna_tpu_torch.samplers.graphs import WARMUP, StepGraph
+        from linna_tpu_torch.ops.graphs import WARMUP, StepGraph
 
         kind, end, self.unroll = VARIANTS[name]
         self.graphed = graphed

@@ -2733,7 +2733,7 @@ def precompile_run(outdir: str, device_name: str) -> int:
                 "num_epochs": cfg["epochs"], "use_fused": True},
         method="zeus", seed=3, device=device)
     _sync(device)
-    print(json.dumps({"run_s": time.perf_counter() - t0, **F._Library.stats,
+    print(json.dumps({"run_s": time.perf_counter() - t0, **F.LIBRARY.stats,
                       "warm": PC.last_report, "warm_error": repr(PC.last_error),
                       "launches": dict(F.launches),
                       "cache_dir": PC.compile_cache_dir()}, default=float), flush=True)
@@ -3049,7 +3049,7 @@ def phase_programs(device, ndim=NDIM, ndata=NDATA, nwalkers=NWALKERS, steps=None
 
 def _small_chunks(lp, x0, device, capacities=(1, 2)) -> dict:
     """11g: each method's graphs for chunks of fewer steps than the
-    warm-up's runs of a step before its capture (``graphs.WARMUP``), a
+    warm-up's runs of a step before its capture (``ops.graphs.WARMUP``), a
     chunk of each against the eager one, bit for bit."""
     from linna_tpu_torch.samplers import graphs as G
 
@@ -3075,7 +3075,7 @@ def _collector_check(lp, x0, device, trials=3) -> dict:
     there and invalidates the capture.  No collection may start while a
     stream captures, and every capture must succeed.  The runners hold
     chunks of 2 steps, fewer than the warm-up's runs of a step before its
-    capture (``graphs.WARMUP``)."""
+    capture (``ops.graphs.WARMUP``)."""
     import gc
 
     from linna_tpu_torch.samplers import graphs as G
@@ -3896,7 +3896,7 @@ def main() -> int:
     from linna_tpu_torch.ops import adamw as AW
 
     t0 = time.perf_counter()
-    adamw_report = AW.build()
+    adamw_report = AW.LIBRARY.build()
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", adamw_report)]
     spills = sum(int(a) + int(b) for a, b in re.findall(
         r"(\d+) bytes spill stores, (\d+) bytes spill loads", adamw_report))

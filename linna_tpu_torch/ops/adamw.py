@@ -11,28 +11,24 @@ says what bounds it).  For a CPU tensor it runs the plain version,
 :func:`adamw_plain_`: the leaves concatenated and the PyTorch ops of
 ``optax.adamw``, op for op, which the kernel matches bit for bit.
 
-The library is built by ``nvcc`` at first use, apart from the likelihood
-kernels' (:func:`linna_tpu_torch.ops.fused.compile_library`, cached by a
-hash of this source and the flags), so a training run never compiles
-``fused_mlp.cu``.  ``ops.fused.launches["adamw"]`` counts launches and
-``ops.fused.plain_calls["adamw"]`` plain calls, so a CUDA graph's replays
-count them as the likelihood kernels' (``samplers.graphs.LaunchLedger``).
+The kernel is a library of its own (:class:`~linna_tpu_torch.ops.library.KernelLibrary`),
+so a training run never compiles ``fused_mlp.cu``.  Both versions count
+themselves under ``adamw`` in :mod:`linna_tpu_torch.ops.library`'s counters.
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from . import fused as F
+from .library import KernelLibrary, launches, plain_calls, require
 
-__all__ = ["adamw_", "adamw_plain_", "build", "segment_table", "ADAM_B1", "ADAM_B2",
-           "ADAM_EPS"]
+__all__ = ["adamw_", "adamw_plain_", "segment_table", "ADAM_B1", "ADAM_B2", "ADAM_EPS",
+           "LIBRARY"]
 
 SOURCE = Path(__file__).parent / "csrc" / "adamw.cu"
 # optax's injected hyperparameters are float32, so 1 - b is taken in float32
@@ -45,43 +41,13 @@ MAX_SEGMENTS = 32
 
 Grad = Union[torch.Tensor, Sequence[torch.Tensor]]
 
-
-class _Library:
-    lib: Optional[ctypes.CDLL] = None
-    log: str = ""
-    stats: Dict[str, float] = {"nvcc_s": 0.0}
-
-
-_LOCK = threading.Lock()
-
-
-def build() -> str:
-    """Compile ``csrc/adamw.cu`` (cached in ``ops.fused.build_dir()``) and
-    load it, once per process; returns the compiler output.  Raises with
-    it when ``nvcc`` fails."""
-    if _Library.lib is None:
-        with _LOCK:
-            if _Library.lib is None:
-                _load()
-    return _Library.log
-
-
-def _load() -> None:
-    lib, log = F.compile_library(SOURCE, _Library.stats)
-    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lls = ctypes.POINTER(ll)
-    lib.linna_adamw_step.argtypes = [vp, vp, ci, vp, ci, ll, ci, ctypes.POINTER(vp), lls, lls,
-                                     lls, ci, vp, ll, vp, ll, vp, vp,
-                                     ctypes.POINTER(ctypes.c_float), vp]
-    lib.linna_adamw_step.restype = ci
-    lib.linna_adamw_max_segments.restype = ci
-    lib.linna_adamw_error_string.argtypes = [ci]
-    lib.linna_adamw_error_string.restype = ctypes.c_char_p
-    if lib.linna_adamw_max_segments() != MAX_SEGMENTS:
-        raise RuntimeError(f"{Path(lib._name).name} takes {lib.linna_adamw_max_segments()} "
-                           f"segments, this module {MAX_SEGMENTS}")
-    _Library.log = log
-    _Library.lib = lib
+_vp, _ci, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_lls = ctypes.POINTER(_ll)
+LIBRARY = KernelLibrary(SOURCE, {
+    "linna_adamw_step": ([_vp, _vp, _ci, _vp, _ci, _ll, _ci, ctypes.POINTER(_vp), _lls, _lls, _lls,
+                          _ci, _vp, _ll, _vp, _ll, _vp, _vp, ctypes.POINTER(ctypes.c_float), _vp],
+                         _ci),
+}, error="linna_adamw_error_string", abi=("linna_adamw_max_segments", MAX_SEGMENTS))
 
 
 def segment_table(grads: Sequence[torch.Tensor], k: int) -> List[Tuple[int, int]]:
@@ -104,17 +70,17 @@ def _checked(flat: torch.Tensor, grad: Grad, state, lr: torch.Tensor,
         raise ValueError(f"flat: expected (K, P), got shape {tuple(flat.shape)}")
     k, p = flat.shape
     dev = flat.device
-    F._require(flat, "flat", torch.float32, (k, p), dev)
-    F._require(state.mu, "mu", tuple(DTYPES), (k, p), dev)
-    F._require(state.nu, "nu", torch.float32, (k, p), dev)
-    F._require(state.count, "count", torch.int32, (k,), dev)
-    F._require(lr, "lr", torch.float32, (k, 1), dev, contiguous=False)
-    F._require(wd, "wd", torch.float32, (k, 1), dev, contiguous=False)
+    require(flat, "flat", torch.float32, (k, p), dev)
+    require(state.mu, "mu", tuple(DTYPES), (k, p), dev)
+    require(state.nu, "nu", torch.float32, (k, p), dev)
+    require(state.count, "count", torch.int32, (k,), dev)
+    require(lr, "lr", torch.float32, (k, 1), dev, contiguous=False)
+    require(wd, "wd", torch.float32, (k, 1), dev, contiguous=False)
     grads = [grad] if torch.is_tensor(grad) else list(grad)
     if not grads:
         raise ValueError("no gradient")
     for i, g in enumerate(grads):
-        F._require(g, f"gradient {i}", tuple(DTYPES) if i == 0 else grads[0].dtype,
+        require(g, f"gradient {i}", tuple(DTYPES) if i == 0 else grads[0].dtype,
                    (k, *g.shape[1:]), dev, contiguous=False)
     table = segment_table(grads, k)
     if sum(n for _, n in table) != p or any(g.numel() != k * n for g, (_, n) in
@@ -129,7 +95,7 @@ def adamw_plain_(flat: torch.Tensor, grad: Grad, state, lr: torch.Tensor,
                  wd: torch.Tensor) -> None:
     """Plain PyTorch version of the kernel: the gradients concatenated in
     float32, then ``optax.adamw``'s arithmetic op for op, in place."""
-    F.plain_calls["adamw"] += 1
+    plain_calls["adamw"] += 1
     k = flat.shape[0]
     grads = [grad] if torch.is_tensor(grad) else list(grad)
     grad = torch.cat([g.reshape(k, -1) for g in grads], dim=1).to(torch.float32)
@@ -168,7 +134,7 @@ def adamw_(flat: torch.Tensor, grad: Grad, state, lr: torch.Tensor, wd: torch.Te
         return
     if len(grads) > MAX_SEGMENTS:
         raise ValueError(f"{len(grads)} gradient leaves; the kernel takes {MAX_SEGMENTS}")
-    build()
+    lib = LIBRARY.get()
     k, p = flat.shape
     rows = []
     for g in grads:
@@ -183,14 +149,12 @@ def adamw_(flat: torch.Tensor, grad: Grad, state, lr: torch.Tensor, wd: torch.Te
     longs = lambda vals: (ctypes.c_longlong * n)(*vals)
     with torch.cuda.device(flat.device):
         stream = torch.cuda.current_stream(flat.device).cuda_stream
-        err = _Library.lib.linna_adamw_step(
+        err = lib.linna_adamw_step(
             flat.data_ptr(), state.mu.data_ptr(), DTYPES[state.mu.dtype], state.nu.data_ptr(),
             k, p, n, (ctypes.c_void_p * n)(*(g.data_ptr() for g in rows)),
             longs(o for o, _ in table), longs(m for _, m in table),
             longs(g.stride(0) for g in rows), DTYPES[rows[0].dtype],
             lr.data_ptr(), lr.stride(0), wd.data_ptr(), wd.stride(0),
             bc1.data_ptr(), bc2.data_ptr(), consts, stream)
-    if err != 0:
-        msg = _Library.lib.linna_adamw_error_string(err).decode()
-        raise RuntimeError(f"adamw kernel launch failed: {msg} (cudaError {err})")
-    F.launches["adamw"] += 1
+    LIBRARY.check(err, "adamw kernel launch")
+    launches["adamw"] += 1

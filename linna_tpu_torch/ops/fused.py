@@ -24,32 +24,25 @@ the rows launched beside it.  ``launch_shape`` reports each kernel's launch.
 
 Each wrapper launches its kernel for a CUDA tensor and raises if the build or
 the launch fails; for a CPU tensor it runs the plain PyTorch version beside
-it (``fused_apply_plain``, ``fused_log_prob_plain``).  ``launches`` counts
-kernel launches and ``plain_calls`` plain-version calls, so a run can show
-which one its main path took (they count the trainer's AdamW kernel of
-:mod:`linna_tpu_torch.ops.adamw` too, under ``adamw``); ``launch_shapes``
-and ``plain_shapes`` hold the shapes the two likelihood kernels ran at.
+it (``fused_apply_plain``, ``fused_log_prob_plain``).  Either counts itself
+in :mod:`linna_tpu_torch.ops.library`'s counters, with the shape it ran at.
 Gradients recompute the plain composition under autograd
 (``torch.autograd.Function``), as the JAX custom VJPs do.
-:func:`compile_library` is the ``nvcc`` build both modules' libraries take.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from .. import nn as N
+from .library import KernelLibrary, require
+# the counters, bound here too: benchmark/kinds.py reads them from this module
+from .library import (LIKELIHOOD_KERNELS, designs, launch_shapes, launches,  # noqa: F401
+                      plain_calls, plain_shapes, reset_counts)
 
 __all__ = [
     "fused_apply",
@@ -57,8 +50,7 @@ __all__ = [
     "fused_log_prob",
     "fused_log_prob_plain",
     "build",
-    "build_dir",
-    "compile_library",
+    "LIBRARY",
     "launch_shape",
     "log_prob_design",
     "log_prob_plan",
@@ -71,177 +63,12 @@ __all__ = [
 ]
 
 SOURCE = Path(__file__).parent / "csrc" / "fused_mlp.cu"
-BUILD_DIR = Path(__file__).parent / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-
-# a launch or a plain call from a CUDA graph counts at every replay
-# (linna_tpu_torch.samplers.graphs.LaunchLedger); ``adamw`` counts the
-# trainer's optimizer kernel (ops/adamw.py), which training alone reaches
-LIKELIHOOD_KERNELS = ("fused_apply", "fused_log_prob")
-launches: Dict[str, int] = {"fused_apply": 0, "fused_log_prob": 0, "adamw": 0}
-plain_calls: Dict[str, int] = {"fused_apply": 0, "fused_log_prob": 0, "adamw": 0}
-# fused_log_prob's launches by design (log_prob_design), counted as launches are
-designs: Dict[str, int] = {"tiled": 0, "cluster": 0}
-# the shapes each ran at, (rows, in width, out width); a graph's replays run
-# the shapes of its capture, so the sets are whole without them
-launch_shapes: Dict[str, set] = {"fused_apply": set(), "fused_log_prob": set()}
-plain_shapes: Dict[str, set] = {"fused_apply": set(), "fused_log_prob": set()}
-
-
-def reset_counts() -> None:
-    for d in (launches, plain_calls, designs):
-        for k in d:
-            d[k] = 0
-    for d in (launch_shapes, plain_shapes):
-        for k in d:
-            d[k].clear()
-
-
-# ------------------------------------------------------------------ build
-
-
-class _Library:
-    """The built shared library, its compiler output, and the build's
-    timings: ``nvcc_s`` the compiler's seconds, ``foreground_wait_s`` the
-    seconds callers other than the warm thread
-    (:mod:`linna_tpu_torch.parallel.precompile`) spent in :func:`build`
-    before the library was theirs to use."""
-
-    lib: Optional[ctypes.CDLL] = None
-    log: str = ""
-    private: Optional[Path] = None
-    # True while the warm thread makes its first launches: other callers
-    # wait for it, so its launches are counted apart
-    busy: bool = False
-    stats: Dict[str, float] = {"nvcc_s": 0.0, "foreground_wait_s": 0.0}
-    # fused_log_prob_kernel on this card: (SMs, blocks an SM holds, shared bytes a block)
-    capacity: Optional[tuple] = None
-
-
-# one build at a time in a process (the warm thread and the foreground);
-# separate processes are kept apart by the tmp + rename of the library
-_BUILD_LOCK = threading.RLock()
-WARM_THREAD = "linna-precompile"
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.isfile(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found (looked in $CUDA_HOME/bin and on PATH): the fused "
-            "CUDA kernels are built from source at first use"
-        )
-    return found
-
-
-def build_dir() -> Path:
-    """Where the library is built and kept: ``LINNA_COMPILE_CACHE`` when it
-    names a directory, a temporary directory of this process when it is
-    ``0`` or empty (nothing kept across processes), else the package's
-    ``_build/``."""
-    d = os.environ.get("LINNA_COMPILE_CACHE")
-    if d is None:
-        return BUILD_DIR
-    if d in ("0", ""):
-        if _Library.private is None:
-            _Library.private = Path(tempfile.mkdtemp(prefix="linna_kernels_"))
-        return _Library.private
-    return Path(d)
 
 
 def build() -> str:
-    """Compile ``csrc/fused_mlp.cu`` into :func:`build_dir` (cached by a
-    hash of the source and flags) and load it, once per process.  Returns
-    the compiler output (``-Xptxas -v``: registers and shared memory per
-    kernel).  Raises with the compiler output when ``nvcc`` fails; a caller
-    that comes after a failed build tries again, and fails the same way."""
-    if _Library.lib is not None and not _Library.busy:
-        return _Library.log
-    t0 = time.perf_counter()
-    with _BUILD_LOCK:
-        try:
-            if _Library.lib is None:
-                _load()
-        finally:
-            if threading.current_thread().name != WARM_THREAD:
-                _Library.stats["foreground_wait_s"] += time.perf_counter() - t0
-    return _Library.log
-
-
-def compile_library(source: Path, stats: Dict[str, float]) -> tuple:
-    """``source`` built by ``nvcc`` into :func:`build_dir` as
-    ``lib<stem>_<hash>.so``, unless a build of the same source and flags is
-    there; returns (the loaded library, the compiler output).  The
-    compiler's seconds are added to ``stats["nvcc_s"]``.  Raises with the
-    compiler output when ``nvcc`` fails."""
-    tag = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    where = build_dir()
-    where.mkdir(parents=True, exist_ok=True)
-    so = where / f"lib{source.stem}_{tag}.so"
-    log_path = so.with_suffix(".log")
-    if not so.is_file():
-        tmp = where / f".{so.name}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-            capture_output=True, text=True,
-        )
-        stats["nvcc_s"] += time.perf_counter() - t0
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {source.name}:\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
-    return ctypes.CDLL(str(so)), log_path.read_text() if log_path.is_file() else ""
-
-
-def _load() -> None:
-    lib, log = compile_library(SOURCE, _Library.stats)
-    ptrs = ctypes.POINTER(ctypes.c_void_p)
-    ints = ctypes.POINTER(ctypes.c_int)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.linna_fused_apply.argtypes = [vp, ci, ptrs, ints, vp, vp, ctypes.c_longlong, vp]
-    lib.linna_fused_apply.restype = ci
-    lib.linna_apply_scratch_floats.argtypes = [ci, ints]
-    lib.linna_apply_scratch_floats.restype = ctypes.c_longlong
-    lib.linna_fused_log_prob.argtypes = [vp, ci, ptrs, ints, ptrs, ci, vp, vp, ctypes.c_longlong,
-                                         vp, vp]
-    lib.linna_fused_log_prob.restype = ci
-    lib.linna_log_prob_capacity.argtypes = [ints, ints, ctypes.POINTER(ctypes.c_longlong)]
-    lib.linna_log_prob_capacity.restype = ci
-    lib.linna_log_prob_plan_length.argtypes = []
-    lib.linna_log_prob_plan_length.restype = ci
-    lib.linna_apply_launch_shape.argtypes = [ci, ints, ints, ctypes.POINTER(ctypes.c_longlong)]
-    lib.linna_apply_launch_shape.restype = ci
-    lib.linna_fused_log_prob_cluster.argtypes = [vp, ci, ptrs, ints, ptrs, ci, vp, vp]
-    lib.linna_fused_log_prob_cluster.restype = ci
-    lib.linna_cluster_launch_shape.argtypes = [ci, ints, ints, ctypes.POINTER(ctypes.c_longlong)]
-    lib.linna_cluster_launch_shape.restype = ci
-    lib.linna_cluster_walkers.argtypes = [ints]
-    lib.linna_cluster_walkers.restype = ci
-    lib.linna_error_string.argtypes = [ci]
-    lib.linna_error_string.restype = ctypes.c_char_p
-    if lib.linna_log_prob_plan_length() != PLAN_LENGTH:
-        raise RuntimeError(f"{Path(lib._name).name}: its fused_log_prob plan has "
-                           f"{lib.linna_log_prob_plan_length()} values, this module's {PLAN_LENGTH}")
-    _Library.log = log
-    _Library.lib = lib
-
-
-def _check(err: int, what: str) -> None:
-    if err != 0:
-        msg = _Library.lib.linna_error_string(err).decode()
-        raise RuntimeError(f"{what} kernel launch failed: {msg} (cudaError {err})")
+    """Build and load ``csrc/fused_mlp.cu`` once per process; returns the
+    compiler output (registers and shared memory per kernel)."""
+    return LIBRARY.build()
 
 
 # ------------------------------------------------------- weights and shapes
@@ -274,20 +101,6 @@ def _reject_bypass(spec: N.ModelSpec, what: str, instead: str) -> None:
         )
 
 
-def _require(t: torch.Tensor, name: str, dtype, shape, device, contiguous: bool = True) -> None:
-    """``t`` of the type ``dtype`` (or one of a tuple of types), ``shape``
-    and ``device``, and contiguous unless ``contiguous`` is False."""
-    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
-    if t.dtype not in dtypes:
-        raise TypeError(f"{name}: expected {' or '.join(map(str, dtypes))}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name}: expected device {device}, got {t.device}")
-    if contiguous and not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
 def _check_weights(spec: N.ModelSpec, weights: Sequence[torch.Tensor], device) -> List[int]:
     dims = _dims(spec)
     i, h, h2, h4, h8, c1, c2, c3, l6, out = dims
@@ -296,7 +109,7 @@ def _check_weights(spec: N.ModelSpec, weights: Sequence[torch.Tensor], device) -
         shapes += [(fin, ch), (ch,), (ch, fout), (fout,), (fin, fout)]
     shapes += [(h8, l6), (l6,), (l6, out), (out,), (out, out), (out,)]
     for k, (w, s) in enumerate(zip(weights, shapes)):
-        _require(w, f"weight {k}", torch.float32, s, device)
+        require(w, f"weight {k}", torch.float32, s, device)
     return dims
 
 
@@ -321,6 +134,22 @@ SPLIT_ITEMS = 264
 H100 = (132, 2)
 PLAN_HEAD, PLAN_PRODUCT, LIKE_PRODUCTS = 11, 5, 11
 PLAN_LENGTH = PLAN_HEAD + PLAN_PRODUCT * LIKE_PRODUCTS
+
+_vp, _ci, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ptrs_t, _ints, _lls = ctypes.POINTER(_vp), ctypes.POINTER(_ci), ctypes.POINTER(_ll)
+LIBRARY = KernelLibrary(SOURCE, {
+    "linna_fused_apply": ([_vp, _ci, _ptrs_t, _ints, _vp, _vp, _ll, _vp], _ci),
+    "linna_apply_scratch_floats": ([_ci, _ints], _ll),
+    "linna_fused_log_prob": ([_vp, _ci, _ptrs_t, _ints, _ptrs_t, _ci, _vp, _vp, _ll, _vp, _vp],
+                             _ci),
+    "linna_log_prob_capacity": ([_ints, _ints, _lls], _ci),
+    "linna_apply_launch_shape": ([_ci, _ints, _ints, _lls], _ci),
+    "linna_fused_log_prob_cluster": ([_vp, _ci, _ptrs_t, _ints, _ptrs_t, _ci, _vp, _vp], _ci),
+    "linna_cluster_launch_shape": ([_ci, _ints, _ints, _lls], _ci),
+    "linna_cluster_walkers": ([_ints], _ci),
+}, error="linna_error_string", abi=("linna_log_prob_plan_length", PLAN_LENGTH))
+# fused_log_prob_kernel on this card: (SMs, blocks an SM holds, shared bytes a block)
+_capacity: Optional[tuple] = None
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -410,13 +239,15 @@ def log_prob_plan(dims: Sequence[int], nrows: int, sms: int = H100[0],
 def log_prob_capacity() -> tuple:
     """(SMs, blocks an SM holds, shared bytes a block) of ``fused_log_prob_kernel``
     on the current card, asked once per process."""
-    build()
-    if _Library.capacity is None:
+    global _capacity
+    lib = LIBRARY.get()
+    if _capacity is None:
         sms, per_sm, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
-        _check(_Library.lib.linna_log_prob_capacity(ctypes.byref(sms), ctypes.byref(per_sm),
-                                                    ctypes.byref(smem)), "fused_log_prob")
-        _Library.capacity = (sms.value, per_sm.value, smem.value)
-    return _Library.capacity
+        err = lib.linna_log_prob_capacity(ctypes.byref(sms), ctypes.byref(per_sm),
+                                          ctypes.byref(smem))
+        LIBRARY.check(err, "fused_log_prob kernel launch")
+        _capacity = (sms.value, per_sm.value, smem.value)
+    return _capacity
 
 
 # the fewest walkers a cluster of the cluster design must take at a width
@@ -446,10 +277,9 @@ def cluster_walkers(dims: Sequence[int]) -> int:
     """The most walkers a cluster of the cluster design takes at the
     kernel's widths ``dims`` on the current card (0 where not one row group
     of 8 fits)."""
-    build()
-    n = _Library.lib.linna_cluster_walkers((ctypes.c_int * 10)(*dims))
+    n = LIBRARY.get().linna_cluster_walkers((ctypes.c_int * 10)(*dims))
     if n < 0:
-        _check(-n, "fused_log_prob")
+        LIBRARY.check(-n, "fused_log_prob kernel launch")
     return n
 
 
@@ -467,15 +297,15 @@ def launch_shape(spec: N.ModelSpec, nrows: int, kernel: str) -> Dict[str, int]:
     blocks, threads, shared memory, and the most clusters of that shape the
     card holds at once.  ``fused_log_prob``'s record names its ``design``
     (:func:`log_prob_design`) and its CUDA ``kernel``."""
-    build()
+    lib = LIBRARY.get()
     if kernel == "fused_log_prob":
         dims = _dims(spec)
         design = log_prob_design(cluster_walkers(dims))
         if design == "cluster":
             shape, smem = (ctypes.c_int * 6)(), ctypes.c_longlong()
-            _check(_Library.lib.linna_cluster_launch_shape(
+            LIBRARY.check(lib.linna_cluster_launch_shape(
                 nrows, (ctypes.c_int * 10)(*dims), shape, ctypes.byref(smem)),
-                "fused_log_prob launch-shape query")
+                "fused_log_prob launch-shape query kernel launch")
             walkers, cluster, blocks, threads, max_clusters, split_walkers = shape
             return {"design": design, "kernel": "fused_log_prob_cluster_kernel",
                     "walkers_per_cluster": walkers, "split_walkers": split_walkers,
@@ -492,8 +322,8 @@ def launch_shape(spec: N.ModelSpec, nrows: int, kernel: str) -> Dict[str, int]:
                 "max_items": plan["max_items"], "smem_bytes": smem}
     dims = (ctypes.c_int * 10)(*_dims(spec))
     shape, smem = (ctypes.c_int * 19)(), ctypes.c_longlong()
-    _check(_Library.lib.linna_apply_launch_shape(nrows, dims, shape, ctypes.byref(smem)),
-           "fused_apply launch-shape query")
+    LIBRARY.check(lib.linna_apply_launch_shape(nrows, dims, shape, ctypes.byref(smem)),
+                  "fused_apply launch-shape query kernel launch")
     tile_rows, tile_cols, blocks, threads, per_sm, sms, tile_k, stages, items = shape[:9]
     return {"tile": [tile_rows, tile_cols, tile_k], "stages": stages, "blocks": blocks,
             "threads_per_block": threads, "blocks_per_sm": per_sm, "sms": sms,
@@ -541,23 +371,23 @@ def fused_apply_plain(spec: N.ModelSpec, params, x: torch.Tensor) -> torch.Tenso
 
 
 def _launch_apply(spec: N.ModelSpec, x: torch.Tensor, weights) -> torch.Tensor:
-    build()
+    lib = LIBRARY.get()
     dims = (ctypes.c_int * 10)(*_check_weights(spec, weights, x.device))
-    _require(x, "x", torch.float32, (x.shape[0], spec.in_size), x.device)
+    require(x, "x", torch.float32, (x.shape[0], spec.in_size), x.device)
     out = torch.empty((x.shape[0], spec.out_size), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         # the activations between the kernel's products and the partial
         # tiles of the products it splits over blocks
-        floats = _Library.lib.linna_apply_scratch_floats(x.shape[0], dims)
+        floats = lib.linna_apply_scratch_floats(x.shape[0], dims)
         if floats < 0:
-            _check(-floats, "fused_apply")
+            LIBRARY.check(-floats, "fused_apply kernel launch")
         scratch = torch.empty((floats,), dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _Library.lib.linna_fused_apply(
+        err = lib.linna_fused_apply(
             x.data_ptr(), x.shape[0], _ptrs(weights), dims, out.data_ptr(),
             scratch.data_ptr(), floats, stream,
         )
-    _check(err, "fused_apply")
+    LIBRARY.check(err, "fused_apply kernel launch")
     launches["fused_apply"] += 1
     launch_shapes["fused_apply"].add((x.shape[0], spec.in_size, spec.out_size))
     return out
@@ -649,7 +479,7 @@ class _LaunchArgs:
             shapes = [(d,)] * 6 + [(n,)] * 4 + [(n, n), ()]
             dtypes = [torch.bool] + [torch.float32] * 4 + [torch.bool] + [torch.float32] * 6
             for t, name, shape, dt in zip(like, names, shapes, dtypes):
-                _require(t, name, dt, shape, device)
+                require(t, name, dt, shape, device)
             self.tensors = weights + like  # keeps the pointed-to tensors alive
             self.device = device
             self.arrays = (_ptrs(weights), (ctypes.c_int * 10)(*dims), _ptrs(like))
@@ -676,15 +506,15 @@ class _LaunchArgs:
 
 def _launch_log_prob(spec: N.ModelSpec, x: torch.Tensor, env, ypositive: bool,
                      args: _LaunchArgs) -> torch.Tensor:
-    build()
+    lib = LIBRARY.get()
     weights, dims, like = args.get(env)
-    _require(x, "x", torch.float32, (x.shape[0], spec.in_size), args.device)
+    require(x, "x", torch.float32, (x.shape[0], spec.in_size), args.device)
     lp = torch.empty((x.shape[0],), dtype=torch.float32, device=x.device)
     design = args.design_of()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if design == "cluster":
-            err = _Library.lib.linna_fused_log_prob_cluster(
+            err = lib.linna_fused_log_prob_cluster(
                 x.data_ptr(), x.shape[0], weights, dims, like, int(bool(ypositive)),
                 lp.data_ptr(), stream,
             )
@@ -692,13 +522,13 @@ def _launch_log_prob(spec: N.ModelSpec, x: torch.Tensor, env, ypositive: bool,
             floats, plan = args.plan(x.shape[0])
             # the activations and the split products' partial tiles
             scratch = torch.empty((floats,), dtype=torch.float32, device=x.device)
-            err = _Library.lib.linna_fused_log_prob(
+            err = lib.linna_fused_log_prob(
                 x.data_ptr(), x.shape[0], weights, dims, like, int(bool(ypositive)), plan,
                 scratch.data_ptr(), floats, lp.data_ptr(), stream,
             )
         else:
             err = 0
-    _check(err, "fused_log_prob")
+    LIBRARY.check(err, "fused_log_prob kernel launch")
     launches["fused_log_prob"] += 1
     designs[design] += 1
     launch_shapes["fused_log_prob"].add((x.shape[0], spec.in_size, spec.out_size))

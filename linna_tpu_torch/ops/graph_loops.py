@@ -1,84 +1,37 @@
 """While loops of CUDA graphs that the card ends.
 
 The JAX package runs the slice move's stepping-out and shrink loops as
-``lax.while_loop``s inside one compiled program.  :class:`WhileLoops` gives
-the port's graphed zeus runner (``samplers.graphs``) the same: it runs
-captured iteration graphs one after another, each as a CUDA conditional
-while node whose condition a one-thread kernel sets on the card after
-every iteration (``csrc/graph_loops.cu``; its comment says how).  A launch
-enqueues both loops of a half-update and returns; the host reads no
-condition.
-
-The library is built by ``nvcc`` at first use, apart from the likelihood
-kernels' (:func:`linna_tpu_torch.ops.fused.compile_library`, cached by a
-hash of the source and the flags).  It runs on a card only: a build,
-instantiation or launch error raises, and nothing falls back to the
-host-driven loops (``samplers.slicemove.late_loop``, which the CPU and the
-walker-sharded chunks run).
+``lax.while_loop``s inside one compiled program.  :class:`WhileLoops` does
+the same with captured iteration graphs, run one after another, each as a
+CUDA conditional while node whose condition a one-thread kernel sets on the
+card after every iteration (``csrc/graph_loops.cu``; its comment says how).
+A launch enqueues every loop and returns; the host reads no condition.  It
+runs on a card only: a build, instantiation or launch error raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import List, Sequence
 
 import torch
 
-from . import fused as F
+from .library import KernelLibrary
 
-__all__ = ["WhileLoops", "build"]
+__all__ = ["WhileLoops", "LIBRARY"]
 
 SOURCE = Path(__file__).parent / "csrc" / "graph_loops.cu"
 # csrc/graph_loops.cu: the most loops a loops graph holds
 MAX_LOOPS = 8
 
-
-class _Library:
-    lib: Optional[ctypes.CDLL] = None
-    log: str = ""
-    stats: Dict[str, float] = {"nvcc_s": 0.0}
-
-
-_LOCK = threading.Lock()
-
-
-def build() -> str:
-    """Compile ``csrc/graph_loops.cu`` (cached in ``ops.fused.build_dir()``)
-    and load it, once per process; returns the compiler output.  Raises
-    with it when ``nvcc`` fails."""
-    if _Library.lib is None:
-        with _LOCK:
-            if _Library.lib is None:
-                _load()
-    return _Library.log
-
-
-def _load() -> None:
-    lib, log = F.compile_library(SOURCE, _Library.stats)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.linna_loops_create.argtypes = [ci, ctypes.POINTER(vp), vp, vp, vp, ci,
-                                       ctypes.POINTER(vp)]
-    lib.linna_loops_create.restype = ci
-    lib.linna_loops_launch.argtypes = [vp, vp]
-    lib.linna_loops_launch.restype = ci
-    lib.linna_loops_destroy.argtypes = [vp]
-    lib.linna_loops_destroy.restype = None
-    lib.linna_loops_max_loops.restype = ci
-    lib.linna_loops_error_string.argtypes = [ci]
-    lib.linna_loops_error_string.restype = ctypes.c_char_p
-    if lib.linna_loops_max_loops() != MAX_LOOPS:
-        raise RuntimeError(f"{Path(lib._name).name} holds {lib.linna_loops_max_loops()} "
-                           f"loops, this module {MAX_LOOPS}")
-    _Library.log = log
-    _Library.lib = lib
-
-
-def _raise(err: int, what: str) -> None:
-    if err != 0:
-        msg = _Library.lib.linna_loops_error_string(err).decode()
-        raise RuntimeError(f"{what} failed: {msg} (cudaError {err})")
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+LIBRARY = KernelLibrary(SOURCE, {
+    "linna_loops_create": ([_ci, ctypes.POINTER(_vp), _vp, _vp, _vp, _ci, ctypes.POINTER(_vp)],
+                           _ci),
+    "linna_loops_launch": ([_vp, _vp], _ci),
+    "linna_loops_destroy": ([_vp], None),
+}, error="linna_loops_error_string", abi=("linna_loops_max_loops", MAX_LOOPS))
 
 
 class WhileLoops:
@@ -105,26 +58,27 @@ class WhileLoops:
                              f"{more.dtype} of shape {tuple(more.shape)} on {more.device}")
         if int(max_steps) < 1:
             raise ValueError(f"max_steps {max_steps}: a loop runs at least once")
-        build()
+        lib = LIBRARY.get()
         self.more = more
         self.max_steps = int(max_steps)
         self.device = more.device
         self.iters = torch.zeros(n, dtype=torch.int32, device=self.device)
         self.total = torch.zeros(n, dtype=torch.int64, device=self.device)
         self._handle = ctypes.c_void_p()
-        self._lib = _Library.lib  # held for __del__, which may run at exit
+        self._lib = lib  # held for __del__, which may run at exit
         raw = (ctypes.c_void_p * n)(*(b.raw_cuda_graph() for b in self.bodies))
         with torch.cuda.device(self.device):
-            err = _Library.lib.linna_loops_create(
+            err = lib.linna_loops_create(
                 n, raw, more.data_ptr(), self.iters.data_ptr(), self.total.data_ptr(),
                 self.max_steps, ctypes.byref(self._handle))
         if err != 0:
             self._handle = None
-        _raise(err, "building the while loops graph")
+        LIBRARY.check(err, "building the while loops graph")
 
     def launch(self) -> None:
         stream = torch.cuda.current_stream(self.device).cuda_stream
-        _raise(_Library.lib.linna_loops_launch(self._handle, stream), "launching the while loops")
+        LIBRARY.check(self._lib.linna_loops_launch(self._handle, stream),
+                      "launching the while loops")
 
     def totals(self) -> List[int]:
         """Each loop's iterations over every launch so far (waits for the

@@ -6,24 +6,21 @@ compiles each future iteration's XLA training and sampling programs into
 its persistent compilation cache ahead of use.  The port compiles no XLA
 program; what a fresh process pays before its first launch is:
 
-- the ``nvcc`` build of ``ops/csrc/fused_mlp.cu`` (seconds; cached by a
-  hash of the source in :func:`compile_cache_dir`), and of
-  ``ops/csrc/adamw.cu``, the trainer's optimizer kernel, and
-  ``ops/csrc/graph_loops.cu``, the graphed zeus sampler's loops, on every
-  card run (a run trains, and samples with zeus unless told otherwise);
+- the ``nvcc`` build of every kernel library (``ops.LIBRARIES``; seconds
+  each, cached by a hash of the source in :func:`compile_cache_dir`);
 - the first launch of each kernel the run's path takes, at the run's shapes
   (the library's module load and the launch planner's first queries);
 - cuBLAS's library and handles (the trainer's products).
 
 :func:`warm_pipeline` does these in that order, in one thread, on a side
-stream.  The builds are the ones the foreground uses (``ops.fused.build``,
-``ops.adamw.build`` and ``ops.graph_loops.build`` are locked, so the two
-never run ``nvcc`` at once for one library, and the foreground waits for
-the thread's build and first launches rather than starting its own).  The
-thread keeps its exception (:data:`last_error`) and does not raise: a build
-that failed in the thread is tried again by the foreground's first launch,
-which raises the same error, so a broken compiler still fails the run, and
-there is no plain-version fallback on the card.
+stream.  The builds are the ones the foreground uses: each library is held
+(:meth:`~linna_tpu_torch.ops.library.KernelLibrary.warming`) while the
+thread builds it and makes its first launches, and the foreground waits
+for it rather than starting its own.  The thread keeps its exception
+(:data:`last_error`) and does not raise: a build that failed in the thread
+is tried again by the foreground's first launch, which raises the same
+error, so a broken compiler still fails the run, and there is no
+plain-version fallback on the card.
 
 Gating (``ml_sampler_core``'s call, JAX's conditions): the primary process
 of a single-process run, and none of ``train_subprocess``, ``ypositive``,
@@ -54,6 +51,7 @@ __all__ = [
     "last_report",
 ]
 
+THREAD_NAME = "linna-precompile"
 # the warm thread's exception, and what it did (seconds, launches)
 last_error: Optional[BaseException] = None
 last_report: dict = {}
@@ -67,9 +65,9 @@ def compile_cache_dir() -> Optional[str]:
     d = os.environ.get("LINNA_COMPILE_CACHE")
     if d in ("0", ""):
         return None
-    from ..ops import fused
+    from ..ops import library
 
-    return str(fused.build_dir())
+    return str(library.build_dir())
 
 
 def compile_cache_enabled() -> bool:
@@ -103,29 +101,20 @@ def _warm(model_name: str, ndim: int, ndata: int, nwalkers: int, batch_size: int
     """The warm-up itself (see the module docstring); returns what it did."""
     import time
 
-    from ..ops import adamw, fused, graph_loops
+    from ..ops import LIBRARIES, fused, library
 
-    report = {"build_s": 0.0, "launches": {k: 0 for k in fused.launches}, "cublas_s": 0.0,
-              "adamw_build_s": 0.0, "loops_build_s": 0.0}
-    if use_kernel:
-        t0 = time.perf_counter()
-        with fused._BUILD_LOCK:
-            fused._Library.busy = True
-            try:
-                fused.build()
-                report["build_s"] = time.perf_counter() - t0
-                if device.type == "cuda":
-                    report["launches"] = _first_launches(model_name, ndim, ndata, nwalkers,
-                                                         device)
-            finally:
-                fused._Library.busy = False
+    report = {"build_s": {}, "launches": dict.fromkeys(library.launches, 0), "cublas_s": 0.0}
+    for lib in LIBRARIES:
+        first_launches = lib is fused.LIBRARY
+        if first_launches and not use_kernel:
+            continue
+        with lib.warming():
+            t0 = time.perf_counter()
+            lib.get()
+            report["build_s"][lib.name] = time.perf_counter() - t0
+            if first_launches and device.type == "cuda":
+                report["launches"] = _first_launches(model_name, ndim, ndata, nwalkers, device)
     if device.type == "cuda":
-        t0 = time.perf_counter()
-        adamw.build()
-        report["adamw_build_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        graph_loops.build()
-        report["loops_build_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         with torch.cuda.stream(torch.cuda.Stream(device)):
             from .. import nn as N
@@ -148,7 +137,7 @@ def _first_launches(model_name: str, ndim: int, ndata: int, nwalkers: int,
     from .. import nn as N
     from .. import priors as P
     from .. import transforms as T
-    from ..ops import fused
+    from ..ops import fused, library
 
     spec = N.make_model_spec(model_name, ndim, ndata)
     tset = T.TransformSet(
@@ -160,12 +149,12 @@ def _first_launches(model_name: str, ndim: int, ndata: int, nwalkers: int,
     pack = P.priors_from_list([{"dist": "flat", "arg1": -1.0, "arg2": 1.0}] * ndim, device)
     lp = fused.fused_log_prob(spec, N.init_model(spec, seed=0, device=device), tset, pack,
                               np.zeros(ndata), np.eye(ndata), device=device)
-    before = dict(fused.launches)
+    before = dict(library.launches)
     with torch.cuda.stream(torch.cuda.Stream(device)), torch.no_grad():
         for rows in sorted({int(nwalkers), max(int(nwalkers) // 2, 1)}):
             lp(torch.zeros((rows, ndim), device=device))
         torch.cuda.current_stream(device).synchronize()
-    return {k: fused.launches[k] - before[k] for k in before}
+    return {k: library.launches[k] - before[k] for k in before}
 
 
 def warm_pipeline(model_name: str, ndim: int, ndata: int, nwalkers: int, batch_size: int,
@@ -187,8 +176,6 @@ def warm_pipeline(model_name: str, ndim: int, ndata: int, nwalkers: int, batch_s
         except Exception as e:  # the foreground's own build and launch raise it again
             last_error = e
 
-    from ..ops import fused
-
-    t = threading.Thread(target=run, name=fused.WARM_THREAD, daemon=True)
+    t = threading.Thread(target=run, name=THREAD_NAME, daemon=True)
     t.start()
     return t

@@ -33,10 +33,8 @@ The eager chunk functions (``stretch_chunk``, ``hmc_chunk``, ``nuts_chunk``,
 ``chip_smoke.py`` holds the graphs against them.  A capture or replay error
 propagates; nothing falls back to the eager step.
 
-The kernels' counters (``ops.fused.launches``, ``ops.fused.plain_calls`` and
-``ops.fused.designs``; the trainer's AdamW kernel counts there too) tick in
-Python, so a replay would not move them: :class:`LaunchLedger` takes back
-what a capture counted and adds it on every replay.  zeus's loop bodies
+Each graph is a :class:`~linna_tpu_torch.ops.graphs.StepGraph`, whose
+ledger adds the kernels' counts on every replay.  zeus's loop bodies
 replay on the card as often as the card decides: it counts their
 iterations, and :meth:`_Chunks.settle` (called by ``record()``, which
 ``run_ensemble`` calls as a run ends) reads that count once and adds the
@@ -45,116 +43,16 @@ iterations since its last read to the bodies' replays and ledgers.
 
 from __future__ import annotations
 
-import contextlib
-import gc
-from typing import Callable, Dict, Iterable, List, Sequence
+from typing import Callable, List, Sequence
 
 import torch
 
-from ..ops import fused, graph_loops
+from ..ops import graph_loops
+from ..ops.graphs import WARMUP, StepGraph
 from ..utils.trace import ChunkTimes
 from . import hmc, slicemove, stretch
 
-__all__ = ["LaunchLedger", "StepGraph", "collector_paused", "graphed_chunks", "WARMUP"]
-
-# eager runs of a step on a side stream before its capture: they create
-# cuBLAS's workspace and the autograd engine's state on the stream, and
-# their results are put back
-WARMUP = 3
-
-
-class LaunchLedger:
-    """The counts one graph holds: each counter's change while it was
-    captured.  Capturing runs nothing, so the change is taken back, and
-    every replay adds it.  ``counters``: dicts of counts, each kept."""
-
-    def __init__(self, *counters: Dict[str, int]):
-        self.counters = counters
-        self.per_replay: List[Dict[str, int]] = [{k: 0 for k in c} for c in counters]
-
-    @contextlib.contextmanager
-    def capturing(self):
-        before = [dict(c) for c in self.counters]
-        try:
-            yield self
-        finally:
-            self.per_replay = [{k: c[k] - b[k] for k in b} for c, b in zip(self.counters, before)]
-            for c, b in zip(self.counters, before):
-                c.update(b)
-
-    def replayed(self, n: int = 1) -> None:
-        for c, per in zip(self.counters, self.per_replay):
-            for k, v in per.items():
-                c[k] += n * v
-
-
-@contextlib.contextmanager
-def collector_paused():
-    """Python's cyclic garbage collector off inside, as it was outside.
-
-    A runner nobody holds any more lives on in a cycle (its graphs' step
-    functions hold it) until the collector frees it, and freeing it
-    destroys its CUDA graphs.  That destruction is a CUDA call a capture
-    forbids: run by a collection that happens to start inside a capture,
-    it invalidates the capture (``cudaErrorStreamCaptureInvalidated`` at
-    its end)."""
-    enabled = gc.isenabled()
-    gc.disable()
-    try:
-        yield
-    finally:
-        if enabled:
-            gc.enable()
-
-
-class StepGraph:
-    """``fn()`` captured over static buffers.  ``buffers``: every tensor
-    ``fn`` writes (put back after the warm-up); ``generators``: the
-    generators ``fn`` draws from, registered with the graph; ``keep_graph``:
-    the graph is kept uninstantiated, to be run as another graph's body
-    (its runs are counted by :meth:`replayed`).
-
-    The graph holds ``fn``: a replay reads the tensors ``fn``'s closure
-    holds (HMC's and NUTS's inverse mass, for one) at the addresses they
-    had at capture, and a tensor freed after the capture would have its
-    memory handed to the next allocation."""
-
-    def __init__(self, fn: Callable[[], None], buffers: Sequence[torch.Tensor],
-                 generators: Iterable[torch.Generator] = (), pool=None,
-                 keep_graph: bool = False):
-        self.fn = fn
-        generators = list(generators)
-        saved = [b.clone() for b in buffers]
-        states = [g.get_state() for g in generators]
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP):
-                fn()
-        torch.cuda.current_stream().wait_stream(side)
-        for b, s in zip(buffers, saved):
-            b.copy_(s)
-        for g, s in zip(generators, states):
-            g.set_state(s)
-        self.graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
-        for g in generators:
-            self.graph.register_generator_state(g)
-        self.ledger = LaunchLedger(fused.launches, fused.plain_calls, fused.designs)
-        # thread_local: the kernel warm-up thread (parallel/precompile) may
-        # still be running
-        with self.ledger.capturing(), collector_paused(), \
-                torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
-            fn()
-        self.replays = 0
-
-    def replay(self) -> None:
-        self.graph.replay()
-        self.replayed()
-
-    def replayed(self, n: int = 1) -> None:
-        """Count ``n`` runs of the graph: its replays and its ledger's."""
-        self.ledger.replayed(n)
-        self.replays += n
+__all__ = ["graphed_chunks"]
 
 
 def _store(bufs: Sequence[torch.Tensor], values: Sequence[torch.Tensor]) -> None:

@@ -64,7 +64,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..ops import fused
+from ..ops import library
 from ..parallel import mesh as ME
 from ..parallel import multihost as MH
 from ..utils.trace import span
@@ -191,8 +191,7 @@ def run_ensemble(
     ps = {"precond": 0.0, "init": 0.0, "setup": 0.0, "capture": 0.0, "dispatch": 0.0,
           "device_wait": 0.0, "host": 0.0, "tau_checks": 0.0, "loop": 0.0}
     t_setup0 = time.perf_counter()
-    counts0 = {"launches": dict(fused.launches), "plain_calls": dict(fused.plain_calls),
-               "designs": dict(fused.designs)}
+    counts0 = {kind: dict(c) for kind, c in library.COUNTERS.items()}
     if not tau_walkers or tau_walkers <= 0:
         tau_walkers = None
     primary = MH.is_primary()
@@ -481,9 +480,7 @@ def run_ensemble(
             trace_rec["steps_run"] = int(iteration)
             trace_rec["kernels"] = {
                 kind: {k: now[k] - counts0[kind][k] for k in now}
-                for kind, now in (("launches", fused.launches),
-                                  ("plain_calls", fused.plain_calls),
-                                  ("designs", fused.designs))}
+                for kind, now in library.COUNTERS.items()}
 
     ps["setup"] = (time.perf_counter() - t_setup0 - ps["precond"] - ps["init"]
                    - ps["capture"])

@@ -18,7 +18,7 @@ chunk is two bodies over static buffers:
 :class:`EpochProgram` runs a chunk as ``nb`` steps and one end an epoch.  On
 a CUDA device with no data group each body is captured once per training
 call as a CUDA graph
-(:class:`linna_tpu_torch.samplers.graphs.StepGraph`) and replayed nb + 1
+(:class:`linna_tpu_torch.ops.graphs.StepGraph`) and replayed nb + 1
 times an epoch; neither graph depends on the number of minibatches or on
 the chunk's length.  Elsewhere (the CPU; a data group, whose gloo
 all-reduce copies through the host) the same bodies run eagerly, so the
@@ -31,12 +31,9 @@ optimizer reset, reinit, reload, the speculative restore), and a program
 refuses to run once one of them has been replaced.  A chunk returns copies
 of its outputs, taken before the next chunk's replays, so speculative
 dispatch (chunk k+1 enqueued before chunk k's results are read) overwrites
-nothing it returned.  Training reaches neither likelihood kernel of
-``ops/fused``; on a card each minibatch step launches the AdamW kernel of
-``ops/adamw`` once, each graph's
-:class:`~linna_tpu_torch.samplers.graphs.LaunchLedger` adds its capture's
-counts (``ops.fused.launches["adamw"]``) per replay, and the records
-(``trainer.graphs``) hold the launches and plain calls of their steps.  A capture or replay error
+nothing it returned.  The records (``trainer.graphs``) hold the AdamW
+kernel's launches and plain calls in their steps, read from
+:mod:`linna_tpu_torch.ops.library`'s counters.  A capture or replay error
 propagates; nothing falls back to the eager bodies on a card.
 """
 
@@ -48,8 +45,8 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .ops import fused
-from .samplers.graphs import StepGraph
+from .ops import library
+from .ops.graphs import StepGraph
 from .utils.trace import ChunkTimes
 
 __all__ = ["EpochProgram", "lr_sweep"]
@@ -62,8 +59,8 @@ def _copy(t: torch.Tensor) -> torch.Tensor:
 
 def _adamw_counts() -> dict:
     """The AdamW kernel's launches and its plain version's calls so far
-    (``ops.fused``'s counters, which a graph's replays advance)."""
-    return {"launches": fused.launches["adamw"], "plain_calls": fused.plain_calls["adamw"]}
+    (a graph's replays advance them)."""
+    return {"launches": library.launches["adamw"], "plain_calls": library.plain_calls["adamw"]}
 
 
 class _Program:

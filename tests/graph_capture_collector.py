@@ -4,7 +4,7 @@ A graphed chunk runner that nobody holds any more lives on in a cycle (its
 graphs' step functions hold it) until the cyclic collector frees it, and
 freeing it destroys its CUDA graphs.  This probe shows what happens when
 that collection starts inside another runner's capture, and that
-``samplers.graphs.collector_paused`` keeps every collection out of the
+``ops.graphs.collector_paused`` keeps every collection out of the
 captures.  Each experiment runs in a process of its own (a failed capture
 leaves the process's captures unusable):
 
@@ -34,6 +34,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from linna_tpu_torch.ops import graphs as OG  # noqa: E402
 from linna_tpu_torch.samplers import graphs as G  # noqa: E402
 from linna_tpu_torch.samplers import slicemove as S  # noqa: E402
 
@@ -42,7 +43,7 @@ OPTIONS = dict(a=2.0, n_leapfrog=10, max_depth=5, max_steps=100)
 
 def main(experiment: str, pause: bool = True) -> dict:
     if not pause:
-        G.collector_paused = contextlib.nullcontext
+        OG.collector_paused = contextlib.nullcontext
     dev = torch.device("cuda:0")
     seen = {"collections_in_capture": 0, "explicit": 0}
 

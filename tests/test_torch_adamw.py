@@ -25,7 +25,7 @@ import chip_smoke as C
 from linna_tpu_torch import nn as TN
 from linna_tpu_torch import train as TTR
 from linna_tpu_torch.ops import adamw as AW
-from linna_tpu_torch.ops import fused as F
+from linna_tpu_torch.ops import library as OL
 
 WIDTHS = {"des": (27, 457), "lsst": (40, 1560)}
 MODELS = ("chto_v2", "chto_simple", "chto_v2_linear")
@@ -119,12 +119,12 @@ def test_the_step_refuses_what_the_kernel_does_not_take(case):
     edit(args)
     before = [t.clone() for t in (args["flat"], args["state"].count)
               if t.device.type == "cpu"]
-    calls = F.plain_calls["adamw"]
+    calls = OL.plain_calls["adamw"]
     with pytest.raises(error):
         AW.adamw_(**args)
     after = [t for t in (args["flat"], args["state"].count) if t.device.type == "cpu"]
     assert all(torch.equal(a, b) for a, b in zip(before, after))
-    assert F.plain_calls["adamw"] == calls  # refused before it computed anything
+    assert OL.plain_calls["adamw"] == calls  # refused before it computed anything
 
 
 def _trainer(rows=64):
@@ -155,9 +155,9 @@ def test_the_trainer_step_hands_the_leaves_to_adamw(monkeypatch):
     seen = []
     step = TTR.adamw_step_
     monkeypatch.setattr(TTR, "adamw_step_", lambda *a: (seen.append(a[1]), step(*a)))
-    calls = dict(F.plain_calls), dict(F.launches)
+    calls = dict(OL.plain_calls), dict(OL.launches)
     loss = tr._step(data, idx, tr.opt, tr._lr_t, tr._wd_t)
-    assert F.plain_calls["adamw"] == calls[0]["adamw"] + 1 and F.launches == calls[1]
+    assert OL.plain_calls["adamw"] == calls[0]["adamw"] + 1 and OL.launches == calls[1]
     (grads,) = seen
     assert len(grads) == len(tr.layout.entries)
     assert all(g.dtype == torch.bfloat16 for g in grads)

@@ -19,7 +19,7 @@ import torch
 import chip_smoke as C
 from linna_tpu_torch import train as TR
 from linna_tpu_torch.ops import adamw as AW
-from linna_tpu_torch.ops import fused as F
+from linna_tpu_torch.ops import library as OL
 
 pytestmark = pytest.mark.card
 
@@ -54,7 +54,7 @@ def _equal(a_flat, a_state, b_flat, b_state, what):
 def test_kernel_matches_the_plain_ops_bit_for_bit(card, width, k, mu_dtype):
     flat, st, grads, lr, wd = _problem(card, width, k, mu_dtype)
     flat_p, st_p = flat.clone(), TR.AdamWState(*(t.clone() for t in st))
-    launches, plain = F.launches["adamw"], F.plain_calls["adamw"]
+    launches, plain = OL.launches["adamw"], OL.plain_calls["adamw"]
     for s, g in enumerate(grads):
         AW.adamw_(flat, g, st, lr, wd)
         AW.adamw_plain_(flat_p, g, st_p, lr, wd)
@@ -63,8 +63,8 @@ def test_kernel_matches_the_plain_ops_bit_for_bit(card, width, k, mu_dtype):
         if s == 2:  # a member's optimizer reset, as a reload does
             TR.adamw_reset_(st, 1)
             TR.adamw_reset_(st_p, 1)
-    assert F.launches["adamw"] - launches == STEPS
-    assert F.plain_calls["adamw"] - plain == STEPS  # the plain side's calls
+    assert OL.launches["adamw"] - launches == STEPS
+    assert OL.plain_calls["adamw"] - plain == STEPS  # the plain side's calls
     # the concatenated gradient, a data group's, is the table of one segment
     cat = torch.cat([v.reshape(k, -1) for v in grads[0]], dim=1).to(torch.float32)
     AW.adamw_(flat, cat, st, lr, wd)
@@ -77,14 +77,14 @@ def test_a_captured_step_equals_its_eager_twin(card, mu_dtype):
     """One step captured as a CUDA graph (the trainer's ``StepGraph``) and
     replayed, against the same steps run eagerly from the same state; each
     replay counts one launch."""
-    from linna_tpu_torch.samplers.graphs import StepGraph
+    from linna_tpu_torch.ops.graphs import StepGraph
 
     flat, st, grads, lr, wd = _problem(card, "des", 2, mu_dtype, seed=3)
     flat_e, st_e = flat.clone(), TR.AdamWState(*(t.clone() for t in st))
     g = grads[0]
     graph = StepGraph(lambda: AW.adamw_(flat, g, st, lr, wd), [flat, *st])
     _equal(flat, st, flat_e, st_e, "after the capture")  # the warm-up was put back
-    launches = F.launches["adamw"]
+    launches = OL.launches["adamw"]
     for s in range(STEPS):
         graph.replay()
         AW.adamw_(flat_e, g, st_e, lr, wd)
@@ -92,7 +92,7 @@ def test_a_captured_step_equals_its_eager_twin(card, mu_dtype):
             lr.mul_(0.5)  # the graph reads lr in place, as _set_hypers writes it
         torch.cuda.synchronize()
         _equal(flat, st, flat_e, st_e, f"replay {s}")
-    assert F.launches["adamw"] - launches == 2 * STEPS
+    assert OL.launches["adamw"] - launches == 2 * STEPS
 
 
 def test_the_kernel_refuses_a_gradient_on_the_host(card):

@@ -16,6 +16,7 @@ from linna_tpu_torch import nn as N
 from linna_tpu_torch import priors as P
 from linna_tpu_torch import transforms as T
 from linna_tpu_torch.ops import fused as F
+from linna_tpu_torch.ops import library as OL
 
 pytestmark = pytest.mark.card
 
@@ -84,7 +85,7 @@ def test_kernel_matches_its_plain_version(card, width, case):
     ndim, ndata = WIDTHS[width]
     kernel, plain = _problem(card, ndim, ndata, **CASES[case])
     gen = torch.Generator().manual_seed(1)
-    F.reset_counts()
+    OL.reset_counts()
     with torch.no_grad():
         for rows in ROWS:
             x = torch.randn((rows, ndim), generator=gen).to(card)
@@ -95,7 +96,7 @@ def test_kernel_matches_its_plain_version(card, width, case):
             _close(got, plain(x))
             if case == "log10 lanes":
                 assert torch.isneginf(got[: (rows + 1) // 2]).all()
-    assert F.launches["fused_log_prob"] == len(ROWS)
+    assert OL.launches["fused_log_prob"] == len(ROWS)
 
 
 @pytest.mark.parametrize("width", sorted(WIDTHS))
@@ -136,12 +137,12 @@ def test_launch_shape_names_the_design_and_tells_the_row_counts_apart(card, widt
 def test_each_launch_counts_its_design(card, width):
     ndim, ndata = WIDTHS[width]
     kernel, _ = _problem(card, ndim, ndata)
-    F.reset_counts()
+    OL.reset_counts()
     with torch.no_grad():
         for rows in (1, 128, 256):
             kernel(torch.zeros((rows, ndim), device=card))
-    assert F.launches["fused_log_prob"] == F.designs[DESIGNS[width]] == 3
-    assert sum(F.designs.values()) == 3
+    assert OL.launches["fused_log_prob"] == OL.designs[DESIGNS[width]] == 3
+    assert sum(OL.designs.values()) == 3
 
 
 @pytest.mark.parametrize("width", sorted(WIDTHS))

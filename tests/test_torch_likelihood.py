@@ -11,6 +11,7 @@ from linna_tpu import nn as JN
 from linna_tpu_torch import likelihood as TLK
 from linna_tpu_torch import nn as TN
 from linna_tpu_torch.ops import fused as TF
+from linna_tpu_torch.ops import library as OL
 
 from _torch_parity import CPU, problem, t, walkers
 
@@ -115,14 +116,14 @@ def test_use_fused_on_cpu_runs_the_plain_version():
     p = problem(log10=[0])
     x = walkers(9, 5, seed=7)
     x[2, 0] = -4.0  # a log10 lane at a non-positive physical value
-    TF.reset_counts()
+    OL.reset_counts()
     lp_f = TLK.make_log_prob(p.tspec, p.params_t, p.ts_t, p.pack_t, p.data, p.inv_cov,
                              temperature=16.0, use_fused=True, device=CPU)
     got = lp_f(t(x))
     env = lp_f._env
     plain = TF.fused_log_prob_plain(p.tspec, t(x), env, False)
     np.testing.assert_array_equal(got.numpy(), plain.numpy())
-    assert TF.plain_calls["fused_log_prob"] == 2 and TF.launches["fused_log_prob"] == 0
+    assert OL.plain_calls["fused_log_prob"] == 2 and OL.launches["fused_log_prob"] == 0
     lp_c = TLK.make_log_prob(p.tspec, p.params_t, p.ts_t, p.pack_t, p.data, p.inv_cov,
                              temperature=16.0, device=CPU)
     comp = lp_c(t(x)).numpy()
@@ -136,15 +137,15 @@ def test_counters_record_the_shapes_each_version_ran_at():
     p = problem()
     lp_f = TLK.make_log_prob(p.tspec, p.params_t, p.ts_t, p.pack_t, p.data, p.inv_cov,
                              use_fused=True, device=CPU)
-    TF.reset_counts()
+    OL.reset_counts()
     for rows in (1, 9, 9, 4):
         lp_f(t(walkers(rows, 5)))
     TF.fused_apply(p.tspec, p.params_t, t(walkers(3, 5)))
-    assert TF.plain_shapes == {"fused_log_prob": {(1, 5, 8), (9, 5, 8), (4, 5, 8)},
+    assert OL.plain_shapes == {"fused_log_prob": {(1, 5, 8), (9, 5, 8), (4, 5, 8)},
                                "fused_apply": {(3, 5, 8)}}
-    assert TF.launch_shapes == {"fused_log_prob": set(), "fused_apply": set()}
-    TF.reset_counts()
-    assert not any(TF.plain_shapes.values()) and not any(TF.plain_calls.values())
+    assert OL.launch_shapes == {"fused_log_prob": set(), "fused_apply": set()}
+    OL.reset_counts()
+    assert not any(OL.plain_shapes.values()) and not any(OL.plain_calls.values())
 
 
 def test_gaussian_loglike_matches_jax():

@@ -20,6 +20,7 @@ from linna_tpu.ops import fused_log_prob as j_fused_log_prob
 from linna_tpu_torch import likelihood as TLK
 from linna_tpu_torch import nn as TN
 from linna_tpu_torch.ops import fused as TF
+from linna_tpu_torch.ops import library as OL
 
 from _torch_parity import CPU, problem, t, walkers
 
@@ -131,11 +132,11 @@ def test_fused_rejects_linear_bypass_spec():
     # make_log_prob does not route such a spec to the fused path
     lp = TLK.make_log_prob(spec_lin, params_lin, p.ts_t, p.pack_t, p.data, p.inv_cov,
                            use_fused=True, device=CPU)
-    TF.reset_counts()
+    OL.reset_counts()
     want = TLK.make_log_prob(spec_lin, params_lin, p.ts_t, p.pack_t, p.data, p.inv_cov,
                              device=CPU)(torch.zeros((2, 3)))
     np.testing.assert_allclose(lp(torch.zeros((2, 3))).numpy(), want.numpy(), rtol=1e-6)
-    assert TF.plain_calls["fused_log_prob"] == 0
+    assert OL.plain_calls["fused_log_prob"] == 0
 
 
 def test_fused_log_prob_exposes_env_decomposition():

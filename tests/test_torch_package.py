@@ -2,6 +2,7 @@
 package, its entry points default to the card and raise without one, and a
 kernel that cannot be built raises instead of falling back."""
 
+import ast
 import os
 import pathlib
 import re
@@ -17,8 +18,10 @@ from linna_tpu_torch import likelihood as TLK
 from linna_tpu_torch import nn as TN
 from linna_tpu_torch import orchestrator as TO
 from linna_tpu_torch import priors as TP
+from linna_tpu_torch import ops as TOPS
 from linna_tpu_torch import transforms as TT
 from linna_tpu_torch.ops import fused as TF
+from linna_tpu_torch.ops import library as TL
 from linna_tpu_torch.samplers import backends as TB
 from linna_tpu_torch.samplers import run as TR
 
@@ -150,12 +153,88 @@ def test_entry_points_without_a_device_raise_off_the_card(tmp_path):
             call()
 
 
-def test_kernel_build_failure_raises(monkeypatch):
+@pytest.mark.parametrize("name", [lib.name for lib in TOPS.LIBRARIES])
+def test_kernel_build_failure_raises(monkeypatch, name):
+    lib = next(lib for lib in TOPS.LIBRARIES if lib.name == name)
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setenv("PATH", "/nonexistent")
-    monkeypatch.setattr(TF._Library, "lib", None)
+    monkeypatch.setattr(lib, "lib", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        TF.build()
+        lib.get()
+
+
+def _code(path: pathlib.Path) -> ast.Module:
+    return ast.parse(path.read_text(), str(path))
+
+
+def _seam_breaches(tree: ast.Module) -> list:
+    """What only ``ops/library.py`` may do: run ``nvcc``, load a library,
+    make a lock or declare a C function's types."""
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef)) and n.body
+            and isinstance(n.body[0], ast.Expr) and isinstance(n.body[0].value, ast.Constant)}
+    out = []
+    for n in ast.walk(tree):
+        if isinstance(n, ast.Call):
+            f = n.func
+            name = f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", "")
+            if name in ("Lock", "RLock", "CDLL", "_nvcc", "compile_library"):
+                out.append(f"calls {name}")
+        elif isinstance(n, ast.Attribute) and isinstance(n.ctx, ast.Store) \
+                and n.attr in ("argtypes", "restype"):
+            out.append(f"assigns {n.attr}")
+        elif isinstance(n, ast.Constant) and isinstance(n.value, str) and id(n) not in docs \
+                and "nvcc" in n.value:
+            out.append(f"names nvcc: {n.value!r}")
+    return out
+
+
+def _imports(tree: ast.Module) -> list:
+    """(module, name) of every import, relative modules with their dots."""
+    out = []
+    for n in ast.walk(tree):
+        if isinstance(n, ast.ImportFrom):
+            out += [("." * n.level + (n.module or ""), a.name) for a in n.names]
+        elif isinstance(n, ast.Import):
+            out += [(a.name, None) for a in n.names]
+    return out
+
+
+@pytest.mark.parametrize("rule", ["seam", "precompile", "train_graphs"])
+def test_card_plumbing_goes_through_the_library_seam(rule):
+    """The kernel libraries are built, loaded, locked and typed in
+    ``ops/library.py`` alone; the warm-up asks the seam and reaches into no
+    kernel module; the trainer's graphs sit below the samplers."""
+    if rule == "seam":
+        seam = PKG / "ops" / "library.py"
+        assert _seam_breaches(_code(seam))  # the scan sees what it looks for
+        for path in sorted(PKG.rglob("*.py")):
+            if path != seam:
+                assert not _seam_breaches(_code(path)), path
+    elif rule == "precompile":
+        tree = _code(PKG / "parallel" / "precompile.py")
+        ops = [(m, n) for m, n in _imports(tree) if m.lstrip(".").startswith("ops")]
+        assert ops and not any((n or "").startswith("_") for _, n in ops)
+        assert not {"adamw", "graph_loops"} & {n for _, n in ops}
+        bound = {n for _, n in ops}
+        reached = [n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)
+                   and isinstance(n.value, ast.Name) and n.value.id in bound
+                   and n.attr.startswith("_")]
+        assert reached == []
+    else:
+        imports = _imports(_code(PKG / "train_graphs.py"))
+        assert imports and not any("samplers" in m or n == "samplers" for m, n in imports)
+
+
+def test_fused_binds_the_seams_counters():
+    """The benchmark reads the counters from ``ops.fused``: the same objects."""
+    for name in ("launches", "plain_calls", "designs", "launch_shapes", "plain_shapes",
+                 "reset_counts"):
+        assert getattr(TF, name) is getattr(TL, name), name
+    assert list(TL.launches) == list(TL.plain_calls) == ["fused_apply", "fused_log_prob", "adamw"]
+    assert list(TL.designs) == ["tiled", "cluster"]
+    assert TL.COUNTERS == {"launches": TL.launches, "plain_calls": TL.plain_calls,
+                           "designs": TL.designs}
 
 
 def test_unported_samplers_raise(tmp_path):

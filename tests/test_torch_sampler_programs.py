@@ -25,6 +25,7 @@ from linna_tpu.samplers import slicemove as JS
 from linna_tpu_torch import likelihood as TLK
 from linna_tpu_torch import linear_model as TLM
 from linna_tpu_torch import nn as TN
+from linna_tpu_torch.ops import graphs as OG
 from linna_tpu_torch.samplers import backends as TB
 from linna_tpu_torch.samplers import graphs as TG
 from linna_tpu_torch.samplers import run as TR
@@ -226,7 +227,7 @@ def test_slice_chunk_samples_the_same_chain_at_every_lag(monkeypatch, lag):
 def test_launch_ledger_takes_back_the_capture_and_adds_every_replay():
     launches = {"fused_apply": 1, "fused_log_prob": 5}
     plain = {"fused_apply": 0, "fused_log_prob": 2}
-    ledger = TG.LaunchLedger(launches, plain)
+    ledger = OG.LaunchLedger(launches, plain)
     with ledger.capturing():
         launches["fused_log_prob"] += 31  # the Python calls made while capturing
         plain["fused_apply"] += 2
@@ -242,7 +243,7 @@ def test_launch_ledger_takes_back_the_capture_and_adds_every_replay():
 
 def test_launch_ledger_restores_the_counters_when_a_capture_fails():
     counters = {"fused_log_prob": 2}
-    ledger = TG.LaunchLedger(counters)
+    ledger = OG.LaunchLedger(counters)
     with pytest.raises(RuntimeError, match="capture failed"):
         with ledger.capturing():
             counters["fused_log_prob"] += 7
@@ -260,11 +261,11 @@ def test_collector_paused_restores_the_collector(enabled):
     was = gc.isenabled()
     (gc.enable if enabled else gc.disable)()
     try:
-        with TG.collector_paused():
+        with OG.collector_paused():
             assert not gc.isenabled()
         assert gc.isenabled() is enabled
         with pytest.raises(RuntimeError, match="capture failed"):
-            with TG.collector_paused():
+            with OG.collector_paused():
                 raise RuntimeError("capture failed")
         assert gc.isenabled() is enabled
     finally:

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from linna_tpu_torch.ops import graph_loops as GL
+from linna_tpu_torch.ops import graphs as OG
 from linna_tpu_torch.samplers import graphs as TG
 from linna_tpu_torch.samplers import slicemove as TS
 
@@ -36,11 +37,11 @@ class _Graph:
     counting on a ledger that one capture filled."""
 
     def __init__(self, counters, per_replay):
-        self.ledger = TG.LaunchLedger(*counters)
+        self.ledger = OG.LaunchLedger(*counters)
         self.ledger.per_replay = per_replay
         self.replays = 0
 
-    replayed = TG.StepGraph.replayed
+    replayed = OG.StepGraph.replayed
 
 
 class _Loops:
@@ -137,7 +138,7 @@ def test_the_benchmark_reads_zero_not_nothing():
                                   "more not bool", "more not one", "max_steps 0"])
 def test_while_loops_refuse_before_building(monkeypatch, case):
     """Checked before ``nvcc`` runs (the build here would fail: no card)."""
-    monkeypatch.setattr(GL, "build", lambda: pytest.fail("built"))
+    monkeypatch.setattr(GL.LIBRARY, "get", lambda: pytest.fail("built"))
     more = _on_card(torch.zeros((), dtype=torch.bool))
     bodies, max_steps = [object()], 5
     if case == "no loops":

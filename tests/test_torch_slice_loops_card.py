@@ -25,8 +25,8 @@ import torch
 import chip_smoke as C
 from linna_tpu_torch import likelihood as LK
 from linna_tpu_torch import nn as N
-from linna_tpu_torch.ops import fused as F
 from linna_tpu_torch.ops import graph_loops as GL
+from linna_tpu_torch.ops import library as OL
 from linna_tpu_torch.samplers import graphs as G
 from linna_tpu_torch.samplers import slicemove as S
 
@@ -86,19 +86,19 @@ def _chunks(device, route, nsteps, max_steps):
     runner = G.graphed_chunks("zeus", lp, state, nsteps, a=2.0, n_leapfrog=10, max_depth=5,
                               max_steps=max_steps)
     before = runner.record()
-    F.reset_counts()
+    OL.reset_counts()
     got = runner(state, nsteps)
     torch.cuda.synchronize()
     graphed = {"out": got, "rng": g.get_state(), "record": runner.record(),
-               "launches": dict(F.launches), "designs": dict(F.designs)}
+               "launches": dict(OL.launches), "designs": dict(OL.designs)}
     graphed["record"]["before"] = before
     g.set_state(g0)
-    F.reset_counts()
+    OL.reset_counts()
     counted = _Counted(lp)
     want = S.slice_chunk(counted, state, nsteps, max_steps)
     torch.cuda.synchronize()
     eager = {"out": want, "rng": g.get_state(), "rows": counted.rows,
-             "launches": dict(F.launches), "designs": dict(F.designs)}
+             "launches": dict(OL.launches), "designs": dict(OL.designs)}
     return graphed, eager
 
 
