@@ -67,6 +67,16 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    search and 100 NUTS samples, 20 HMC samples, and 300 emcee steps at 256
    walkers: s/100 samples, launches per sample (31 per NUTS sample at depth
    5), mean acceptance, and the device busy share of a traced NUTS chunk.
+   6b: ``composition_grad`` (the K-member composition's value and input
+   gradient in one kernel) at K = 1 and 2 and 1, 128 and 256 rows against
+   the composition's float64 autograd at the card tests' tolerances, its
+   device ms and 3xTF32 bound; then NUTS at K = 2 through
+   ``run_ensemble`` with the counters zeroed before it and read after
+   (the kernel launches, no plain version runs), and a traced chunk at 31
+   launches a sample.  Every path's counts include ``composition_grad``,
+   which launches where a path asks the float32 Gaussian composition for
+   a gradient on the card (phase 7's NUTS iteration, 13a, 13c, 15b) and
+   nowhere else.
 7. ``python -m linna_tpu_torch.driver zeus None <yaml> examples`` as a
    subprocess on the card, the yaml being ``examples/des_synthetic.yaml``
    cut to depth (two iterations, zeus then nuts at T = 4 then 1,
@@ -216,6 +226,7 @@ present.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -395,7 +406,17 @@ REPLACES = {
 # fused_log_prob's tiled design, and its cluster design for narrow models
 # (ops/fused.py, log_prob_design; launch_shape names the one a width runs)
 KERNEL_NAMES = {"fused_apply": "fused_apply_kernel", "fused_log_prob": "fused_log_prob_kernel",
-                "fused_log_prob_cluster": "fused_log_prob_cluster_kernel"}
+                "fused_log_prob_cluster": "fused_log_prob_cluster_kernel",
+                "composition_grad": "composition_grad_kernel"}
+# the kernels a likelihood path can reach: the two of the fused route
+# (use_fused), and the composition's value and gradient on the card
+PATH_KERNELS = ("fused_apply", "fused_log_prob", "composition_grad")
+# 6b: composition_grad at the DES width against the composition's float64
+# autograd, at NUTS's 256 walkers, the MAP search's one row and 128; the
+# NUTS samples of its main-path run through run_ensemble
+COMPOSITION_ROWS = (1, 128, 256)
+COMPOSITION_MEMBERS = (1, 2)
+COMPOSITION_NUTS_STEPS = 20
 
 
 def log(*a) -> None:
@@ -456,6 +477,14 @@ def compare(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
     if not ok:
         raise AssertionError(f"{what}: kernel and plain version disagree")
     return {"abs": abs_err, "rel": rel_err}
+
+
+def plain_composition(log_prob):
+    """``make_log_prob``'s composition as written, for a reference: its
+    ``_pure`` over a copy of its env, which composition_grad's route never
+    takes (it takes the log-prob's own env alone)."""
+    env = dict(log_prob._env)
+    return lambda x: log_prob._pure(x, env)
 
 
 def _warm(fn) -> None:
@@ -537,6 +566,23 @@ def device_ms(fn, kernel=None, per_call=1, reps=REPS, attempts=3) -> tuple:
             f"(reading {attempt} of {attempts})")
     raise AssertionError(f"device_ms: the profiler saw {n} device events of {kernel}, "
                          f"not the {want} launched")
+
+
+def kernel_ms(fn, kernel: str, reps=REPS) -> tuple:
+    """:func:`device_ms` of ``kernel``, launched once a call; where
+    torch.profiler records fewer of its launches than were made in every
+    reading (25-27 of 30 for composition_grad_kernel and adamw_kernel on
+    an H100 with torch 2.11), the mean device time of the events it did
+    record, the count in the method.  A reading with none still raises."""
+    try:
+        return device_ms(fn, kernel, reps=reps)
+    except AssertionError:
+        seen = [v for k, v in _profiled_events(fn, reps).items() if kernel in k]
+        n, us = sum(c for c, _ in seen), sum(u for _, u in seen)
+        if not n:
+            raise
+        return us / n / 1e3, (f"torch.profiler, the mean of the {n} device events of {kernel} "
+                              f"it recorded of {reps} launched")
 
 
 def call_ms(fn, reps=REPS) -> float:
@@ -665,7 +711,7 @@ def phase_kernels(device, batches=BATCHES, timed=TIMED_ROWS, ndim=NDIM, ndata=ND
     # gradients: the kernels' autograd.Functions against plain autograd
     spec, params, ts, pack, data, inv_cov = make_problem(device, ndim, ndata)
     x = torch.randn((128, ndim), generator=gen).to(device)
-    weights = F._flatten_params(params)
+    weights = F.flatten_params(params)
     wk = [w.detach().clone().requires_grad_(True) for w in weights]
     wp = [w.detach().clone().requires_grad_(True) for w in weights]
     xk, xp = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
@@ -1308,7 +1354,8 @@ def check_gradient(device, rows=NWALKERS, ndim=NDIM, ndata=NDATA) -> dict:
         spec, params, ts, pack, data, inv_cov = make_problem(device, ndim, ndata, **kw)
         lp_k = LK.make_log_prob(spec, params, ts, pack, data, inv_cov, use_fused=True,
                                 device=device)
-        lp_p = LK.make_log_prob(spec, params, ts, pack, data, inv_cov, device=device)
+        lp_p = plain_composition(LK.make_log_prob(spec, params, ts, pack, data, inv_cov,
+                                                  device=device))
         x = torch.randn((rows, ndim), generator=gen).to(device)
         if kw:
             x[: rows // 2, 0] = -3.0  # physical 0.3 - 3 < 0 on a log10 lane
@@ -1394,7 +1441,7 @@ def phase_gradient(device, outdir, nwalkers=NWALKERS, nuts_steps=NUTS_STEPS,
     res["emcee"], _ = run("emcee", emcee_steps)
     launches = {
         "gradient": {k: res["nuts"]["launches"][k] + res["hmc"]["launches"][k]
-                     for k in F.LIKELIHOOD_KERNELS},
+                     for k in PATH_KERNELS},
         "emcee": res["emcee"]["launches"],
     }
 
@@ -1419,10 +1466,131 @@ def phase_gradient(device, outdir, nwalkers=NWALKERS, nuts_steps=NUTS_STEPS,
     log(f"  gradient: {json.dumps(res, default=float)}")
     # phase 10c's Hessian check: this likelihood, its plain composition and
     # the NUTS run's preconditioner (its MAP point and Hessian eigenbasis)
-    res["map"] = {"fused": log_prob, "precond": pre, "plain": LK.make_log_prob(
+    res["map"] = {"fused": log_prob, "precond": pre, "plain": plain_composition(LK.make_log_prob(
         model.spec, model.params, model.transforms, pack, data, inv_cov, temperature=1.0,
-        device=device)}
+        device=device))}
     return res, launches
+
+
+def composition_bound_ms(spec, members: int, rows: int) -> dict:
+    """Least time for composition_grad's work over ``rows`` rows: its
+    operations (:func:`linna_tpu_torch.ops.composition.operations`) at the
+    3xTF32 tensor-core rate it runs at (three TF32 products per f32
+    product), or its bytes at the memory rate (the weights and their
+    transposes, C^-1 twice, the rows' inputs, values and gradients, each
+    once), whichever is longer."""
+    from linna_tpu_torch.ops import composition as CG
+    from linna_tpu_torch.ops import fused as F
+
+    dims = F.kernel_dims(spec)
+    flops = CG.operations(dims, members, rows)
+    weights = members * sum(math.prod(s) for s in F.weight_shapes(dims))
+    n = spec.out_size
+    nbytes = 4.0 * (2 * weights + 2 * n * n + rows * (2 * spec.in_size + 1))
+    tf32x3 = 3.0 * flops / PEAK_TF32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return {"ms": max(tf32x3, t_bytes), "by": "operations" if tf32x3 >= t_bytes else "bytes",
+            "tf32x3_tensor_core_ms": tf32x3, "f32_cuda_core_ms": flops / PEAK_F32_FLOPS * 1e3,
+            "bytes_ms": t_bytes, "flops": flops}
+
+
+def phase_composition_grad(device, outdir, rows=COMPOSITION_ROWS, members=COMPOSITION_MEMBERS,
+                           nuts_steps=COMPOSITION_NUTS_STEPS, nwalkers=NWALKERS, ndim=NDIM,
+                           ndata=NDATA) -> dict:
+    """6b: composition_grad, the K-member composition's value and input
+    gradient in one kernel, at the DES width.  For each of ``members``:
+    ``GradRoute.value_and_grad`` at each of ``rows`` rows against the
+    composition's float64 autograd, at the card test's tolerances
+    (``tests/_torch_composition.py``; ypositive and k_std 1, a dense
+    non-symmetric C^-1); one launch a call, no plain call; the device time
+    of each row count (:func:`kernel_ms`) and its bound.  Then the main
+    path at the largest member count: ``run_ensemble`` with NUTS (the MAP
+    search, then ``nuts_steps`` samples at ``nwalkers`` walkers) with the
+    counters zeroed just before and read just after (the kernel launches, no fused kernel
+    and no plain version runs), and a traced chunk of 5 samples in the
+    saved space at 31 launches a sample.  On the CPU (a rehearsal at a
+    small size) the plain version stands in for the kernel's calls, NUTS
+    keeps the composition, and nothing is timed."""
+    from linna_tpu_torch.ops import library as OL
+    from linna_tpu_torch.samplers import hmc
+    from linna_tpu_torch.samplers import run as R
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _torch_composition as TC
+
+    card = device.type == "cuda"
+    res: dict = {"rows": list(rows), "members": {}}
+    for k in members:
+        lp, spec = TC.problem(device, ndim, ndata, k, ypositive=True, symmetric=False)
+        x_in = TC.standardized(lp, TC.walkers(max(rows), ndim, device, seed=5))
+        want_lp, want_g = TC.likelihood(spec, lp, x_in)
+        smooth = TC.smooth_rows(spec, lp, x_in)
+        rec: dict = {"smooth_rows": int(smooth.sum()), "by_rows": {}}
+        for n in rows:
+            OL.reset_counts()
+            got_lp, got_g = lp._route.value_and_grad(x_in[:n])
+            counts = _launch_counts()
+            value_gap = float(((got_lp.double() - want_lp[:n]).abs()
+                               / (TC.VALUE_ATOL + TC.VALUE_RTOL * want_lp[:n].abs())).max())
+            gaps = TC.row_gaps(got_g, want_g[:n])
+            held = gaps[smooth[:n]]
+            r = {"value_gap_over_tolerance": value_gap,
+                 "median_row_gradient_gap": float(gaps.median()),
+                 "max_smooth_row_gradient_gap": float(held.max()) if held.numel() else None,
+                 "counts": counts}
+            if card:
+                r["ms"], r["timing"] = kernel_ms(lambda: lp._route.value_and_grad(x_in[:n]),
+                                                 KERNEL_NAMES["composition_grad"])
+                r["bound"] = composition_bound_ms(spec, k, n)
+                r["bound_ms"] = r["bound"]["ms"]
+            rec["by_rows"][n] = r
+            log(f"  6b K={k} rows={n}: {json.dumps(r, default=float)}")
+            if not (value_gap <= 1.0 and r["median_row_gradient_gap"] < TC.MEDIAN_GRAD_RTOL
+                    and (not held.numel() or r["max_smooth_row_gradient_gap"] < TC.GRAD_RTOL)):
+                raise AssertionError(f"6b K={k} rows={n}: composition_grad is not the "
+                                     f"composition: {r}")
+            ran, idle = ("launches", "plain_calls") if card else ("plain_calls", "launches")
+            if counts[ran]["composition_grad"] != 1 or any(counts[idle].values()):
+                raise AssertionError(f"6b K={k} rows={n}: not one {ran[:-1]} of "
+                                     f"composition_grad: {counts}")
+        res["members"][k] = rec
+
+    k = max(members)
+    lp, _ = TC.problem(device, ndim, ndata, k, temperature=1.0)
+    x0 = TC.walkers(nwalkers, ndim, device, seed=8, scale=0.05).cpu().numpy()
+    d = os.path.join(outdir, "composition_nuts")
+    trace: dict = {}
+    OL.reset_counts()
+    backend = R.run_ensemble(lp, x0, d, method="nuts", check_every=nuts_steps,
+                             max_iterations=nuts_steps, convergence_check=False, seed=0,
+                             device=device, trace_rec=trace)
+    counts = _launch_counts()
+    chain = backend.get_chain()
+    if chain.shape != (nuts_steps, nwalkers, ndim) or not np.isfinite(chain).all():
+        raise AssertionError(f"6b: NUTS through composition_grad: chain {chain.shape} is "
+                             "not finite")
+    _no_kernel(counts, f"6b: NUTS at K={k} through the composition", gradient_on_card=card)
+    pre = R._load_precond(os.path.join(d, R.PRECOND_FILENAME))
+    wrapped = pre.wrap_log_prob(lp)
+    y = torch.as_tensor(pre.to_sampling(chain[-1]), dtype=torch.float32, device=device)
+    state = hmc.init_nuts_state(torch.Generator(device=device).manual_seed(1), y, wrapped,
+                                m_adapt=0)
+    OL.reset_counts()
+    chunk = lambda: hmc.nuts_chunk(wrapped, state, 5)
+    if card:
+        res["nuts_traced_chunk"] = traced_call(chunk, device)
+    else:
+        chunk()
+    per_sample = OL.launches["composition_grad"] / 5
+    res["nuts"] = {"members": k, "steps": nuts_steps, "counts": counts,
+                   **_sampler_rate(trace, nuts_steps), "launches_per_traced_sample": per_sample}
+    log(f"  6b: NUTS {json.dumps(res['nuts'], default=float)}")
+    if card:
+        log(f"  6b: traced chunk {json.dumps(res['nuts_traced_chunk'], default=float)}")
+    if card and (per_sample != 2**5 - 1 or OL.plain_calls["composition_grad"]):
+        raise AssertionError(f"6b: {per_sample} composition_grad launches per NUTS sample "
+                             f"(not 31), {OL.plain_calls['composition_grad']} plain calls")
+    return res
 
 
 # ------------------------------------------------------------------ driver
@@ -1517,6 +1685,15 @@ def phase_driver(device, outdir, epochs=DRIVER_EPOCHS, timeout=DRIVER_TIMEOUT,
                             "trace.json") if not os.path.isfile(os.path.join(run_dir, f))]
     if missing:
         raise AssertionError(f"the driver left artifacts out: {missing}")
+    # each iteration's kernels: none of the fused route's, no plain version,
+    # and composition_grad (K=2 float32 sampling) where NUTS ran on the card
+    with open(os.path.join(run_dir, "trace.json")) as f:
+        mcmc = [r for r in json.load(f) if r["phase"] == "mcmc"]
+    for r in mcmc:
+        counts = {kind: {k: r["kernels"][kind][k] for k in PATH_KERNELS}
+                  for kind in ("launches", "plain_calls")}
+        _no_kernel(counts, f"7 (des_synthetic.yaml's iteration {r['iteration']}, {r['method']})",
+                   gradient_on_card=device.type == "cuda" and r["method"] == "nuts")
     rep = des_report.report(run_dir, exact)
     dtypes = {r.get("compute_dtype") for r in rep["iterations"]}
     if dtypes != {"torch.bfloat16"}:
@@ -1525,6 +1702,9 @@ def phase_driver(device, outdir, epochs=DRIVER_EPOCHS, timeout=DRIVER_TIMEOUT,
     if not np.isfinite(bias["bias_sigma"]).all():
         raise AssertionError("the posterior mean is not finite")
     res = {"seconds": seconds, "cuts": cuts, "report": rep,
+           "composition_grad_by_iteration": [[r["iteration"], r["method"],
+                                              r["kernels"]["launches"]["composition_grad"]]
+                                             for r in mcmc],
            "store": O._open_backend(des_report.final_chain_path(run_dir, n_iter, "nuts"),
                                     "nuts").path}
     log(f"  posterior-mean offsets from the exact posterior (sigma, reported, not gated at "
@@ -1538,12 +1718,10 @@ def phase_driver(device, outdir, epochs=DRIVER_EPOCHS, timeout=DRIVER_TIMEOUT,
 
 
 def _likelihood_counts(counter: dict) -> dict:
-    """A kernel counter of ``ops.fused`` cut to the two likelihood kernels:
-    the trainer's AdamW kernel counts beside them on every path that
-    trains."""
-    from linna_tpu_torch.ops import fused as F
-
-    return {k: counter[k] for k in F.LIKELIHOOD_KERNELS}
+    """A kernel counter of ``ops.library`` cut to the kernels a likelihood
+    path can reach (``PATH_KERNELS``): the trainer's AdamW kernel counts
+    beside them on every path that trains."""
+    return {k: counter[k] for k in PATH_KERNELS}
 
 
 def _adamw_counts() -> dict:
@@ -1559,11 +1737,19 @@ def _launch_counts():
             "plain_calls": _likelihood_counts(F.plain_calls)}
 
 
-def _no_kernel(counts: dict, what: str) -> None:
-    """The path must reach neither kernel nor its plain version: the
-    routing rule sends it to the composition, as in the JAX package."""
-    if any(counts["launches"].values()) or any(counts["plain_calls"].values()):
-        raise AssertionError(f"{what} reached a kernel: {counts}")
+def _no_kernel(counts: dict, what: str, gradient_on_card: bool = False) -> None:
+    """The path must reach neither fused kernel nor any plain version: the
+    routing rule sends it to the composition, as in the JAX package.  The
+    composition's own kernel, composition_grad, launches where the path
+    asks the float32 Gaussian composition for a gradient on the card
+    (``gradient_on_card``), and nowhere else."""
+    from linna_tpu_torch.ops import fused as F
+
+    launched = counts["launches"]
+    if (any(launched[k] for k in F.LIKELIHOOD_KERNELS) or any(counts["plain_calls"].values())
+            or bool(launched["composition_grad"]) != gradient_on_card):
+        raise AssertionError(f"{what} reached a kernel (composition_grad expected to launch: "
+                             f"{gradient_on_card}): {counts}")
 
 
 def _sampler_rate(trace: dict, steps: int) -> dict:
@@ -2670,7 +2856,8 @@ def phase_helpers(device, gradient_inputs, rows=NWALKERS, ndim=NDIM, ndata=NDATA
 
     spec, params, ts, pack, data, inv_cov = make_problem(device, ndim, ndata, log10=(0, 3))
     lp_k = LK.make_log_prob(spec, params, ts, pack, data, inv_cov, use_fused=True, device=device)
-    lp_p = LK.make_log_prob(spec, params, ts, pack, data, inv_cov, device=device)
+    lp_p = plain_composition(LK.make_log_prob(spec, params, ts, pack, data, inv_cov,
+                                              device=device))
     x = torch.randn((rows, ndim), generator=torch.Generator().manual_seed(13)).to(device)
     x[: rows // 2, 0] = -3.0  # physical 0.3 - 3 < 0 on a log10 lane: -inf
     F.reset_counts()
@@ -3465,7 +3652,7 @@ def phase_adamw(device, widths=WIDTHS_ADAMW, k=ADAMW_MEMBERS, steps=ADAMW_STEPS)
                    "bit_for_bit": True, "bytes": adamw_bytes(flat, st, grads[0])}
             if card:
                 call = lambda: AW.adamw_(flat, grads[0], st, lr, wd)
-                rec["kernel_ms"], rec["timing"] = device_ms(call, kernel="adamw_kernel")
+                rec["kernel_ms"], rec["timing"] = kernel_ms(call, "adamw_kernel")
                 rec["call_ms"], _ = device_ms(call)
                 rec["plain_ms"], rec["plain_timing"] = device_ms(
                     lambda: AW.adamw_plain_(flat_p, grads[0], st_p, lr, wd))
@@ -3543,6 +3730,8 @@ def phase_scripts(device, outdir, lsst=SCRIPT_LSST, epochs=DRIVER_EPOCHS, lsst_o
         raise AssertionError(f"13a: missing {missing}, not finite {bad}, jacobian "
                              f"{w['jac'].shape}")
     log(f"  13a: {json.dumps(res['13a'])}")
+    # its gradient at whitened 0: composition_grad on the card
+    _no_kernel(res["13a"]["counts"], "13a (the walkthrough)", gradient_on_card=card)
 
     log("  13b: bench_full_torch.py on the LSST class, cut to depth")
     theory_mod, config_yaml = lsst
@@ -3595,6 +3784,7 @@ def phase_scripts(device, outdir, lsst=SCRIPT_LSST, epochs=DRIVER_EPOCHS, lsst_o
     res["13c"] = {"seconds": time.perf_counter() - t0, "steps": demo_steps, "demo": demo,
                   "counts": _launch_counts()}
     log(f"  13c: {json.dumps(res['13c'], default=float)}")
+    _no_kernel(res["13c"]["counts"], "13c (the NUTS demo)", gradient_on_card=card)
     if not all(np.isfinite(demo[k]) for k in ("tau_nuts_max", "tau_slice_max",
                                                "ess_per_s_nuts", "ess_per_s_slice",
                                                "agree_sigma")):
@@ -3830,7 +4020,8 @@ def phase_acceptance(device, outdir, budgets=None, pins=True, notebook=NOTEBOOK,
     absent = [m for m in NOTEBOOK_MARKERS if m not in text]
     if missing or absent:
         raise AssertionError(f"15b: missing artifacts {missing}, marker lines {absent}")
-    _no_kernel(res["notebook"]["counts"], "15b (the notebook)")
+    # its gradient at whitened 0: composition_grad on the card
+    _no_kernel(res["notebook"]["counts"], "15b (the notebook)", gradient_on_card=card)
 
     log(f"  15c: bench_scaling_torch.py cut to depth: {json.dumps(scaling)} (epochs "
         f"{S.EPOCHS}, rank counts {list(S.RANKS)} uncut)")
@@ -3951,6 +4142,16 @@ def main() -> int:
         raise AssertionError("fused_log_prob did not launch on the gradient or emcee path")
     seconds[6] = time.perf_counter() - t0
     log(f"  phase 6: {seconds[6]:.1f} s")
+
+    log("== 6b. composition_grad: the K-member composition's value and gradient in one kernel")
+    t0 = time.perf_counter()
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    try:
+        composition = phase_composition_grad(device, RUN_DIR)
+    finally:
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
+    seconds["6b"] = time.perf_counter() - t0
+    log(f"  phase 6b: {seconds['6b']:.1f} s")
 
     log("== 7. the driver on des_synthetic.yaml, depth cut")
     t0 = time.perf_counter()
@@ -4126,6 +4327,22 @@ def main() -> int:
             "check": "pass",
         })
     print(json.dumps({"kernels": kernels}), flush=True)
+    k = "composition_grad"
+    print(json.dumps({k: {
+        "source": SOURCE,
+        "replaces": "none: the JAX package's composition and its vmapped gradient are XLA's",
+        "by_members": composition["members"], "nuts": composition["nuts"],
+        "nuts_traced_chunk": composition.get("nuts_traced_chunk"),
+        "launches_by_path": {
+            "fused_gradient": path_launches["gradient"][k], "emcee": path_launches["emcee"][k],
+            "premodel": premodel["counts"]["launches"][k]
+            + premodel["gradient"]["counts"]["launches"][k],
+            "bf16": bf16["counts"]["launches"][k],
+            "walkthrough": scripts["13a"]["counts"]["launches"][k],
+            "lsst_pipeline": scripts["13b"]["counts"]["launches"][k],
+            "nuts_demo": scripts["13c"]["counts"]["launches"][k],
+            "acceptance": {n: r["counts"]["launches"][k] for n, r in acceptance.items()}},
+        **resources.get(k, {})}}, default=float), flush=True)
     print(json.dumps({"adamw": {"source": "linna_tpu_torch/ops/csrc/adamw.cu",
                                 "launches": train_programs["adamw"]["launches"],
                                 "by_case": adamw_rec}}, default=float), flush=True)

@@ -75,6 +75,16 @@ def make_log_prob(
     the CPU it runs the kernel's plain version.  Every other configuration
     uses the composition below.
 
+    The plain Gaussian configuration in float32 (K members or one, no
+    custom or external likelihood, no linearmodel, no ``out_cut``, no
+    ``compute_dtype``, no linear bypass) takes its value and its gradient
+    from one CUDA kernel (:mod:`linna_tpu_torch.ops.composition`) when a
+    call asks autograd for a gradient on a card: the input on CUDA and
+    requiring a gradient in grad mode, no env tensor requiring one, no
+    ``torch.func`` transform tracing the call, the log-prob's own env.
+    Every other call (value-only calls, the Hessian's ``torch.func``
+    trace) runs the composition as written here.
+
     ``out_cut``: compare only the first ``out_cut`` components of a wider
     checkpoint's prediction with ``data``.
 
@@ -150,13 +160,31 @@ def make_log_prob(
         "k_std": torch.tensor(ensemble_k_std, dtype=torch.float32, device=device),
     }
 
-    def _pure(x: torch.Tensor, env) -> torch.Tensor:
+    # The Gaussian composition's value and input gradient from one kernel
+    # (ops/composition.py), for the calls that ask autograd for a gradient
+    # on a card; every other call, and every other configuration, runs the
+    # composition below.
+    route = None
+    if (
+        loglike_fn is None
+        and external_loglike is None
+        and linearmodel is None
+        and out_cut is None
+        and cdtype is None
+        and not spec.linear_bypass
+    ):
+        from .ops import composition as CG, fused as F
+
+        members = len(params["layer1"]["w"]) if is_ensemble else 1
+        if CG.supports(F.kernel_dims(spec), members):
+            route = CG.GradRoute(spec, env, members, transforms.y_transform.ypositive,
+                                 lambda x_in: _chi2(_prediction(x_in, env) - env["data"],
+                                                    env["inv_cov"]))
+
+    def _prediction(x_in: torch.Tensor, env) -> torch.Tensor:
+        """The data-space prediction at ``x_in``: (K, ..., out) for an
+        ensemble."""
         tset = env["transforms"]
-        x = torch.as_tensor(x, dtype=torch.float32, device=env["data"].device)
-        x_phys = P.transform(env["priors"], x)
-        x_in = tset.x_transform(x_phys)
-        if cdtype is not None:
-            x_in = x_in.to(cdtype)
         if is_ensemble:
             # every member in one pass over the stacked (K, in, out) weights;
             # the pre-model depends on x_in alone: one evaluation added under
@@ -166,17 +194,27 @@ def make_log_prob(
             pred = pred.reshape(pred.shape[0], *lead, pred.shape[-1])  # (K, ..., out)
             if linearmodel is not None and not spec.linear_bypass:
                 pred = pred + linearmodel(x_in)
-            m = tset.y_data.inverse(tset.y_transform(pred))
-            if out_cut is not None:
-                m = m[..., :out_cut]
+        else:
+            pred = N.apply_model(spec, env["params"], x_in, linearmodel=linearmodel).float()
+        m = tset.y_data.inverse(tset.y_transform(pred))
+        return m if out_cut is None else m[..., :out_cut]
+
+    def _pure(x: torch.Tensor, env) -> torch.Tensor:
+        tset = env["transforms"]
+        x = torch.as_tensor(x, dtype=torch.float32, device=env["data"].device)
+        x_phys = P.transform(env["priors"], x)
+        x_in = tset.x_transform(x_phys)
+        if route is not None and env is route.env and route.engages(x_in):
+            lp = route(x_in) + P.lnprior(x)
+            return torch.where(torch.isnan(lp), torch.full_like(lp, -torch.inf), lp)
+        if cdtype is not None:
+            x_in = x_in.to(cdtype)
+        m = _prediction(x_in, env)
+        if is_ensemble:
             chi2 = _chi2(m - env["data"], env["inv_cov"])  # (K, ...)
             eff = chi2.mean(dim=0) + env["k_std"] * chi2.std(dim=0, correction=0)
             lp = -0.5 * eff / env["temperature"] + P.lnprior(x)
         else:
-            pred = N.apply_model(spec, env["params"], x_in, linearmodel=linearmodel).float()
-            m = tset.y_data.inverse(tset.y_transform(pred))
-            if out_cut is not None:
-                m = m[..., :out_cut]
             lp = like(m, env["data"], env["inv_cov"]) / env["temperature"]
             lp = lp + P.lnprior(x)
         if external_loglike is not None:
@@ -188,6 +226,9 @@ def make_log_prob(
 
     log_prob._pure = _pure
     log_prob._env = env
+    # the kernel's side (ops/composition.py), or None where the
+    # configuration keeps the composition for every call
+    log_prob._route = route
     return log_prob
 
 

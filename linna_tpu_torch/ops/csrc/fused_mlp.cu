@@ -161,15 +161,21 @@ constexpr int kMinSplitChunks = 2;
 // One output segment of a product: out[r, c] = relu?((in[r, :] @ W[:, c] +
 // bias[c]) * alpha (+ out[r, c] when accum)) for c < n; when delta, that
 // value y then becomes (y * y_std[c] + y_mean[c], exp'd when ypositive) *
-// sigma[c] - data[c].
+// sigma[c] - data[c]; when mask (composition_grad_kernel's backward), it
+// becomes 0 where mask[r, c] (row stride ld) is not above 0: a ReLU's
+// backward, read from the forward's output.  The member strides (floats
+// from one member's W, bias, out and mask to the next) are read by
+// composition_grad_kernel alone.
 struct ApplySeg {
   const float* W;     // [K, n], row-major
   const float* bias;  // [n] or nullptr
   float* out;
+  const float* mask;  // nullptr, or [nrows, n] with out's strides
   int ld;             // row stride of out
   int n;
   int col_tiles;      // ceil(n / kBN); 0 for an absent segment
   float alpha;
+  int w_ms, b_ms, out_ms;
   bool relu, accum;
   bool vec;           // W's rows are 16-byte aligned: 16-byte copies
   bool delta;         // fused_log_prob's layer 8
@@ -179,13 +185,16 @@ struct ApplySeg {
 // and skip; other products leave seg[1] empty).  Its k-chunks are split
 // into `split` ranges, each a work item of its own whose partial tiles are
 // summed after a grid barrier, or, when `local`, all summed in order by the
-// block of the tile (run_product).
+// block of the tile (run_product).  composition_grad_kernel runs a product
+// for `members` stacked members at once, member m reading in + m * in_ms
+// (0: the members share the input) and its segments' strides.
 struct ApplyProduct {
   const float* in;  // [nrows, K], row stride ld
   int ld, K;
+  int split;
+  int members, in_ms;
   bool vec;         // in's rows are 16-byte aligned
   bool local;
-  int split;
   ApplySeg seg[2];
 };
 
@@ -354,21 +363,27 @@ __device__ __forceinline__ void mma_chunk(const float* sa, const float* sw, int 
   }
 }
 
+// Which kernel a product runs in: fused_apply's trunk, fused_log_prob's
+// (layer 8 gives delta) or composition_grad's (delta, the members' strides
+// and the ReLU masks of the backward).
+enum class Epi { kApply, kLike, kGrad };
+
 // The output value of segment s at column c from its sum v over k; skip:
-// the output lin2 adds to (0 for other segments); kLike: fused_log_prob's
-// kernel, whose layer 8 gives delta.  Rounded op by op (no contraction left
-// to the compiler), so that the two places that apply it to a product give
-// the same bits.
-template <bool kLike>
+// the output lin2 adds to (0 for other segments); mask: the forward's
+// output a masked segment reads at this element (1 for the others).
+// Rounded op by op (no contraction left to the compiler), so that the two
+// places that apply it to a product give the same bits.
+template <Epi kEpi>
 __device__ __forceinline__ float epilogue(const ApplySeg& s, const LikeArgs* like, float v,
-                                          float bias, float skip, int c) {
+                                          float bias, float skip, int c, float mask = 1.f) {
   float y = __fmaf_rn(__fadd_rn(v, bias), s.alpha, skip);
   if (s.relu) y = fmaxf(y, 0.f);
-  if (kLike && s.delta) {
+  if (kEpi != Epi::kApply && s.delta) {
     float m = __fmaf_rn(y, __ldg(like->y_std + c), __ldg(like->y_mean + c));
     if (like->ypositive) m = expf(m);
     y = __fmaf_rn(m, __ldg(like->sigma + c), -__ldg(like->data + c));
   }
+  if (kEpi == Epi::kGrad && !(mask > 0.f)) y = 0.f;
   return y;
 }
 
@@ -392,11 +407,16 @@ __device__ __forceinline__ int frag_at(int wm, int wn, int g, int q, int i, int 
 // ([kBM][kBN]).  kLocal gives the bits of a split product's partial tiles
 // summed in run_product: a part's sum starts from zero, and the parts add
 // to a total from zero in the order 0, 1, ..., rounded op by op.
-template <Sum kHow, int kStages, bool kLike>
-__device__ __forceinline__ void apply_tile(const ApplyProduct& P, const ApplySeg& s, int nrows,
-                                           int row0, int col0, int c0, int c1, int split,
-                                           float* part, float* smem, const LikeArgs* like) {
-  const TileSrc t{P.in, s.W, P.ld, P.K, s.n, nrows, row0, col0, P.vec, s.vec};
+// Member m of a composition_grad product reads and writes through the
+// member strides; the other kernels have one member.
+template <Sum kHow, int kStages, Epi kEpi>
+__device__ __forceinline__ void apply_tile(const ApplyProduct& P, const ApplySeg& s, int m,
+                                           int nrows, int row0, int col0, int c0, int c1,
+                                           int split, float* part, float* smem,
+                                           const LikeArgs* like) {
+  const size_t mm = kEpi == Epi::kGrad ? (size_t)m : 0;
+  const TileSrc t{P.in + mm * P.in_ms, s.W + mm * s.w_ms, P.ld, P.K, s.n, nrows, row0, col0,
+                  P.vec, s.vec};
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / kWarpsN, wn = warp % kWarpsN, g = lane / 4, q = lane % 4;
   float acc[kMT][kNT][4];
@@ -481,9 +501,11 @@ __device__ __forceinline__ void apply_tile(const ApplyProduct& P, const ApplySeg
     return;
   }
 
-  // the epilogue: every load (bias, the skip output lin2 adds to) before any
-  // store, since a store could alias a later load and would hold it back
-  float* const out = s.out;
+  // the epilogue: every load (bias, the skip output lin2 adds to, the
+  // mask) before any store, since a store could alias a later load and
+  // would hold it back
+  float* const out = s.out + mm * s.out_ms;
+  const float* const bias_m = s.bias != nullptr ? s.bias + mm * s.b_ms : nullptr;
   const int ld = s.ld, n = s.n;
   float bias[kNT][2];
 #pragma unroll
@@ -491,7 +513,7 @@ __device__ __forceinline__ void apply_tile(const ApplyProduct& P, const ApplySeg
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int c = col0 + wn * kNT * 8 + j * 8 + 2 * q + e;
-      bias[j][e] = s.bias != nullptr && c < n ? __ldg(s.bias + c) : 0.f;
+      bias[j][e] = bias_m != nullptr && c < n ? __ldg(bias_m + c) : 0.f;
     }
   }
   float skip[kMT][kNT][4] = {};
@@ -509,6 +531,30 @@ __device__ __forceinline__ void apply_tile(const ApplyProduct& P, const ApplySeg
       }
     }
   }
+  float mask[kMT][kNT][4];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mask[i][j][e] = 1.f;
+    }
+  }
+  if (kEpi == Epi::kGrad && s.mask != nullptr) {
+    const float* const mk = s.mask + mm * s.out_ms;
+#pragma unroll
+    for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = row0 + wm * kMT * 16 + i * 16 + g + (e / 2) * 8;
+          const int c = col0 + wn * kNT * 8 + j * 8 + 2 * q + e % 2;
+          if (r < nrows && c < n) mask[i][j][e] = __ldcg(mk + (size_t)r * ld + c);
+        }
+      }
+    }
+  }
 #pragma unroll
   for (int i = 0; i < kMT; ++i) {
 #pragma unroll
@@ -516,8 +562,8 @@ __device__ __forceinline__ void apply_tile(const ApplyProduct& P, const ApplySeg
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = col0 + wn * kNT * 8 + j * 8 + 2 * q + e % 2;
-        acc[i][j][e] = epilogue<kLike>(s, like, acc[i][j][e], bias[j][e % 2], skip[i][j][e],
-                                       min(c, n - 1));
+        acc[i][j][e] = epilogue<kEpi>(s, like, acc[i][j][e], bias[j][e % 2], skip[i][j][e],
+                                      min(c, n - 1), mask[i][j][e]);
       }
     }
   }
@@ -545,53 +591,63 @@ __device__ __forceinline__ const ApplySeg& tile_of(const ApplyProduct& P, int ro
 }
 
 // One product on nrows rows: its work items (its tiles, or tiles x k
-// ranges when it is split) go round the grid's blocks; `rank` is this
-// block's first.  A split product then waits at one more grid barrier,
-// after which all threads of the grid sum its partial tiles (`part`,
+// ranges when it is split; composition_grad's for each member, the member
+// before the tile) go round the grid's blocks; `rank` is this block's
+// first.  A split product then waits at one more grid barrier, after which
+// all threads of the grid sum its partial tiles (`part`,
 // [tile][range][kBM][kBN]) in the order 0, 1, ... and apply the epilogue.
 // A local product's tiles each sum their ranges in one block, in the same
-// order, through the block's slab of `part`.  `reduce` false leaves a split product's partial tiles to the
-// caller.  kLike: fused_log_prob's kernel (local products, delta).
-template <int kStages, bool kLike>
+// order, through the block's slab of `part`.  `reduce` false leaves a
+// split product's partial tiles to the caller.  kEpi: the kernel (local
+// products in fused_log_prob's and composition_grad's).
+template <int kStages, Epi kEpi>
 __device__ __forceinline__ void run_product(const ApplyProduct& P, int row_tiles, int nrows,
                                             float* part, int rank, float* smem,
                                             const LikeArgs* like, cg::grid_group& grid,
                                             bool reduce = true) {
-  const int tiles = row_tiles * (P.seg[0].col_tiles + P.seg[1].col_tiles);
+  // a member's tiles, and all members'
+  const int per = row_tiles * (P.seg[0].col_tiles + P.seg[1].col_tiles);
+  const int tiles = kEpi == Epi::kGrad ? per * P.members : per;
   const int split = P.split, nk = (P.K + kBK - 1) / kBK;
-  if (kLike && P.local) {
+  if (kEpi != Epi::kApply && P.local) {
     for (int tile = rank; tile < tiles; tile += gridDim.x) {
+      const int m = kEpi == Epi::kGrad ? tile / per : 0;
       int row0, col0;
-      const ApplySeg& s = tile_of(P, row_tiles, tile, row0, col0);
-      apply_tile<Sum::kLocal, kStages, kLike>(P, s, nrows, row0, col0, 0, nk, split,
-                                       part + (size_t)blockIdx.x * kTile, smem, like);
+      const ApplySeg& s = tile_of(P, row_tiles, tile - m * per, row0, col0);
+      apply_tile<Sum::kLocal, kStages, kEpi>(P, s, m, nrows, row0, col0, 0, nk, split,
+                                             part + (size_t)blockIdx.x * kTile, smem, like);
     }
     return;
   }
   for (int item = rank; item < tiles * split; item += gridDim.x) {
     const int tile = item / split, range = item % split;
+    const int m = kEpi == Epi::kGrad ? tile / per : 0;
     int row0, col0;
-    const ApplySeg& s = tile_of(P, row_tiles, tile, row0, col0);
-    apply_tile<Sum::kWhole, kStages, kLike>(P, s, nrows, row0, col0, range * nk / split,
-                                     (range + 1) * nk / split, split,
-                                     split > 1 ? part + (size_t)item * kTile : nullptr, smem, like);
+    const ApplySeg& s = tile_of(P, row_tiles, tile - m * per, row0, col0);
+    apply_tile<Sum::kWhole, kStages, kEpi>(P, s, m, nrows, row0, col0, range * nk / split,
+                                           (range + 1) * nk / split, split,
+                                           split > 1 ? part + (size_t)item * kTile : nullptr,
+                                           smem, like);
   }
   if (split == 1 || !reduce) return;
   grid.sync();
   for (int e = rank * kApplyThreads + threadIdx.x; e < tiles * kTile;
        e += gridDim.x * kApplyThreads) {
     const int tile = e / kTile, at = e % kTile;
+    const size_t m = kEpi == Epi::kGrad ? tile / per : 0;
     int row0, col0;
-    const ApplySeg& s = tile_of(P, row_tiles, tile, row0, col0);
+    const ApplySeg& s = tile_of(P, row_tiles, tile - (int)m * per, row0, col0);
     const int r = row0 + at / kBN, c = col0 + at % kBN;
     if (r >= nrows || c >= s.n) continue;
     const float* sums = part + (size_t)tile * split * kTile + at;
     float v = 0.f;
 #pragma unroll 4
     for (int q = 0; q < split; ++q) v = __fadd_rn(v, __ldcg(sums + (size_t)q * kTile));
-    float* dst = s.out + (size_t)r * s.ld + c;
-    const float bias = s.bias != nullptr ? __ldg(s.bias + c) : 0.f;
-    *dst = epilogue<kLike>(s, like, v, bias, s.accum ? __ldcg(dst) : 0.f, c);
+    const size_t at_out = m * s.out_ms + (size_t)r * s.ld + c;
+    float* dst = s.out + at_out;
+    const float bias = s.bias != nullptr ? __ldg(s.bias + m * s.b_ms + c) : 0.f;
+    const float mask = kEpi == Epi::kGrad && s.mask != nullptr ? __ldcg(s.mask + at_out) : 1.f;
+    *dst = epilogue<kEpi>(s, like, v, bias, s.accum ? __ldcg(dst) : 0.f, c, mask);
   }
 }
 
@@ -609,7 +665,7 @@ fused_apply_kernel(const __grid_constant__ ApplyPlan plan) {
   const int rank = (int)((long long)blockIdx.x * plan.deal % gridDim.x);
 #pragma unroll 1
   for (int p = 0; p < kApplyProducts; ++p) {
-    run_product<kApplyStages, false>(plan.prod[p], plan.row_tiles, plan.nrows, plan.part, rank,
+    run_product<kApplyStages, Epi::kApply>(plan.prod[p], plan.row_tiles, plan.nrows, plan.part, rank,
                                      smem, nullptr, grid);
     if (p + 1 < kApplyProducts) grid.sync();
   }
@@ -652,7 +708,7 @@ fused_log_prob_kernel(const __grid_constant__ LikePlan plan) {
   grid.sync();
 #pragma unroll 1
   for (int p = 0; p < kLikeProducts; ++p) {
-    run_product<kLikeStages, true>(plan.prod[p], plan.row_tiles, plan.nrows, plan.part, rank,
+    run_product<kLikeStages, Epi::kLike>(plan.prod[p], plan.row_tiles, plan.nrows, plan.part, rank,
                                    smem, &plan.a, grid, p + 1 < kLikeProducts);
     grid.sync();
   }
@@ -674,7 +730,7 @@ fused_log_prob_kernel(const __grid_constant__ LikePlan plan) {
         float v = 0.f;
 #pragma unroll 4
         for (int q = 0; q < parts; ++q) v = __fadd_rn(v, __ldcg(at + (size_t)q * kTile));
-        y = epilogue<true>(C.seg[0], &plan.a, v, 0.f, 0.f, c);
+        y = epilogue<Epi::kLike>(C.seg[0], &plan.a, v, 0.f, 0.f, c);
       } else {
         y = __ldcg(plan.cd + (size_t)r * plan.ld + c);
       }
@@ -707,6 +763,167 @@ fused_log_prob_kernel(const __grid_constant__ LikePlan plan) {
       plan.lp[r] = (isnan(v) || bad) ? -INFINITY : v;
     }
     __syncthreads();
+  }
+}
+
+// ------------------------------------------------------ composition_grad
+//
+// composition_grad_kernel: the value and the input gradient of the Gaussian
+// K-member composition (likelihood.py make_log_prob; ops/composition.py),
+// for the gradient samplers.  It replaces no TPU kernel: the JAX package
+// leaves the composition and its vmapped gradient to XLA, and PyTorch's
+// autograd runs it as about 30 f32 cuBLAS products with 32 x 32 tiles and
+// about 60 elementwise launches a call at NUTS's 256 rows.
+//
+// What bounds it: per row and member 2.52 MFLOP of the trunk forward, 0.84
+// MFLOP of the [C | C^T] product and 2.52 MFLOP of the backward's products
+// at the DES width (27 -> 457, 1,258,500 weights), 3.0 GFLOP at 256 rows
+// and K = 2: 0.018 ms at the 3xTF32 tensor-core rate, 0.045 ms at the f32
+// CUDA cores'.  Each launch reads 2 x 10.1 MB of weights and their
+// transposed copies from L2.  At the sampler's rows it is bound, as
+// fused_log_prob_kernel is, by its chain of products: 21 of them, each a
+// few rounds of L2 latency and one or two grid barriers.
+//
+// The design is fused_log_prob_kernel's: one cooperative launch of 64 x 64
+// 3xTF32 tiles (apply_tile, run_product), each product's k split planned on
+// the host from the widths and K alone (ops/composition.py, plan), so a
+// row's value and gradient do not depend on the rows launched beside it.
+// A product runs for every member at once: its work items are the members'
+// tiles (x its k ranges), member m reading its weights, input and output
+// through the member strides; layer 1 reads the one standardized input all
+// members share.  The forward's 11 products (layer 1; lin1 | skip and lin2
+// of each residual block; layers 6, 7 and 8, whose epilogue gives delta;
+// delta @ [C | C^T]) keep every activation in the scratch.  One pass, a
+// block a row, then takes each member's chi^2 = delta . delta C, the
+// tempered log-likelihood -0.5 (mean_k chi2_k + k_std std_k chi2_k) / T
+// (-0.5 chi2 / T for one member) and w_k = d lp / d chi2_k, and writes the
+// gradient at layer 8's output, w_k (delta C + delta C^T) dm/dy.  The
+// backward's 10 products walk the layers in reverse over the transposed
+// weights (copies made once by the host): each epilogue masks by the ReLU
+// of the forward output it lands on (ApplySeg::mask); a residual block is
+// [skip^T | lin2^T] (lin2^T scaled by 0.1 and masked by lin1's output),
+// then lin1^T added to the skip's part; layer 1's transposed weights are
+// stacked over the members, so the last product sums the members' input
+// gradients in its k loop.
+
+// The scratch buffers, in the plan's order: the forward's outputs (layer
+// 1, each residual block's lin1 and output, layers 6 and 7, delta, delta C,
+// delta C^T), then the backward's (the gradient at layer 8's output, at
+// layers 7 and 6, at each residual block's output and lin1).  Row r of
+// member m of a buffer starts at r * members * ms + m * ms, ms the
+// buffer's width rounded up to 4, or the width itself for layer 1's two
+// (kS1, kGS1), so that a row of the layer-1 gradient is one row of
+// members x h for the last product.
+enum GradBuf {
+  kS1, kH1, kS2, kH2, kS3, kH3, kS4, kS6, kS7, kDelta, kR1, kR2,
+  kGY, kG7, kG6, kG4, kGS3, kGH3, kGS2, kGH2, kGS1, kGH1, kGradBuffers
+};
+constexpr int kGradForward = 11;   // the forward's products
+constexpr int kGradProducts = 21;  // and the backward's 10
+constexpr int kMaxMembers = 32;
+
+// One launch of composition_grad_kernel (make_grad_plan, from the host's plan).
+struct GradPlan {
+  ApplyProduct prod[kGradProducts];
+  LikeArgs a;            // the y transform, sigma, data, temperature, ypositive
+  const float* k_std;    // f32[1]
+  const float* delta;    // kDelta, kR1, kR2: the chi^2's operands
+  const float* r1;
+  const float* r2;
+  float* gy;             // kGY
+  float* lp;             // [nrows]
+  float* part;
+  int nrows, row_tiles, deal, members, N;
+  int ld, ms;            // row and member stride of the N-wide buffers
+};
+// a kernel's parameters must fit in 4 KB on every CUDA 12 toolkit
+static_assert(sizeof(GradPlan) <= 4096, "composition_grad's plan passes the kernel-parameter limit");
+
+// The pass between the forward and the backward, one block a row: each
+// member's chi^2 (its own order: a thread's columns, the warps' sums, the
+// warps in order), the log-likelihood into lp and w_k into shared memory,
+// then the gradient at layer 8's output.  A member's std weight is 0 where
+// the members' chi^2 are all equal (std 0): a subgradient, where torch's
+// std backward gives NaN.
+__device__ __forceinline__ void grad_combine(const GradPlan& P) {
+  __shared__ float sums[kApplyThreads / 32];
+  __shared__ float w[kMaxMembers];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, K = P.members;
+  for (int r = blockIdx.x; r < P.nrows; r += gridDim.x) {
+    const size_t row = (size_t)r * P.ld;
+    for (int m = 0; m < K; ++m) {
+      const float* d = P.delta + row + (size_t)m * P.ms;
+      const float* q = P.r1 + row + (size_t)m * P.ms;
+      float chi2 = 0.f;
+      for (int c = threadIdx.x; c < P.N; c += kApplyThreads) {
+        chi2 = fmaf(__ldcg(d + c), __ldcg(q + c), chi2);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) chi2 += __shfl_xor_sync(0xffffffffu, chi2, off);
+      if (lane == 0) sums[warp] = chi2;
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        chi2 = 0.f;
+        for (int i = 0; i < kApplyThreads / 32; ++i) chi2 = __fadd_rn(chi2, sums[i]);
+        w[m] = chi2;
+      }
+      __syncthreads();
+    }
+    if (threadIdx.x == 0) {
+      const float t = __ldg(P.a.temperature), scale = __fdiv_rn(-0.5f, t);
+      if (K == 1) {
+        P.lp[r] = __fdiv_rn(__fmul_rn(-0.5f, w[0]), t);
+        w[0] = scale;
+      } else {
+        float mean = 0.f, var = 0.f;
+        for (int m = 0; m < K; ++m) mean = __fadd_rn(mean, w[m]);
+        mean = __fdiv_rn(mean, (float)K);
+        for (int m = 0; m < K; ++m) {
+          const float e = __fsub_rn(w[m], mean);
+          var = __fmaf_rn(e, e, var);
+        }
+        const float sd = __fsqrt_rn(__fdiv_rn(var, (float)K)), ks = __ldg(P.k_std);
+        P.lp[r] = __fdiv_rn(__fmul_rn(-0.5f, __fadd_rn(mean, __fmul_rn(ks, sd))), t);
+        // d std / d chi2_m = (chi2_m - mean) / (K std)
+        const float per_sd = ks != 0.f && sd > 0.f ? __fdiv_rn(ks, __fmul_rn((float)K, sd)) : 0.f;
+        const float per_mean = __fdiv_rn(1.f, (float)K);
+        for (int m = 0; m < K; ++m) {
+          w[m] = __fmul_rn(scale, __fmaf_rn(per_sd, __fsub_rn(w[m], mean), per_mean));
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < K * P.N; i += kApplyThreads) {
+      const int m = i / P.N, c = i % P.N;
+      const size_t at = row + (size_t)m * P.ms + c;
+      const float g = __fmul_rn(w[m], __fadd_rn(__ldcg(P.r1 + at), __ldcg(P.r2 + at)));
+      // dm/dy: y_std sigma, or y_std m = y_std (delta + data) when ypositive
+      const float dm = P.a.ypositive ? __fadd_rn(__ldcg(P.delta + at), __ldg(P.a.data + c))
+                                     : __ldg(P.a.sigma + c);
+      P.gy[at] = __fmul_rn(__fmul_rn(g, __ldg(P.a.y_std + c)), dm);
+    }
+    __syncthreads();  // w and sums are the next row's
+  }
+}
+
+// The forward's products, the combining pass, the backward's products, a
+// grid barrier between any two.
+__global__ void __launch_bounds__(kApplyThreads, kLikeBlocksPerSM)
+composition_grad_kernel(const __grid_constant__ GradPlan plan) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  cg::grid_group grid = cg::this_grid();
+  const int rank = (int)((long long)blockIdx.x * plan.deal % gridDim.x);
+#pragma unroll 1
+  for (int p = 0; p < kGradProducts; ++p) {
+    run_product<kLikeStages, Epi::kGrad>(plan.prod[p], plan.row_tiles, plan.nrows, plan.part,
+                                         rank, smem, &plan.a, grid);
+    if (p + 1 == kGradProducts) break;
+    grid.sync();
+    if (p + 1 == kGradForward) {
+      grad_combine(plan);
+      grid.sync();
+    }
   }
 }
 
@@ -1196,13 +1413,33 @@ bool rows_aligned16(const void* p, int ld) {
 
 ApplySeg apply_seg(const float* W, const float* bias, float* out, int ld, int n, float alpha,
                    bool relu, bool accum, bool delta = false) {
-  return ApplySeg{W, bias, out, ld, n, (n + kBN - 1) / kBN, alpha, relu, accum,
-                  rows_aligned16(W, n), delta};
+  ApplySeg s{};
+  s.W = W;
+  s.bias = bias;
+  s.out = out;
+  s.ld = ld;
+  s.n = n;
+  s.col_tiles = (n + kBN - 1) / kBN;
+  s.alpha = alpha;
+  s.relu = relu;
+  s.accum = accum;
+  s.vec = rows_aligned16(W, n);
+  s.delta = delta;
+  return s;
 }
 
 ApplyProduct apply_product(const float* in, int ld, int K, ApplySeg s0,
                            ApplySeg s1 = ApplySeg{}) {
-  return ApplyProduct{in, ld, K, rows_aligned16(in, ld), false, 1, {s0, s1}};
+  ApplyProduct P{};
+  P.in = in;
+  P.ld = ld;
+  P.K = K;
+  P.split = 1;
+  P.members = 1;
+  P.vec = rows_aligned16(in, ld);
+  P.seg[0] = s0;
+  P.seg[1] = s1;
+  return P;
 }
 
 // The trunk's products on nrows rows of `in` (ld `ld_in`), through the
@@ -1390,6 +1627,146 @@ bool make_like_plan(LikePlan& L, const float* x, int nrows, const TrunkWeights& 
     P.split = (int)split;
     P.local = split > 1 && q[4] != 0;
     if (split > 1) part_end = std::max(part_end, off_part + (P.local ? grid : tiles * split) * kTile);
+  }
+  return part_end <= scratch_floats;
+}
+
+// The host's plan of one composition_grad launch (ops/composition.py,
+// plan): kGradHead values (row tiles, blocks, deal, members, each buffer's
+// offset in the scratch, the partial tiles' offset), then kGradProduct for
+// each product (K, the two segments' column tiles, members, split, local).
+constexpr int kGradHead = 5 + kGradBuffers;
+constexpr int kGradProduct = 6;
+constexpr int kGradPlanLength = kGradHead + kGradProduct * kGradProducts;
+// the transposed weights: layers 8, 7, 6; rb3, rb2, rb1 (skip, lin2,
+// lin1 each); layer 1 stacked over the members; C^T
+constexpr int kGradTransposed = 14;
+
+// Each buffer's width (GradBuf order).
+void grad_widths(const TrunkDims& d, int* w) {
+  const int v[kGradBuffers] = {d.h,   d.c1,  d.h2,  d.c2,  d.h4,  d.c3, d.h8, d.l6,
+                               d.out, d.out, d.out, d.out, d.out, d.out, d.l6, d.h8,
+                               d.h4,  d.c3,  d.h2,  d.c2,  d.h,   d.c1};
+  for (int b = 0; b < kGradBuffers; ++b) w[b] = v[b];
+}
+
+// The 21 products of composition_grad over the scratch as the plan lays it
+// out (the kernel's comment); checks the plan against the widths, the
+// members and the scratch, false where they differ.  weights: the forward's
+// 23, stacked over the members (member strides: a weight's size, a bias's
+// width); t: the kGradTransposed copies.
+bool make_grad_plan(GradPlan& G, const float* x, int nrows, int members, const TrunkWeights& w,
+                    const float* const* t, const TrunkDims& d, const LikeArgs& a,
+                    const float* k_std, const long long* plan, float* scratch,
+                    long long scratch_floats, float* lp, float* grad) {
+  G = GradPlan{};
+  const long long row_tiles = plan[0], grid = plan[1], deal = plan[2], off_part = plan[4 + kGradBuffers];
+  if (plan[3] != members || members < 1 || members > kMaxMembers ||
+      row_tiles != (nrows + kBM - 1) / kBM || grid < 1 || deal < 0 || off_part % 4) {
+    return false;
+  }
+  int width[kGradBuffers], ms[kGradBuffers], ld[kGradBuffers];
+  float* buf[kGradBuffers];
+  grad_widths(d, width);
+  long long end = 0;
+  for (int b = 0; b < kGradBuffers; ++b) {
+    ms[b] = b == kS1 || b == kGS1 ? width[b] : round4(width[b]);
+    ld[b] = members * ms[b];
+    const long long off = plan[4 + b];
+    if (off < end || off % 4) return false;
+    end = off + (long long)nrows * ld[b];
+    buf[b] = scratch + off;
+  }
+  if (end > off_part) return false;
+
+  auto seg = [&](const float* W, int w_ms, const float* bias, int b_ms, int out, int n, float alpha,
+                 bool relu, bool accum, int mask, bool delta = false) {
+    ApplySeg s = apply_seg(W, bias, buf[out], ld[out], n, alpha, relu, accum, delta);
+    s.w_ms = w_ms;
+    s.b_ms = b_ms;
+    s.out_ms = ms[out];
+    s.mask = mask >= 0 ? buf[mask] : nullptr;
+    s.vec = s.vec && w_ms % 4 == 0;
+    return s;
+  };
+  auto product = [&](const float* in, int ld_in, int in_ms, int K, ApplySeg s0,
+                     ApplySeg s1 = ApplySeg{}) {
+    ApplyProduct P = apply_product(in, ld_in, K, s0, s1);
+    P.members = members;
+    P.in_ms = in_ms;
+    P.vec = P.vec && in_ms % 4 == 0;
+    return P;
+  };
+  auto from = [&](int b, int K, ApplySeg s0, ApplySeg s1 = ApplySeg{}) {
+    return product(buf[b], ld[b], ms[b], K, s0, s1);
+  };
+  const float* const* q = w.w;
+  const int fin[3] = {d.h, d.h2, d.h4}, ch[3] = {d.c1, d.c2, d.c3}, fout[3] = {d.h2, d.h4, d.h8};
+  const int sb[4] = {kS1, kS2, kS3, kS4}, hb[3] = {kH1, kH2, kH3};
+  const int gs[4] = {kGS1, kGS2, kGS3, kG4}, gh[3] = {kGH1, kGH2, kGH3};
+  int p = 0;
+  // the forward: every member reads the one input x
+  G.prod[p++] = product(x, d.in, 0, d.in, seg(q[0], d.in * d.h, q[1], d.h, kS1, d.h, 1.f, true, false, -1));
+  for (int i = 0; i < 3; ++i) {
+    const float* const* r = q + 2 + 5 * i;  // lin1 w, lin1 b, lin2 w, lin2 b, skip w
+    G.prod[p++] = from(sb[i], fin[i],
+                       seg(r[0], fin[i] * ch[i], r[1], ch[i], hb[i], ch[i], 1.f, true, false, -1),
+                       seg(r[4], fin[i] * fout[i], nullptr, 0, sb[i + 1], fout[i], 1.f, false, false, -1));
+    G.prod[p++] = from(hb[i], ch[i],
+                       seg(r[2], ch[i] * fout[i], r[3], fout[i], sb[i + 1], fout[i], 0.1f, true, true, -1));
+  }
+  G.prod[p++] = from(kS4, d.h8, seg(q[17], d.h8 * d.l6, q[18], d.l6, kS6, d.l6, 1.f, true, false, -1));
+  G.prod[p++] = from(kS6, d.l6, seg(q[19], d.l6 * d.out, q[20], d.out, kS7, d.out, 1.f, true, false, -1));
+  G.prod[p++] = from(kS7, d.out,
+                     seg(q[21], d.out * d.out, q[22], d.out, kDelta, d.out, 1.f, false, false, -1, true));
+  G.prod[p++] = from(kDelta, d.out, seg(a.inv_cov, 0, nullptr, 0, kR1, d.out, 1.f, false, false, -1),
+                     seg(t[13], 0, nullptr, 0, kR2, d.out, 1.f, false, false, -1));
+  // the backward, each product masked by the ReLU of the layer it lands on
+  G.prod[p++] = from(kGY, d.out, seg(t[0], d.out * d.out, nullptr, 0, kG7, d.out, 1.f, false, false, kS7));
+  G.prod[p++] = from(kG7, d.out, seg(t[1], d.out * d.l6, nullptr, 0, kG6, d.l6, 1.f, false, false, kS6));
+  G.prod[p++] = from(kG6, d.l6, seg(t[2], d.l6 * d.h8, nullptr, 0, kG4, d.h8, 1.f, false, false, kS4));
+  for (int j = 0; j < 3; ++j) {
+    const int i = 2 - j;
+    const float* const* r = t + 3 + 3 * j;  // skip^T, lin2^T, lin1^T
+    G.prod[p++] = from(gs[i + 1], fout[i],
+                       seg(r[0], fout[i] * fin[i], nullptr, 0, gs[i], fin[i], 1.f, false, false, -1),
+                       seg(r[1], fout[i] * ch[i], nullptr, 0, gh[i], ch[i], 0.1f, false, false, hb[i]));
+    G.prod[p++] = from(gh[i], ch[i],
+                       seg(r[2], ch[i] * fin[i], nullptr, 0, gs[i], fin[i], 1.f, false, true, sb[i]));
+  }
+  // layer 1: the members' gradients side by side, summed in the k loop
+  G.prod[p] = apply_product(buf[kGS1], ld[kGS1], members * d.h,
+                            apply_seg(t[12], nullptr, grad, d.in, d.in, 1.f, false, false));
+
+  G.a = a;
+  G.k_std = k_std;
+  G.delta = buf[kDelta];
+  G.r1 = buf[kR1];
+  G.r2 = buf[kR2];
+  G.gy = buf[kGY];
+  G.lp = lp;
+  G.part = scratch + off_part;
+  G.nrows = nrows;
+  G.row_tiles = (int)row_tiles;
+  G.deal = (int)deal;
+  G.members = members;
+  G.N = d.out;
+  G.ld = ld[kDelta];
+  G.ms = ms[kDelta];
+  long long part_end = off_part;
+  for (int i = 0; i < kGradProducts; ++i) {
+    const long long* e = plan + kGradHead + kGradProduct * i;
+    ApplyProduct& P = G.prod[i];
+    const long long nk = (P.K + kBK - 1) / kBK;
+    const long long items = row_tiles * (P.seg[0].col_tiles + P.seg[1].col_tiles) * P.members;
+    const long long split = e[4];
+    if (e[0] != P.K || e[1] != P.seg[0].col_tiles || e[2] != P.seg[1].col_tiles ||
+        e[3] != P.members || split < 1 || (split > 1 && split > nk / kMinSplitChunks)) {
+      return false;
+    }
+    P.split = (int)split;
+    P.local = split > 1 && e[5] != 0;
+    if (split > 1) part_end = std::max(part_end, off_part + (P.local ? grid : items * split) * kTile);
   }
   return part_end <= scratch_floats;
 }
@@ -1623,13 +2000,59 @@ int linna_apply_launch_shape(int nrows, const int* dims, int* shape, long long* 
   return err;
 }
 
+// composition_grad: the tempered log-likelihood lp (nrows) of the Gaussian
+// composition of `members` stacked members at the standardized inputs x
+// (nrows x dims[0], shared by the members) and its gradient with respect
+// to x, grad (nrows x dims[0]).  weights: the forward's 23 device pointers
+// in ops/fused.py's flatten_params order, each stacked over the members; transposed:
+// kGradTransposed pointers (make_grad_plan); like: as linna_fused_log_prob's
+// (the y transform, sigma, data, inv_cov and temperature are read); k_std:
+// f32[1].  plan: kGradPlanLength values (ops/composition.py, plan);
+// scratch: scratch_floats floats, 16-byte aligned.  Returns a cudaError_t,
+// or kBadPlan when the plan does not match; the launch does not
+// synchronise.
+int linna_composition_grad(const float* x, int nrows, int members, const void* const* weights,
+                           const void* const* transposed, const int* dims,
+                           const void* const* like, int ypositive, const float* k_std,
+                           const long long* plan, float* scratch, long long scratch_floats,
+                           float* lp, float* grad, void* stream) {
+  if (nrows <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(scratch) % 16 != 0) return cudaErrorMisalignedAddress;
+  const float* t[kGradTransposed];
+  for (int i = 0; i < kGradTransposed; ++i) t[i] = static_cast<const float*>(transposed[i]);
+  GradPlan G;
+  if (!make_grad_plan(G, x, nrows, members, make_weights(weights), t, make_dims(dims),
+                      make_like(like, ypositive), k_std, plan, scratch, scratch_floats, lp, grad)) {
+    return kBadPlan;
+  }
+  cudaError_t err = prepare(composition_grad_kernel, kLikeSmem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cooperative(&attr, &cfg, (int)plan[1], kLikeSmem, static_cast<cudaStream_t>(stream));
+  err = cudaLaunchKernelEx(&cfg, composition_grad_kernel, G);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// What the current device holds of composition_grad_kernel at once: its
+// SMs and the blocks an SM holds; smem: dynamic shared memory per block.
+// Returns a cudaError_t.
+int linna_composition_grad_capacity(int* sms, int* per_sm, long long* smem) {
+  *smem = (long long)kLikeSmem;
+  return capacity(composition_grad_kernel, kLikeSmem, sms, per_sm);
+}
+
+// The length of linna_composition_grad's plan.
+int linna_composition_grad_plan_length() { return kGradPlanLength; }
+
 // The length of linna_fused_log_prob's plan.
 int linna_log_prob_plan_length() { return kPlanLength; }
 
 const char* linna_error_string(int err) {
   if (err == kBadPlan) {
     return "the launch plan does not match the model's widths or the scratch "
-           "(ops/fused.py log_prob_plan)";
+           "(ops/fused.py log_prob_plan, ops/composition.py plan)";
   }
   if (err == kNoCluster) {
     return "no cluster of 8 blocks of this shape fits on the card "

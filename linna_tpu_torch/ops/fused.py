@@ -74,7 +74,7 @@ def build() -> str:
 # ------------------------------------------------------- weights and shapes
 
 
-def _flatten_params(params) -> List[torch.Tensor]:
+def flatten_params(params) -> List[torch.Tensor]:
     """Flat weight list in the JAX package's ``_flatten_params`` order."""
     out = [params["layer1"]["w"], params["layer1"]["b"]]
     for rb in ("rb1", "rb2", "rb3"):
@@ -85,7 +85,7 @@ def _flatten_params(params) -> List[torch.Tensor]:
     return out
 
 
-def _dims(spec: N.ModelSpec) -> List[int]:
+def kernel_dims(spec: N.ModelSpec) -> List[int]:
     """The kernel's layer widths: in, h, h/2, h/4, h/8, c, 2c, 4c, layer6, out."""
     h, h2, h4, h8 = spec.widths
     c = spec.channel
@@ -101,19 +101,29 @@ def _reject_bypass(spec: N.ModelSpec, what: str, instead: str) -> None:
         )
 
 
-def _check_weights(spec: N.ModelSpec, weights: Sequence[torch.Tensor], device) -> List[int]:
-    dims = _dims(spec)
+def weight_shapes(dims: Sequence[int], members: int = 1) -> List[tuple]:
+    """The 23 weights' shapes in ``flatten_params`` order; stacked over
+    ``members`` > 1 as ``make_log_prob`` stacks them ((K, in, out) and
+    biases (K, 1, out))."""
     i, h, h2, h4, h8, c1, c2, c3, l6, out = dims
     shapes = [(i, h), (h,)]
     for fin, ch, fout in ((h, c1, h2), (h2, c2, h4), (h4, c3, h8)):
         shapes += [(fin, ch), (ch,), (ch, fout), (fout,), (fin, fout)]
     shapes += [(h8, l6), (l6,), (l6, out), (out,), (out, out), (out,)]
-    for k, (w, s) in enumerate(zip(weights, shapes)):
+    if members > 1:
+        shapes = [(members, *s) if len(s) == 2 else (members, 1, *s) for s in shapes]
+    return shapes
+
+
+def check_weights(spec: N.ModelSpec, weights: Sequence[torch.Tensor], device,
+                   members: int = 1) -> List[int]:
+    dims = kernel_dims(spec)
+    for k, (w, s) in enumerate(zip(weights, weight_shapes(dims, members))):
         require(w, f"weight {k}", torch.float32, s, device)
     return dims
 
 
-def _ptrs(tensors: Sequence[torch.Tensor]):
+def pointers(tensors: Sequence[torch.Tensor]):
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
@@ -147,21 +157,26 @@ LIBRARY = KernelLibrary(SOURCE, {
     "linna_fused_log_prob_cluster": ([_vp, _ci, _ptrs_t, _ints, _ptrs_t, _ci, _vp, _vp], _ci),
     "linna_cluster_launch_shape": ([_ci, _ints, _ints, _lls], _ci),
     "linna_cluster_walkers": ([_ints], _ci),
+    # composition_grad_kernel (ops/composition.py)
+    "linna_composition_grad": ([_vp, _ci, _ci, _ptrs_t, _ptrs_t, _ints, _ptrs_t, _ci, _vp, _lls,
+                                _vp, _ll, _vp, _vp, _vp], _ci),
+    "linna_composition_grad_capacity": ([_ints, _ints, _lls], _ci),
+    "linna_composition_grad_plan_length": ([], _ci),
 }, error="linna_error_string", abi=("linna_log_prob_plan_length", PLAN_LENGTH))
 # fused_log_prob_kernel on this card: (SMs, blocks an SM holds, shared bytes a block)
 _capacity: Optional[tuple] = None
 
 
-def _cdiv(a: int, b: int) -> int:
+def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _round4(v: int) -> int:
+def round4(v: int) -> int:
     return (v + 3) & ~3
 
 
 def log_prob_products(dims: Sequence[int]) -> List[tuple]:
-    """``fused_log_prob``'s 11 products on the kernel's widths (``_dims``):
+    """``fused_log_prob``'s 11 products on the kernel's widths (``kernel_dims``):
     (K, the output widths of its segments): layer 1, the residual blocks'
     lin1 | skip and lin2, layers 6, 7 and 8, then the chi^2 product."""
     i, h, h2, h4, h8, c1, c2, c3, l6, out = dims
@@ -170,16 +185,19 @@ def log_prob_products(dims: Sequence[int]) -> List[tuple]:
             (out, (out,))]
 
 
+def k_split(k: int, widths: Sequence[int], row_tiles: int, members: int = 1) -> int:
+    """A product's k split: the parts of at least ``MIN_SPLIT_CHUNKS``
+    chunks that bring its tiles (``members`` times its segments' column
+    tiles at ``row_tiles`` row tiles) nearest ``SPLIT_ITEMS`` work items."""
+    col_tiles = sum(cdiv(n, TILE_COLS) for n in widths)
+    most = cdiv(k, TILE_K) // MIN_SPLIT_CHUNKS
+    return max(1, min(SPLIT_ITEMS // (row_tiles * col_tiles * members), most))
+
+
 def log_prob_splits(dims: Sequence[int]) -> List[int]:
-    """Each product's k split: the parts of at least ``MIN_SPLIT_CHUNKS``
-    chunks that bring its tiles at ``SPLIT_ROW_TILES`` row tiles nearest
-    ``SPLIT_ITEMS`` work items.  A function of the widths alone."""
-    out = []
-    for k, widths in log_prob_products(dims):
-        col_tiles = sum(_cdiv(n, TILE_COLS) for n in widths)
-        most = _cdiv(k, TILE_K) // MIN_SPLIT_CHUNKS
-        out.append(max(1, min(SPLIT_ITEMS // (SPLIT_ROW_TILES * col_tiles), most)))
-    return out
+    """Each product's k split (:func:`k_split` at ``SPLIT_ROW_TILES`` row
+    tiles).  A function of the widths alone."""
+    return [k_split(k, widths, SPLIT_ROW_TILES) for k, widths in log_prob_products(dims)]
 
 
 def log_prob_plan(dims: Sequence[int], nrows: int, sms: int = H100[0],
@@ -201,20 +219,20 @@ def log_prob_plan(dims: Sequence[int], nrows: int, sms: int = H100[0],
     one a block); ``array`` the plan as the kernel takes it."""
     dims = [int(v) for v in dims]
     i, h, h2, h4, h8, c1, c2, c3, l6, out = dims
-    row_tiles = _cdiv(nrows, TILE_ROWS)
+    row_tiles = cdiv(nrows, TILE_ROWS)
     capacity = sms * per_sm
     products = []
     for (k, widths), split in zip(log_prob_products(dims), log_prob_splits(dims)):
-        col_tiles = [_cdiv(n, TILE_COLS) for n in widths] + [0] * (2 - len(widths))
-        nk = _cdiv(k, TILE_K)
+        col_tiles = [cdiv(n, TILE_COLS) for n in widths] + [0] * (2 - len(widths))
+        nk = cdiv(k, TILE_K)
         tiles = row_tiles * sum(col_tiles)
         products.append({"K": k, "chunks": nk, "col_tiles": col_tiles, "tiles": tiles,
                          "split": split,
                          "ranges": [(q * nk // split, (q + 1) * nk // split) for q in range(split)]})
     blocks = max(1, min(capacity, max(p["tiles"] * p["split"] for p in products)))
-    width = _round4(max(i, h, h2, l6, out, h4))
-    hmax = _round4(max(c1, c2, c3))
-    ldx = _round4(i)
+    width = round4(max(i, h, h2, l6, out, h4))
+    hmax = round4(max(c1, c2, c3))
+    ldx = round4(i)
     part_floats = 0
     for p in products:
         p["local"] = p["split"] > 1 and p["tiles"] >= blocks
@@ -223,7 +241,7 @@ def log_prob_plan(dims: Sequence[int], nrows: int, sms: int = H100[0],
             part_floats = max(part_floats, (blocks if p["local"] else p["items"]) * TILE_ROWS * TILE_COLS)
     floats = {"A": 0, "B": nrows * width, "H": 2 * nrows * width}
     floats["X"] = floats["H"] + nrows * hmax
-    floats["part"] = _round4(floats["X"] + nrows * ldx)
+    floats["part"] = round4(floats["X"] + nrows * ldx)
     floats["total"] = floats["part"] + part_floats
     # work item i goes to block i * 37 mod blocks (csrc/fused_mlp.cu, plan_apply)
     deal = pow(37, -1, blocks) if blocks % 37 else 1
@@ -299,7 +317,7 @@ def launch_shape(spec: N.ModelSpec, nrows: int, kernel: str) -> Dict[str, int]:
     (:func:`log_prob_design`) and its CUDA ``kernel``."""
     lib = LIBRARY.get()
     if kernel == "fused_log_prob":
-        dims = _dims(spec)
+        dims = kernel_dims(spec)
         design = log_prob_design(cluster_walkers(dims))
         if design == "cluster":
             shape, smem = (ctypes.c_int * 6)(), ctypes.c_longlong()
@@ -320,7 +338,7 @@ def launch_shape(spec: N.ModelSpec, nrows: int, kernel: str) -> Dict[str, int]:
                 "capacity": plan["capacity"], "split": [p["split"] for p in plan["products"]],
                 "local": [int(p["local"]) for p in plan["products"]],
                 "max_items": plan["max_items"], "smem_bytes": smem}
-    dims = (ctypes.c_int * 10)(*_dims(spec))
+    dims = (ctypes.c_int * 10)(*kernel_dims(spec))
     shape, smem = (ctypes.c_int * 19)(), ctypes.c_longlong()
     LIBRARY.check(lib.linna_apply_launch_shape(nrows, dims, shape, ctypes.byref(smem)),
                   "fused_apply launch-shape query kernel launch")
@@ -367,12 +385,12 @@ def fused_apply_plain(spec: N.ModelSpec, params, x: torch.Tensor) -> torch.Tenso
     _reject_bypass(spec, "fused kernels do", "nn.apply_model (the XLA path)")
     plain_calls["fused_apply"] += 1
     plain_shapes["fused_apply"].add((x.shape[0], spec.in_size, spec.out_size))
-    return _trunk_plain(x.to(torch.float32), _flatten_params(params))
+    return _trunk_plain(x.to(torch.float32), flatten_params(params))
 
 
 def _launch_apply(spec: N.ModelSpec, x: torch.Tensor, weights) -> torch.Tensor:
     lib = LIBRARY.get()
-    dims = (ctypes.c_int * 10)(*_check_weights(spec, weights, x.device))
+    dims = (ctypes.c_int * 10)(*check_weights(spec, weights, x.device))
     require(x, "x", torch.float32, (x.shape[0], spec.in_size), x.device)
     out = torch.empty((x.shape[0], spec.out_size), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
@@ -384,7 +402,7 @@ def _launch_apply(spec: N.ModelSpec, x: torch.Tensor, weights) -> torch.Tensor:
         scratch = torch.empty((floats,), dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.linna_fused_apply(
-            x.data_ptr(), x.shape[0], _ptrs(weights), dims, out.data_ptr(),
+            x.data_ptr(), x.shape[0], pointers(weights), dims, out.data_ptr(),
             scratch.data_ptr(), floats, stream,
         )
     LIBRARY.check(err, "fused_apply kernel launch")
@@ -416,13 +434,13 @@ def fused_apply(spec: N.ModelSpec, params, x: torch.Tensor) -> torch.Tensor:
     if not x.is_cuda:
         return fused_apply_plain(spec, params, x)
     x = x.to(torch.float32).contiguous()
-    return _FusedApply.apply(spec, x, *_flatten_params(params))
+    return _FusedApply.apply(spec, x, *flatten_params(params))
 
 
 # ------------------------------------------------------- fused likelihood
 
 
-def _like_tensors(env) -> List[torch.Tensor]:
+def like_tensors(env) -> List[torch.Tensor]:
     pk, ts = env["priors"], env["transforms"]
     xt, yt = ts.x_transform, ts.y_transform
     return [
@@ -437,13 +455,13 @@ def fused_log_prob_plain(spec: N.ModelSpec, x: torch.Tensor, env, ypositive: boo
     steps of the kernel on an env of :func:`likelihood.make_log_prob`."""
     plain_calls["fused_log_prob"] += 1
     plain_shapes["fused_log_prob"].add((x.shape[0], spec.in_size, spec.out_size))
-    is_gauss, a1, a2, xm, xs, xl, ym, ys, sg, data, ic, temp = _like_tensors(env)
+    is_gauss, a1, a2, xm, xs, xl, ym, ys, sg, data, ic, temp = like_tensors(env)
     xw = x.to(torch.float32)
     u = 0.5 * (1.0 + torch.special.erf(xw / 1.4142135623730951))
     x_phys = torch.where(is_gauss, xw * a2 + a1, u * (a2 - a1) + a1)
     bad = torch.any(xl & (x_phys <= 0.0), dim=-1)
     x_in = torch.where(xl, torch.log10(torch.clamp(x_phys, min=1e-30)), x_phys)
-    pred = _trunk_plain((x_in - xm) / xs, _flatten_params(env["params"]))
+    pred = _trunk_plain((x_in - xm) / xs, flatten_params(env["params"]))
     m = pred * ys + ym
     if ypositive:
         m = torch.exp(m)
@@ -467,12 +485,12 @@ class _LaunchArgs:
         self.design: Optional[str] = None
 
     def get(self, env):
-        weights = _flatten_params(env["params"])
-        like = _like_tensors(env)
+        weights = flatten_params(env["params"])
+        like = like_tensors(env)
         key = tuple(id(t) for t in weights) + tuple(id(t) for t in like)
         if key != self.key:
             device = env["data"].device
-            dims = _check_weights(self.spec, weights, device)
+            dims = check_weights(self.spec, weights, device)
             d, n = self.spec.in_size, self.spec.out_size
             names = ("is_gauss", "arg1", "arg2", "x_mean", "x_std", "log10_mask",
                      "y_mean", "y_std", "sigma", "data", "inv_cov", "temperature")
@@ -482,14 +500,14 @@ class _LaunchArgs:
                 require(t, name, dt, shape, device)
             self.tensors = weights + like  # keeps the pointed-to tensors alive
             self.device = device
-            self.arrays = (_ptrs(weights), (ctypes.c_int * 10)(*dims), _ptrs(like))
+            self.arrays = (pointers(weights), (ctypes.c_int * 10)(*dims), pointers(like))
             self.key = key
         return self.arrays
 
     def design_of(self) -> str:
         """The model's design (:func:`log_prob_design`), asked once."""
         if self.design is None:
-            self.design = log_prob_design(cluster_walkers(_dims(self.spec)))
+            self.design = log_prob_design(cluster_walkers(kernel_dims(self.spec)))
         return self.design
 
     def plan(self, nrows: int):
@@ -498,7 +516,7 @@ class _LaunchArgs:
         got = self.plans.get(nrows)
         if got is None:
             sms, per_sm, _ = log_prob_capacity()
-            plan = log_prob_plan(_dims(self.spec), nrows, sms, per_sm)
+            plan = log_prob_plan(kernel_dims(self.spec), nrows, sms, per_sm)
             got = (plan["floats"]["total"], (ctypes.c_longlong * PLAN_LENGTH)(*plan["array"]))
             self.plans[nrows] = got
         return got
@@ -535,17 +553,17 @@ def _launch_log_prob(spec: N.ModelSpec, x: torch.Tensor, env, ypositive: bool,
     return lp
 
 
-def _tree_tensors(tree) -> List[torch.Tensor]:
+def tree_tensors(tree) -> List[torch.Tensor]:
     """The tensor leaves of an env (dicts and named tuples), in order."""
     if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in _tree_tensors(v)]
+        return [leaf for v in tree.values() for leaf in tree_tensors(v)]
     if isinstance(tree, tuple):
-        return [leaf for v in tree for leaf in _tree_tensors(v)]
+        return [leaf for v in tree for leaf in tree_tensors(v)]
     return [tree] if torch.is_tensor(tree) else []
 
 
 def _tree_rebuild(tree, leaves):
-    """``tree`` with its tensor leaves replaced, in :func:`_tree_tensors` order."""
+    """``tree`` with its tensor leaves replaced, in :func:`tree_tensors` order."""
     if isinstance(tree, dict):
         return {k: _tree_rebuild(v, leaves) for k, v in tree.items()}
     if isinstance(tree, tuple):
@@ -608,7 +626,7 @@ def fused_log_prob(
             return fused_log_prob_plain(spec, x, env, ypositive)
         x = x.contiguous()
         if torch.is_grad_enabled():
-            leaves = _tree_tensors(env)
+            leaves = tree_tensors(env)
             if x.requires_grad or any(t.requires_grad for t in leaves):
                 meta = (spec, ypositive, env, ref_pure, args)
                 return _FusedLogProb.apply(meta, x, *leaves)

@@ -42,7 +42,7 @@ NVCC_FLAGS = (
 
 # ------------------------------------------------------------------ counters
 
-KERNELS = ("fused_apply", "fused_log_prob", "adamw")
+KERNELS = ("fused_apply", "fused_log_prob", "adamw", "composition_grad")
 LIKELIHOOD_KERNELS = KERNELS[:2]
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 plain_calls: Dict[str, int] = dict.fromkeys(KERNELS, 0)

@@ -5,9 +5,11 @@ once: a leapfrog is one batched likelihood call over the whole ensemble
 followed by one backward pass, and the per-walker gradients come from
 ``torch.autograd.grad(lp.sum(), x)``.  Rows are independent, so that is
 each walker's own gradient: what the JAX package gets from
-``vmap(value_and_grad)``.  It also runs through the likelihood kernel's
-``autograd.Function`` (``ops.fused``), whose backward recomputes the plain
-composition.
+``vmap(value_and_grad)``.  It also runs through the likelihood kernels'
+``autograd.Function``s: on a card the K-member composition's value and
+gradient come from one kernel (``ops.composition``), and the
+``fused_log_prob`` kernel's backward recomputes the plain composition
+(``ops.fused``).
 
 The NUTS tree is Hoffman & Gelman's Algorithm 3 with the recursion unrolled
 over the static ``max_depth``, as in the JAX package: every lane takes all

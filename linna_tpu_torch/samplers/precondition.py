@@ -16,10 +16,12 @@ mean + std: the MAP search often ends on the kink between two members'
 chi^2, and the std's second derivatives there are f32 rounding noise that
 can hand NUTS a direction of negative curvature (unit scale) and a tiny
 step.  The MAP search and the sampled posterior stay the reference's.  It always goes
-through the likelihood's plain composition: the CUDA kernel's
-``autograd.Function`` has no forward-mode or vmap rule, so ``torch.func``
-cannot trace it.  The MAP search itself calls the likelihood as the sampler
-does (through the kernel where the likelihood has one).
+through the likelihood's plain composition: the CUDA kernels'
+``autograd.Function``s have no forward-mode or vmap rule, so ``torch.func``
+cannot trace them (the composition's kernel route steps aside under a
+``torch.func`` transform).  The MAP search itself calls the likelihood as
+the sampler does (its BFGS gradient through a kernel where the likelihood
+has one).
 """
 
 from __future__ import annotations

@@ -47,6 +47,18 @@ def test_device_ms_refuses_a_count_that_differs_from_the_launches(monkeypatch, s
         C.device_ms(lambda: None, "fused_apply_kernel", reps=30)
 
 
+def test_kernel_ms_takes_the_mean_of_the_events_a_short_profile_recorded(monkeypatch):
+    _profile_gives(monkeypatch, *[{KERNEL: (25, 2500.0), "memset": (30, 90.0)}] * 4)
+    ms, method = C.kernel_ms(lambda: None, "fused_apply_kernel", reps=30)
+    assert ms == pytest.approx(0.1)
+    assert "mean of the 25 device events of fused_apply_kernel it recorded of 30" in method
+    _profile_gives(monkeypatch, {KERNEL: (30, 2700.0)})
+    assert C.kernel_ms(lambda: None, "fused_apply_kernel", reps=30)[0] == pytest.approx(0.09)
+    _profile_gives(monkeypatch, *[{"memset": (30, 90.0)}] * 4)
+    with pytest.raises(AssertionError, match="saw 0 device events"):
+        C.kernel_ms(lambda: None, "fused_apply_kernel", reps=30)
+
+
 def test_device_ms_takes_a_reading_again_after_a_short_one(monkeypatch):
     _profile_gives(monkeypatch, {KERNEL: (17, 930.0)}, {KERNEL: (60, 5400.0)})
     ms, _ = C.device_ms(lambda: None, "fused_apply_kernel", per_call=2, reps=30)
@@ -160,7 +172,7 @@ def test_phase_gradient_rehearsal(tmp_path):
     emcee through ``run_ensemble``."""
     res, launches = C.phase_gradient(torch.device("cpu"), str(tmp_path), nwalkers=16,
                                      nuts_steps=10, hmc_steps=5, emcee_steps=20, ndim=6, ndata=40)
-    none = {"fused_apply": 0, "fused_log_prob": 0}
+    none = {"fused_apply": 0, "fused_log_prob": 0, "composition_grad": 0}
     assert launches == {"gradient": none, "emcee": none}  # no kernel on the CPU
     assert res["gradient_check"]["log10 lanes"]["-inf rows"] > 0
     assert res["gradient_check"]["mixed priors"]["abs"] <= 1e-6
@@ -169,6 +181,27 @@ def test_phase_gradient_rehearsal(tmp_path):
         assert rec["steps"] == steps and 0.0 <= rec["mean_acceptance"] <= 1.0
         assert (rec["sampler_s"]["precond"] > 0) == (method != "emcee")
     assert res["nuts"]["mean_acceptance"] > 0
+
+
+def test_phase_composition_grad_rehearsal(tmp_path):
+    """Phase 6b on the CPU at 5 -> 12: the plain version stands in for the
+    kernel's calls (one plain call each, held to the composition's float64
+    autograd), then NUTS at K = 2 through ``run_ensemble``, which keeps the
+    composition here."""
+    res = C.phase_composition_grad(torch.device("cpu"), str(tmp_path), rows=(1, 16),
+                                   nuts_steps=3, nwalkers=8, ndim=5, ndata=12)
+    assert sorted(res["members"]) == [1, 2]
+    for rec in res["members"].values():
+        assert sorted(rec["by_rows"]) == [1, 16]
+        for r in rec["by_rows"].values():
+            assert r["counts"]["plain_calls"]["composition_grad"] == 1
+            assert not any(r["counts"]["launches"].values())
+            assert r["value_gap_over_tolerance"] <= 1.0 and "ms" not in r
+    nuts = res["nuts"]
+    assert nuts["members"] == 2 and nuts["steps"] == 3 and nuts["precond_s"] > 0
+    assert not any(nuts["counts"]["launches"].values())
+    assert not any(nuts["counts"]["plain_calls"].values())
+    assert nuts["launches_per_traced_sample"] == 0
 
 
 TINY_THEORY = """
@@ -231,7 +264,7 @@ def test_phase_premodel_and_bf16_rehearsal(tmp_path):
     assert rec["wrapper_check"]["abs"] <= 1e-6 and rec["fit_traced_peak_bytes"] > 0
     assert rec["gradient"]["steps"] == 4 and rec["gradient"]["precond_s"] > 0
     assert rec["gradient"]["hessian_asymmetry"] <= 1e-3
-    none = {"fused_apply": 0, "fused_log_prob": 0}
+    none = {"fused_apply": 0, "fused_log_prob": 0, "composition_grad": 0}
     assert rec["counts"]["launches"] == none and rec["gradient"]["counts"]["launches"] == none
     bf16 = C.phase_bf16(dev, str(tmp_path / "run" / "iter_0"), nensemble=2, ndim=6, ndata=8,
                         walker_counts=(16, 64), zeus_steps=10, nwalkers=16)

@@ -119,7 +119,7 @@ DESIGNS = {"des": "cluster", "lsst": "tiled"}
 def test_launch_shape_names_the_design_and_tells_the_row_counts_apart(card, width):
     ndim, ndata = WIDTHS[width]
     spec = N.make_model_spec("chto_v2", ndim, ndata)
-    dims = F._dims(spec)
+    dims = F.kernel_dims(spec)
     assert F.log_prob_design(F.cluster_walkers(dims)) == DESIGNS[width]
     shapes = {rows: F.launch_shape(spec, rows, "fused_log_prob") for rows in (1, 128, 256)}
     assert len({s["blocks"] for s in shapes.values()}) == 3

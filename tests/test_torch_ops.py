@@ -44,7 +44,7 @@ def test_fused_apply_autograd_function_gradients(monkeypatch):
     p = problem(ndim=3, ndata=4)
     monkeypatch.setattr(TF, "_launch_apply", lambda spec, x, w: TF._trunk_plain(x, w))
     x = walkers(8, 3, seed=8)
-    weights = [w.clone().requires_grad_(True) for w in TF._flatten_params(p.params_t)]
+    weights = [w.clone().requires_grad_(True) for w in TF.flatten_params(p.params_t)]
     xt = t(x).requires_grad_(True)
     out = TF._FusedApply.apply(p.tspec, xt, *weights)
     torch.sum(out**2).backward()
@@ -53,7 +53,7 @@ def test_fused_apply_autograd_function_gradients(monkeypatch):
         return jnp.sum(JN.apply_model(p.spec, params, xx) ** 2)
 
     gp, gx = jax.grad(loss, argnums=(0, 1))(p.params_j, x)
-    want = [np.asarray(a) for a in TF._flatten_params(gp)]
+    want = [np.asarray(a) for a in TF.flatten_params(gp)]
     for w, g in zip(weights, want):
         np.testing.assert_allclose(w.grad.numpy(), g, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), rtol=1e-4, atol=1e-5)
@@ -161,7 +161,7 @@ def test_fused_log_prob_autograd_function_gradient(monkeypatch):
     env = lp._env
     meta = (p.tspec, False, env, TLK.make_log_prob(
         p.tspec, p.params_t, p.ts_t, p.pack_t, p.data, p.inv_cov, device=CPU)._pure, None)
-    out = TF._FusedLogProb.apply(meta, xt, *TF._tree_tensors(env))
+    out = TF._FusedLogProb.apply(meta, xt, *TF.tree_tensors(env))
     out.sum().backward()
     j_lp = JLK.make_log_prob(p.spec, p.params_j, p.ts_j, p.pack_j, p.data, p.inv_cov)
     g_ref = np.asarray(JLK.make_grad_log_prob(j_lp)(x))
@@ -170,7 +170,7 @@ def test_fused_log_prob_autograd_function_gradient(monkeypatch):
 
 # ------------------------------------------------- fused_log_prob's launch plan
 
-# the kernel's widths (fused._dims) of the DES-Y1 3x2pt and LSST-Y10 6x2pt+N
+# the kernel's widths (fused.kernel_dims) of the DES-Y1 3x2pt and LSST-Y10 6x2pt+N
 # emulators; every row count a sampling path launches (the MAP search's one
 # row, a ragged 37, zeus's half-ensemble, NUTS's whole one, bench_fused's
 # large batches)

@@ -231,7 +231,8 @@ def test_fused_binds_the_seams_counters():
     for name in ("launches", "plain_calls", "designs", "launch_shapes", "plain_shapes",
                  "reset_counts"):
         assert getattr(TF, name) is getattr(TL, name), name
-    assert list(TL.launches) == list(TL.plain_calls) == ["fused_apply", "fused_log_prob", "adamw"]
+    assert list(TL.launches) == list(TL.plain_calls) == ["fused_apply", "fused_log_prob", "adamw",
+                                                          "composition_grad"]
     assert list(TL.designs) == ["tiled", "cluster"]
     assert TL.COUNTERS == {"launches": TL.launches, "plain_calls": TL.plain_calls,
                            "designs": TL.designs}

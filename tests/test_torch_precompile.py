@@ -271,7 +271,8 @@ def test_warm_up_builds_every_library(loaded, use_kernel):
     report = PC._warm("chto_v2", 3, 4, 8, 16, use_kernel, torch.device("cpu"))
     built = [lib.name for lib in TOPS.LIBRARIES if use_kernel or lib is not TF.LIBRARY]
     assert list(report["build_s"]) == built
-    assert report["launches"] == {"fused_apply": 0, "fused_log_prob": 0, "adamw": 0}
+    assert report["launches"] == {"fused_apply": 0, "fused_log_prob": 0, "adamw": 0,
+                                  "composition_grad": 0}
     for lib in TOPS.LIBRARIES:
         assert (lib.lib is not None) == (lib.name in built)
         assert lib.stats["foreground_wait_s"] == 0.0
